@@ -6,14 +6,20 @@ Run from the root of a checkout, with no arguments::
     python3 chip_smoke.py
 
 Phase 1 builds the hand-written CUDA kernels from ``src/repro_torch/csrc``
-and holds each one, at the main path's full-width shapes, against its plain
-PyTorch version on the same inputs, row by row with a relative tolerance;
-it times the kernel, the plain version and a library yardstick with CUDA
-events.  Phase 2 runs the main path through the user's entry point,
-``EvalSession.run_task``, on full-width qwen3-4b with random bf16 weights,
-and checks that every kernel launched there, that the greedy tokens of a
-prompt do not depend on the batch around it, and that the logits are
-finite.
+and holds each one, at the main paths' full-width shapes, against its plain
+PyTorch version on the same inputs, row by row with a relative tolerance
+(the f32 paged decode kernel also bit for bit against the contiguous one
+on the same rows); it times the kernel, the plain version and a library
+yardstick where one exists, with CUDA events.  Phase 2 runs the contiguous
+main path through the user's entry point, ``EvalSession.run_task``, on
+full-width qwen3-4b with random bf16 weights, and checks that its kernels
+launched there, that the greedy tokens of a prompt do not depend on the
+batch around it, and that the logits are finite.  Phase 3 runs the paged
+path: ``run_task`` over few-shot prompts (a ~464-token header of worked
+examples shared by every prompt) with the f32 page pool and prefix
+sharing, then with the int8 pool, and gates through ``infer_batch``: paged
+without sharing and paged under preemption give the contiguous engine's
+texts.
 
 Standard output: the card's name and power limit first, then log lines,
 then one ``{"kernels": [...]}`` line, and last the
@@ -48,6 +54,9 @@ HEADS, KV_HEADS, HEAD_DIM = 32, 8, 128
 N_ROWS, CHUNK, N_SLOTS, MAX_LEN, MAX_TOKENS, N_BOOT = 64, 16, 16, 1024, 32, 1000
 #: a main-path prompt's length (the QA prompts render to 10-13 tokens)
 PROMPT_LEN = 12
+#: phase 3: tokens per KV page, and the few-shot header's token range
+PAGE_SIZE = 16
+HEADER_TOKENS = (448, 480)
 
 
 class CheckFailed(RuntimeError):
@@ -99,7 +108,7 @@ def rowwise(torch, out, ref, rtol: float, row_frac: float) -> tuple[float, float
 # -- phase 1: kernels against their plain versions ------------------------------
 
 
-def flash_cases(torch):
+def flash_cases(torch, fs):
     from repro_torch.kernels.flash_attention import (
         flash_attention,
         flash_attention_ref,
@@ -107,8 +116,10 @@ def flash_cases(torch):
 
     g = torch.Generator(device="cuda").manual_seed(0)
     out = []
+    # the last shape is phase 3's suffix prefill after a prefix-cache hit
     for sq, sk, off in ((PROMPT_LEN, PROMPT_LEN, 0), (37, 37, 0), (512, 512, 0),
-                        (2048, 2048, 0), (512, 2048, 1536)):
+                        (2048, 2048, 0), (512, 2048, 1536),
+                        (fs.prompt_len - fs.shared, fs.prompt_len, fs.shared)):
         def rnd(s, h):
             return torch.randn((1, s, h, HEAD_DIM), generator=g, device="cuda",
                                dtype=torch.float32).to(torch.bfloat16)
@@ -202,6 +213,168 @@ def decode_case(torch):
     return entry
 
 
+
+def paged_pool(torch, g, b: int, n_p: int, n_shared: int):
+    """Phase 3's pool: b * n_p + b pages (the batcher's default) and the
+    trash page, f32 (P, ps, K, d); tables whose first n_shared entries
+    alias pages 0 .. n_shared - 1 in every sequence and whose other entries
+    are shuffled private pages."""
+    n_pool = b * n_p + b + 1
+    shape = (n_pool, PAGE_SIZE, KV_HEADS, HEAD_DIM)
+    k = torch.randn(shape, generator=g, device="cuda")
+    v = torch.randn(shape, generator=g, device="cuda")
+    private = torch.randperm(n_pool - n_shared, generator=g, device="cuda") + n_shared
+    tables = private[: b * (n_p - n_shared)].view(b, -1)
+    shared = torch.arange(n_shared, device="cuda").expand(b, -1)
+    return k, v, torch.cat([shared, tables], 1).to(torch.int32).contiguous()
+
+
+def pad_tables(torch, tables, lens):
+    """Entries past ceil(length / ps) become 0, the padding convention."""
+    used = (lens + PAGE_SIZE - 1) // PAGE_SIZE
+    pad = torch.arange(tables.shape[1], device="cuda")[None, :] >= used[:, None]
+    return tables.masked_fill(pad, 0)
+
+
+def paged_bound(torch, tables, lens, row_bytes: int, page_bytes: int,
+                skip_last: bool, extra_bytes: int) -> tuple[float, str]:
+    """Least time for one paged decode call: the distinct pool rows its
+    sequences read (an aliased row once; the row a fresh row replaces not
+    at all) at ``row_bytes`` for K and V together, ``page_bytes`` of scales
+    per distinct page, q and out in bf16, tables, lengths and
+    ``extra_bytes``, at 3.35 TB/s; 4 d FLOPs per (query head, visible key)
+    pair at the bf16 peak."""
+    b, n_p = tables.shape
+    pos = torch.arange(n_p * PAGE_SIZE, device="cuda")
+    need = pos[None, :] < (lens[:, None] - (1 if skip_last else 0))
+    page = tables.long().gather(1, (pos // PAGE_SIZE).expand(b, -1))
+    rows = (page * PAGE_SIZE + pos % PAGE_SIZE)[need]
+    n_rows = int(rows.unique().numel())
+    n_pages = int(page[need].unique().numel())
+    nbytes = (n_rows * row_bytes + n_pages * page_bytes
+              + 2 * b * HEADS * HEAD_DIM * 2 + 4 * (b * n_p + b) + extra_bytes)
+    log(f"  bound inputs: {int(lens.sum())} visible keys, {n_rows} distinct "
+        f"pool rows in {n_pages} pages, {nbytes} bytes")
+    return bound(4 * HEAD_DIM * HEADS * int(lens.sum()), PEAK_BF16, nbytes)
+
+
+def paged_cases(torch, fs) -> list[dict]:
+    """Kernels 3 and 4 at phase 3's geometry (16 sequences, 64 pages of 16
+    rows, a pool of 1,041 pages, the shared header's pages aliased in every
+    table), at ragged lengths 1 .. 1,024 and at the main path's lengths."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention,
+        paged_decode_attention,
+        paged_decode_attention_ref,
+        quant_paged_decode_attention,
+        quant_paged_decode_attention_ref,
+        quantize_pages,
+    )
+
+    b, n_p = N_SLOTS, MAX_LEN // PAGE_SIZE
+    n_shared = fs.shared // PAGE_SIZE
+    g = torch.Generator(device="cuda").manual_seed(3)
+    k, v, full_tables = paged_pool(torch, g, b, n_p, n_shared)
+    kq, ks = quantize_pages(k)
+    vq, vs = quantize_pages(v)
+    q = torch.randn((b, 1, HEADS, HEAD_DIM), generator=g, device="cuda").to(
+        torch.bfloat16)
+    k_new = torch.randn((b, KV_HEADS, HEAD_DIM), generator=g, device="cuda")
+    v_new = torch.randn((b, KV_HEADS, HEAD_DIM), generator=g, device="cuda")
+    ragged = torch.randint(1, MAX_LEN + 1, (b,), generator=g, device="cuda")
+    ragged[:6] = torch.tensor([1, MAX_LEN, PAGE_SIZE, fs.shared, 512, 17])
+    main = fs.prompt_len + 1 + 2 * torch.arange(b, device="cuda")
+    out = []
+    for label, lens in (("ragged lengths 1..1024", ragged),
+                        (f"main-path lengths {int(main[0])}..{int(main[-1])}", main)):
+        lens = lens.to(torch.int32)
+        tables = pad_tables(torch, full_tables, lens)
+        shape = (f"B={b} H={HEADS} K={KV_HEADS} d={HEAD_DIM} ps={PAGE_SIZE} "
+                 f"nP={n_p} pool={k.shape[0]} pages, first {n_shared} aliased, {label}")
+
+        got = paged_decode_attention(q, k, v, tables, lens)
+        ref = paged_decode_attention_ref(q, k, v, tables, lens)
+        contiguous = decode_attention(q, k[tables.long()].flatten(1, 2),
+                                      v[tables.long()].flatten(1, 2), lens)
+        torch.cuda.synchronize()
+        # both sides f32 until the final bf16 rounding of the output, as decode
+        err, ratio = rowwise(torch, got, ref, 2**-7, 1e-3)
+        require(ratio <= 1.0,
+                f"paged_decode_attention {shape}: error/allowance {ratio:.3g}")
+        require(bool(torch.equal(got, contiguous)),
+                f"paged_decode_attention {shape}: not bit-equal to decode_attention")
+        b_ms, b_by = paged_bound(torch, tables, lens, 2 * KV_HEADS * HEAD_DIM * 4, 0,
+                                 False, 0)
+        kc, vc = (t[tables.long()].flatten(1, 2) for t in (k, v))
+        entry = {
+            "name": "paged_decode_attention",
+            "route": "cuda",
+            "source": "src/repro_torch/csrc/paged_decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention/paged.py:86",
+            "shape": shape,
+            "max_abs_err": err,
+            "ms": time_ms(torch, lambda: paged_decode_attention(q, k, v, tables, lens)),
+            "plain_ms": time_ms(
+                torch, lambda: paged_decode_attention_ref(q, k, v, tables, lens)),
+            "library_ms": None,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+        }
+        contiguous_ms = time_ms(torch, lambda: decode_attention(q, kc, vc, lens))
+        qt = q.float().transpose(1, 2)
+        kt, vt = (t.transpose(1, 2).repeat_interleave(HEADS // KV_HEADS, dim=1)
+                  for t in (kc, vc))
+        mask = (torch.arange(MAX_LEN, device="cuda")[None, :]
+                < lens[:, None])[:, None, None, :]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        sdpa_ms = time_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask))
+        out.append(entry)
+        log(f"paged_decode_attention {shape}: err {err:.3g} (ratio {ratio:.3g}), "
+            f"bit-equal to decode_attention; {entry['ms']:.4g} ms, plain "
+            f"{entry['plain_ms']:.4g} ms, bound {b_ms:.4g} ms ({b_by}); "
+            f"decode_attention on the same rows gathered beforehand "
+            f"{contiguous_ms:.4g} ms, SDPA on them gathered and expanded "
+            f"beforehand {sdpa_ms:.4g} ms")
+
+        rows = (k_new, v_new, lens - 1)
+        errs = []
+        for r in (None, rows):
+            got = quant_paged_decode_attention(q, kq, vq, ks, vs, tables, lens, r)
+            ref = quant_paged_decode_attention_ref(q, kq, vq, ks, vs, tables, lens, r)
+            torch.cuda.synchronize()
+            # the same int8 * scale rows in f32 on both sides, as above
+            errs.append(rowwise(torch, got, ref, 2**-7, 1e-3))
+            require(errs[-1][1] <= 1.0, f"quant_paged_decode_attention {shape} "
+                    f"fresh rows {r is not None}: error/allowance {errs[-1][1]:.3g}")
+        b_ms, b_by = paged_bound(torch, tables, lens, 2 * KV_HEADS * HEAD_DIM,
+                                 2 * 4 * KV_HEADS, True,
+                                 2 * b * KV_HEADS * HEAD_DIM * 4 + 4 * b)
+        entry = {
+            "name": "quant_paged_decode_attention",
+            "route": "cuda",
+            "source": "src/repro_torch/csrc/quant_paged_decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention/paged_quant.py:90",
+            "shape": shape + ", int8 pool, fresh rows (the main path's form)",
+            "max_abs_err": max(e for e, _ in errs),
+            "ms": time_ms(torch, lambda: quant_paged_decode_attention(
+                q, kq, vq, ks, vs, tables, lens, rows)),
+            "plain_ms": time_ms(torch, lambda: quant_paged_decode_attention_ref(
+                q, kq, vq, ks, vs, tables, lens, rows)),
+            "library_ms": None,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+        }
+        plain_form_ms = time_ms(torch, lambda: quant_paged_decode_attention(
+            q, kq, vq, ks, vs, tables, lens))
+        out.append(entry)
+        log(f"quant_paged_decode_attention {entry['shape']}: err "
+            f"{errs[0][0]:.3g} / {errs[1][0]:.3g} (ratio {errs[0][1]:.3g} / "
+            f"{errs[1][1]:.3g}) without / with fresh rows; {entry['ms']:.4g} ms "
+            f"({plain_form_ms:.4g} ms without fresh rows), plain "
+            f"{entry['plain_ms']:.4g} ms, bound {b_ms:.4g} ms ({b_by})")
+    return out
+
+
 def bootstrap_case(torch, n: int, m: int, n_boot: int, starts: tuple[int, ...],
                    seed: int, plain_iters: int):
     """One (n, m) score matrix per start, each held against the plain
@@ -254,13 +427,14 @@ def bootstrap_case(torch, n: int, m: int, n_boot: int, starts: tuple[int, ...],
     return entry
 
 
-def kernel_phase(torch) -> list[dict]:
+def kernel_phase(torch, fs) -> list[dict]:
     from repro_torch.core import StatisticsConfig
 
     seed = StatisticsConfig().seed
     return [
-        *flash_cases(torch),
+        *flash_cases(torch, fs),
         decode_case(torch),
+        *paged_cases(torch, fs),
         # the main path's calls: one per chunk, at the chunk's first position
         bootstrap_case(torch, CHUNK, 2, N_BOOT,
                        tuple(range(0, N_ROWS, CHUNK)), seed, plain_iters=20),
@@ -270,76 +444,105 @@ def kernel_phase(torch) -> list[dict]:
     ]
 
 
-# -- phase 2: the main path -------------------------------------------------------
+# -- phase 2: the contiguous main path ---------------------------------------------
 
-KERNEL_NAMES = ("flash_attention", "decode_attention", "bootstrap_partials")
+KERNEL_NAMES = ("flash_attention", "decode_attention", "paged_decode_attention",
+                "quant_paged_decode_attention", "bootstrap_partials")
 
 
 def counters():
     from repro_torch.kernels.bootstrap import bootstrap_partials
-    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.decode_attention import (
+        decode_attention,
+        paged_decode_attention,
+        quant_paged_decode_attention,
+    )
     from repro_torch.kernels.flash_attention import flash_attention
 
-    return dict(zip(KERNEL_NAMES,
-                    (flash_attention, decode_attention, bootstrap_partials)))
+    return dict(zip(KERNEL_NAMES, (
+        flash_attention, decode_attention, paged_decode_attention,
+        quant_paged_decode_attention, bootstrap_partials,
+    )))
 
 
-def main_path_phase(torch) -> dict[str, int]:
+def make_task(template: str | None = None, **inference):
     from repro_torch.core import (
+        DataConfig,
         EngineModelConfig,
-        EvalSession,
         EvalTask,
-        InferenceRequest,
+        InferenceConfig,
         MetricConfig,
         StatisticsConfig,
     )
-    from repro_torch.data import iter_qa_examples, render
 
     model = EngineModelConfig(provider="torch_local", model_name="qwen3-4b",
                               reduced=False, seed=0, max_tokens=MAX_TOKENS)
-    task = EvalTask(
+    data = DataConfig() if template is None else DataConfig(prompt_template=template)
+    return EvalTask(
         task_id="qa-qwen3-4b",
         model=model,
+        inference=InferenceConfig(**inference),
+        data=data,
         metrics=(MetricConfig("exact_match"), MetricConfig("token_f1")),
         statistics=StatisticsConfig(bootstrap_iterations=N_BOOT,
                                     ci_method="percentile", backend="device"),
     ).with_streaming(max_memory_rows=CHUNK)
+
+
+def timed_run_task(torch, session, task, kernels: tuple[str, ...], label: str):
+    """``run_task`` over the phase's rows with every launch count set to 0
+    just before and read just after; each of ``kernels`` must have
+    launched.  Returns (launches, serving stats, wall seconds)."""
+    from repro_torch.data import iter_qa_examples
+
+    engine = session.engine_for(task.model, task.inference)
+    for fn in counters().values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    result = session.run_task(iter_qa_examples(N_ROWS, seed=0), task)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters().items()}
+    log(f"{label} launches: {launches}")
+    for name in kernels:
+        require(launches[name] > 0, f"{name} was not launched on {label}")
+
+    st = engine.serving_stats()
+    prefill_ms = st["prefill_s"] * 1e3 / st["admissions"]
+    step_ms = st["decode_s"] * 1e3 / st["steps"]
+    generated = st["tokens_generated"] + st["admissions"]  # + first tokens
+    log(f"{label}: run_task wall {wall:.3f} s for {N_ROWS} examples; "
+        f"{st['admissions']} prefills, {prefill_ms:.2f} ms each; "
+        f"{st['steps']} decode steps, {step_ms:.2f} ms each (batch {N_SLOTS}); "
+        f"{st['tokens_generated']} decoded tokens, "
+        f"{st['tokens_generated'] / st['decode_s']:.1f} tokens/s in decode, "
+        f"{generated / wall:.1f} generated tokens/s end to end")
+    require(result.logs["streaming"]["n_examples"] == N_ROWS, "examples lost")
+    for name, mv in result.metrics.items():
+        log(f"{label} metric {name}: {mv}")
+        require(mv.n == N_ROWS, f"{name}: scored {mv.n} of {N_ROWS}")
+        require(0.0 <= mv.ci[0] <= mv.value <= mv.ci[1] <= 1.0,
+                f"{name}: bad interval {mv}")
+    return launches, st, wall
+
+
+def main_path_phase(torch) -> dict[str, int]:
+    from repro_torch.core import EvalSession, InferenceRequest
+    from repro_torch.data import iter_qa_examples, render
+
+    task = make_task()
     engine_kwargs = {"n_slots": N_SLOTS, "max_len": MAX_LEN}
     with EvalSession(device="cuda", engine_kwargs=engine_kwargs) as session:
         t0 = time.perf_counter()
-        engine = session.engine_for(model)
+        engine = session.engine_for(task.model, task.inference)
         torch.cuda.synchronize()
         log(f"engine set-up (random bf16 weights on the card): "
             f"{time.perf_counter() - t0:.3f} s, "
             f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-
-        for fn in counters().values():
-            fn.launches = 0
-        t0 = time.perf_counter()
-        result = session.run_task(iter_qa_examples(N_ROWS, seed=0), task)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {name: fn.launches for name, fn in counters().items()}
-        log(f"main path launches: {launches}")
-        for name, n in launches.items():
-            require(n > 0, f"{name} was not launched on the main path")
-
-        st = engine.serving_stats()
-        prefill_ms = st["prefill_s"] * 1e3 / st["admissions"]
-        step_ms = st["decode_s"] * 1e3 / st["steps"]
-        generated = st["tokens_generated"] + st["admissions"]  # + first tokens
-        log(f"run_task wall {wall:.3f} s for {N_ROWS} examples; "
-            f"{st['admissions']} prefills, {prefill_ms:.2f} ms each; "
-            f"{st['steps']} decode steps, {step_ms:.2f} ms each (batch {N_SLOTS}); "
-            f"{st['tokens_generated']} decoded tokens, "
-            f"{st['tokens_generated'] / st['decode_s']:.1f} tokens/s in decode, "
-            f"{generated / wall:.1f} generated tokens/s end to end")
-        require(result.logs["streaming"]["n_examples"] == N_ROWS, "examples lost")
-        for name, mv in result.metrics.items():
-            log(f"metric {name}: {mv}")
-            require(mv.n == N_ROWS, f"{name}: scored {mv.n} of {N_ROWS}")
-            require(0.0 <= mv.ci[0] <= mv.value <= mv.ci[1] <= 1.0,
-                    f"{name}: bad interval {mv}")
+        launches, _, _ = timed_run_task(
+            torch, session, task,
+            ("flash_attention", "decode_attention", "bootstrap_partials"),
+            "contiguous main path")
 
         # greedy tokens must not depend on the batch around a prompt
         rows = list(iter_qa_examples(N_SLOTS, seed=0))
@@ -362,19 +565,18 @@ def main_path_phase(torch) -> dict[str, int]:
         step = b.model.decode_step(b.params, nxt, b.cache, pos)
         require(bool(torch.isfinite(logits).all() and torch.isfinite(step).all()),
                 "logits hold NaN or inf")
-        decode_breakdown(torch, b, nxt, pos)
+        step_breakdown(
+            torch, f"decode step (batch {N_SLOTS}, all slots at position 4)",
+            lambda: b.model.decode_step(b.params, nxt, b.cache, pos))
     return launches
 
 
-def decode_breakdown(torch, batcher, tokens, positions, steps: int = 5) -> None:
-    """Where a full-batch decode step's time goes: host-clock wall per step
-    without the profiler, then device time per step by kernel from a
-    ``torch.profiler`` trace of the same steps."""
+def step_breakdown(torch, label: str, run, steps: int = 5) -> None:
+    """Where a step's time goes: host-clock wall per call of ``run``
+    without the profiler, then device time per call by kernel from a
+    ``torch.profiler`` trace of further calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    def run():
-        batcher.model.decode_step(batcher.params, tokens, batcher.cache, positions)
 
     run()
     torch.cuda.synchronize()
@@ -392,18 +594,218 @@ def decode_breakdown(torch, batcher, tokens, positions, steps: int = 5) -> None:
         if e.device_type == DeviceType.CUDA:
             by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
     if not by_name:
-        log("decode step breakdown: not measured (the profiler saw no device time)")
+        log(f"{label}: breakdown not measured (the profiler saw no device time)")
         return
     busy_ms = sum(sum(v) for v in by_name.values()) / 1e3 / steps
     n_events = sum(len(v) for v in by_name.values()) / steps
-    log(f"decode step (batch {tokens.shape[0]}): {wall_ms:.2f} ms wall without "
-        f"the profiler; device busy {busy_ms:.2f} ms per step "
-        f"({100 * busy_ms / wall_ms:.1f}% of wall) in {n_events:.0f} kernels "
-        f"and copies per step")
+    log(f"{label}: {wall_ms:.2f} ms wall without the profiler; device busy "
+        f"{busy_ms:.2f} ms per step ({100 * busy_ms / wall_ms:.1f}% of wall) in "
+        f"{n_events:.0f} kernels and copies per step")
     top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:6]
     for name, times in top:
         log(f"  {sum(times) / 1e3 / steps:.3f} ms/step in {len(times) // steps} "
             f"launches/step: {name[:90]}")
+
+
+# -- phase 3: the paged path ------------------------------------------------------
+
+
+class FewShot:
+    """Phase 3's prompt template: a header of ``k`` worked examples
+    (``"Q: {question} A: {reference}"`` over ``iter_qa_examples(k,
+    seed=1)``), then ``"Q: {question} A:"``.  ``k`` is the least that makes
+    the header at least 448 tokens; it must stay at 480 or fewer and every
+    prompt within the engine's ``max_len // 2`` tokens, or the engine would
+    cut the question off."""
+
+    def __init__(self):
+        from repro_torch.configs import get_config
+        from repro_torch.data import HashTokenizer, iter_qa_examples, render
+
+        tok = HashTokenizer(get_config("qwen3-4b").vocab_size)
+        for k in range(1, 100):
+            header = " ".join(f"Q: {r['question']} A: {r['reference']}"
+                              for r in iter_qa_examples(k, seed=1))
+            if len(tok.encode(header)) >= HEADER_TOKENS[0]:
+                break
+        self.k, self.header_tokens = k, len(tok.encode(header))
+        require(self.header_tokens <= HEADER_TOKENS[1],
+                f"header of {self.header_tokens} tokens")
+        self.template = header + " Q: {question} A:"
+        prompts = [tok.encode(render(self.template, r))
+                   for r in iter_qa_examples(N_ROWS, seed=0)]
+        lens = [len(p) for p in prompts]
+        require(max(lens) <= MAX_LEN // 2, f"prompts of up to {max(lens)} tokens")
+        self.prompt_len = max(lens)
+        common = next(i for i, (a, b) in enumerate(zip(*prompts[:2])) if a != b)
+        # the paged cache shares whole pages, never the final token's page
+        self.shared = min(common, min(lens) - 1) // PAGE_SIZE * PAGE_SIZE
+        log(f"few-shot header: {self.k} examples, {self.header_tokens} tokens; "
+            f"prompts {min(lens)}-{max(lens)} tokens, {self.shared} shared "
+            f"({self.shared // PAGE_SIZE} pages of {PAGE_SIZE})")
+
+
+class Probe:
+    """Counts the suffix prefills (flash launches with ``q_offset`` > 0)
+    and checks every sampled row of logits for NaN and inf without a host
+    read per step; keeps the first-token logits of each prefill."""
+
+    def __enter__(self):
+        import torch
+
+        import repro_torch.models.attention as attn
+        import repro_torch.serve.steps as steps
+
+        self._attn, self._steps = attn, steps
+        self._flash, self._sample = attn.flash_attention_bshd, steps.greedy_sample
+        self.suffix_prefills = 0
+        self.bad = torch.zeros((), dtype=torch.int64, device="cuda")
+        self.prefill_logits: list = []
+
+        def flash(q, k, v, *, q_offset=0):
+            self.suffix_prefills += q_offset > 0
+            return self._flash(q, k, v, q_offset=q_offset)
+
+        def sample(logits, vocab_size):
+            self.bad += (~torch.isfinite(logits)).sum()
+            if logits.shape[0] == 1:
+                self.prefill_logits.append(logits.float().clone())
+            return self._sample(logits, vocab_size)
+
+        attn.flash_attention_bshd, steps.greedy_sample = flash, sample
+        return self
+
+    def __exit__(self, *exc):
+        self._attn.flash_attention_bshd = self._flash
+        self._steps.greedy_sample = self._sample
+
+
+def free_cuda(torch) -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def paged_run(torch, params, fs, label, kernel, **inference):
+    """One paged ``run_task`` over the few-shot task with the given
+    paging knobs; returns (launches, serving stats, tokens by request)."""
+    from repro_torch.core import EvalSession
+
+    task = make_task(fs.template, kv_page_size=PAGE_SIZE, **inference)
+    engine_kwargs = {"n_slots": N_SLOTS, "max_len": MAX_LEN, "params": params}
+    tokens: dict[int, list[int]] = {}
+    with EvalSession(device="cuda", engine_kwargs=engine_kwargs) as session:
+        engine = session.engine_for(task.model, task.inference)
+        respond = engine._response
+
+        def keep_tokens(c):
+            tokens[c.request_id] = c.tokens
+            return respond(c)
+
+        engine._response = keep_tokens
+        with Probe() as probe:
+            launches, st, wall = timed_run_task(
+                torch, session, task,
+                ("flash_attention", kernel, "bootstrap_partials"), label)
+        require(probe.suffix_prefills > 0,
+                f"{label}: no flash launch with q_offset > 0")
+        require(int(probe.bad) == 0, f"{label}: logits hold NaN or inf")
+        require(st["prefix_tokens_saved"] > 0, f"{label}: no prefix shared")
+        log(f"{label}: {probe.suffix_prefills} suffix-prefill flash launches; "
+            f"prefix_pages_hit {st['prefix_pages_hit']}, prefix_tokens_saved "
+            f"{st['prefix_tokens_saved']}, pool_pages {st['pool_pages']}, "
+            f"kv_bytes_per_token {st['kv_bytes_per_token']}, preemptions "
+            f"{st['preemptions']}; {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+            f"GiB peak allocated")
+
+        # a decode step of the batcher with all 16 slots busy on header prompts
+        from repro_torch.core import InferenceRequest
+        from repro_torch.data import iter_qa_examples, render
+
+        for r in iter_qa_examples(N_SLOTS, seed=2):
+            engine.stream_submit(InferenceRequest(render(fs.template, r), MAX_TOKENS))
+        engine.stream_pump()
+        step_breakdown(torch, f"{label} batcher step (batch {N_SLOTS}, positions "
+                       f"~{fs.prompt_len})", engine.batcher.step)
+    free_cuda(torch)
+    return launches, st, tokens
+
+
+def infer_gates(torch, params, fs) -> None:
+    """Through ``infer_batch`` on 16 few-shot prompts: the paged engine
+    without sharing gives the contiguous engine's texts, and so does the
+    same engine with a pool so small that decode preempts."""
+    from repro_torch.core import EngineModelConfig, InferenceRequest, TorchLocalEngine
+    from repro_torch.data import iter_qa_examples, render
+
+    model = EngineModelConfig(provider="torch_local", model_name="qwen3-4b",
+                              reduced=False, seed=0, max_tokens=MAX_TOKENS)
+    reqs = [InferenceRequest(render(fs.template, r), MAX_TOKENS)
+            for r in iter_qa_examples(N_SLOTS, seed=0)]
+
+    def serve(label, **kw):
+        eng = TorchLocalEngine(model, n_slots=N_SLOTS, max_len=MAX_LEN,
+                               device="cuda", params=params, **kw)
+        t0 = time.perf_counter()
+        with Probe() as probe:
+            out = eng.infer_batch(reqs)
+        torch.cuda.synchronize()
+        st = eng.serving_stats()
+        require(all(r.error is None for r in out), f"{label}: lost requests")
+        require(int(probe.bad) == 0, f"{label}: logits hold NaN or inf")
+        log(f"{label}: infer_batch of {len(reqs)} in {time.perf_counter() - t0:.3f} s, "
+            f"{st['admissions']} prefills, {st['steps']} steps, preemptions "
+            f"{st['preemptions']}, prefix_tokens_saved {st['prefix_tokens_saved']}")
+        eng.shutdown()
+        del eng
+        free_cuda(torch)
+        return [r.text for r in out], st, probe.prefill_logits
+
+    contiguous, _, logits_c = serve("contiguous engine")
+    paged, _, _ = serve("paged engine, no prefix sharing", kv_page_size=PAGE_SIZE,
+                        prefix_cache=False)
+    require(paged == contiguous, "paged (no sharing) texts differ from contiguous")
+    # room for the first two prompts plus one page: both grow past it
+    need = -(-fs.prompt_len // PAGE_SIZE)
+    tight, st, _ = serve(f"paged engine, no sharing, pool of {2 * need + 1} pages",
+                         kv_page_size=PAGE_SIZE, prefix_cache=False,
+                         page_pool=2 * need + 1)
+    require(st["preemptions"] > 0, "the small pool preempted nothing")
+    require(tight == paged, "preempted texts differ from the roomy run")
+    shared, _, logits_s = serve("paged engine with prefix sharing",
+                                kv_page_size=PAGE_SIZE)
+    n_diff = sum(a != b for a, b in zip(shared, contiguous))
+    diff = max(float((a - b).abs().max()) for a, b in zip(logits_s, logits_c))
+    log(f"gates passed: paged without sharing and paged under preemption give "
+        f"the contiguous texts; with prefix sharing {n_diff} of {len(reqs)} texts "
+        f"differ from the contiguous engine, largest first-step logit "
+        f"difference {diff:.4g} (not gated)")
+
+
+def paged_phase(torch, fs) -> dict[str, dict[str, int]]:
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    t0 = time.perf_counter()
+    params = init_params(get_config("qwen3-4b"), 0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"phase 3 weights on the card in {time.perf_counter() - t0:.3f} s")
+    torch.cuda.reset_peak_memory_stats()
+    f32, _, tok_f32 = paged_run(torch, params, fs, "paged f32 path",
+                                "paged_decode_attention", prefix_cache=True)
+    int8, _, tok_int8 = paged_run(torch, params, fs, "paged int8 path",
+                                  "quant_paged_decode_attention",
+                                  kv_cache_dtype="int8")
+    total = same = 0
+    for rid, a in tok_f32.items():
+        b = tok_int8[rid]
+        total += max(len(a), len(b))
+        same += sum(x == y for x, y in zip(a, b))
+    log(f"int8 against f32 pool: {same} of {total} generated tokens equal "
+        f"position by position ({same / total:.4f}; no floor is set)")
+    infer_gates(torch, params, fs)
+    return {"f32": f32, "int8": int8}
 
 
 def main() -> int:
@@ -433,13 +835,23 @@ def main() -> int:
     t0 = time.perf_counter()
     _cuda.library()
     log(f"kernel library ready in {time.perf_counter() - t0:.1f} s")
+    t_start = time.perf_counter()
 
     try:
-        entries = kernel_phase(torch)
-        launches = main_path_phase(torch)
+        fs = FewShot()
+        entries = kernel_phase(torch, fs)
+        contiguous = main_path_phase(torch)
+        free_cuda(torch)
+        paged = paged_phase(torch, fs)
     except CheckFailed as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
+    # each kernel's launches on the path it carries: the contiguous main path
+    # for flash, decode and bootstrap, the paged runs for the paged kernels
+    launches = {**contiguous,
+                "paged_decode_attention": paged["f32"]["paged_decode_attention"],
+                "quant_paged_decode_attention":
+                    paged["int8"]["quant_paged_decode_attention"]}
     for e in entries:
         e["launches"] = launches[e["name"]]
     for e in entries:
@@ -448,6 +860,7 @@ def main() -> int:
                 print(f"chip_smoke: FAIL: {e['name']} {key} = {e[key]}",
                       file=sys.stderr)
                 return 1
+    log(f"phases 1-3 took {time.perf_counter() - t_start:.1f} s after the build")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -2,6 +2,7 @@ from repro_torch.core.config import (
     DataConfig,
     EngineModelConfig,
     EvalTask,
+    InferenceConfig,
     MetricConfig,
     StatisticsConfig,
     StreamingConfig,
@@ -21,6 +22,7 @@ __all__ = [
     "EvalResult",
     "EvalSession",
     "EvalTask",
+    "InferenceConfig",
     "InferenceRequest",
     "InferenceResponse",
     "MetricConfig",

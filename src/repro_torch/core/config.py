@@ -45,6 +45,25 @@ class StreamingConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class InferenceConfig:
+    """How the local engine serves the task (the serving knobs of
+    ``repro/core/config.py:InferenceConfig``), with the reference's
+    defaults."""
+
+    #: at most this many prompts prefilled per batcher step (0 = unlimited)
+    max_prefills_per_step: int = 0
+    #: 0 = contiguous per-slot KV cache; > 0 = page pool with this many
+    #: tokens per page and hash-chain prompt-prefix sharing (DESIGN.md §8)
+    kv_page_size: int = 0
+    #: with a paged cache, share resident prompt-prefix pages across requests
+    prefix_cache: bool = True
+    #: page storage: "bf16" = full-precision pages (f32, as the reference's
+    #: pool), "int8" = absmax-quantized pages with per-(page, KV head) f32
+    #: scales (DESIGN.md §10); int8 requires kv_page_size > 0
+    kv_cache_dtype: str = "bf16"
+
+
+@dataclasses.dataclass(frozen=True)
 class DataConfig:
     prompt_template: str = "{question}"
 
@@ -53,6 +72,7 @@ class DataConfig:
 class EvalTask:
     task_id: str
     model: EngineModelConfig = EngineModelConfig()
+    inference: InferenceConfig = InferenceConfig()
     metrics: tuple[MetricConfig, ...] = (MetricConfig("exact_match"),)
     statistics: StatisticsConfig = StatisticsConfig()
     data: DataConfig = DataConfig()

@@ -16,7 +16,12 @@ from repro_torch.data.tokenizer import HashTokenizer
 from repro_torch.device import resolve_device
 from repro_torch.models import TransformerLM, init_params
 from repro_torch.serve import steps as steps_lib
-from repro_torch.serve.scheduler import Completion, ContinuousBatcher, Request
+from repro_torch.serve.scheduler import (
+    Completion,
+    ContinuousBatcher,
+    Request,
+    check_kv_cache,
+)
 
 PROVIDER = "torch_local"
 
@@ -47,6 +52,11 @@ class TorchLocalEngine:
     tokens for a prompt.  ``params`` may carry bridged weights
     (:func:`repro_torch.models.params_from_jax`); otherwise they are made on
     the device from ``model.seed``.
+
+    ``kv_page_size`` > 0 serves from a paged KV cache with hash-chain
+    prefix sharing (``prefix_cache``); ``page_pool`` or ``page_pool_bytes``
+    pins the pool smaller than its never-exhausting default, so decode
+    pressure preempts; ``kv_cache_dtype="int8"`` quantizes the pages.
     """
 
     def __init__(
@@ -56,16 +66,27 @@ class TorchLocalEngine:
         n_slots: int = 8,
         max_len: int = 256,
         max_prefills_per_step: int = 0,
+        kv_page_size: int = 0,
+        prefix_cache: bool = True,
+        page_pool: int = 0,
+        page_pool_bytes: int = 0,
+        kv_cache_dtype: str = "bf16",
         device: torch.device | str | None = None,
         params: dict | None = None,
     ):
         if model.provider != PROVIDER:
             raise ValueError(f"provider must be {PROVIDER!r}, got {model.provider!r}")
         steps_lib.check_sampling(model.temperature)
+        check_kv_cache(kv_page_size, kv_cache_dtype)
         self.model_cfg = model
         self.n_slots = n_slots
         self.max_len = max_len
         self.max_prefills_per_step = max_prefills_per_step
+        self.paging = {
+            "page_size": kv_page_size, "prefix_cache": prefix_cache,
+            "page_pool": page_pool, "page_pool_bytes": page_pool_bytes,
+            "kv_cache_dtype": kv_cache_dtype,
+        }
         self.device = resolve_device(device)
         self._params = params
         self.batcher: ContinuousBatcher | None = None
@@ -91,6 +112,7 @@ class TorchLocalEngine:
             n_slots=self.n_slots, max_len=self.max_len,
             eos_id=self._tokenizer.eos_id,
             max_prefills_per_step=self.max_prefills_per_step,
+            **self.paging,
         )
 
     def shutdown(self) -> None:

@@ -9,17 +9,36 @@ from typing import Any, Iterable
 
 import torch
 
-from repro_torch.core.config import EngineModelConfig, EvalTask
+from repro_torch.core.config import EngineModelConfig, EvalTask, InferenceConfig
 from repro_torch.core.engines import TorchLocalEngine
 from repro_torch.core.stages import EvalResult
 from repro_torch.core.streaming import StreamingPipeline
 from repro_torch.device import resolve_device
 
 
+def serving_kwargs(inf: InferenceConfig) -> dict:
+    """The engine arguments a task's inference config sets, each only where
+    it differs from its default, as the reference's ``_add_paging_kwargs``
+    forwards them.  Like the reference, an int8 cache without a page size
+    forwards nothing and the cache stays contiguous."""
+    kw: dict = {}
+    if inf.max_prefills_per_step:
+        kw["max_prefills_per_step"] = inf.max_prefills_per_step
+    if inf.kv_page_size:
+        kw["kv_page_size"] = inf.kv_page_size
+        if not inf.prefix_cache:
+            kw["prefix_cache"] = False
+        if inf.kv_cache_dtype != "bf16":
+            kw["kv_cache_dtype"] = inf.kv_cache_dtype
+    return kw
+
+
 class EvalSession:
     """Runs on the card unless ``device="cpu"`` is passed.
     ``engine_kwargs`` go to :class:`TorchLocalEngine` (``n_slots``,
-    ``max_len``, ``max_prefills_per_step``, ``params``)."""
+    ``max_len``, ``page_pool``, ``params``, ...); a task's
+    :class:`InferenceConfig` adds its serving knobs, which an argument of
+    ``engine_kwargs`` overrides."""
 
     def __init__(
         self,
@@ -30,19 +49,26 @@ class EvalSession:
         self.device = resolve_device(device)
         self._engine_kwargs = dict(engine_kwargs or {})
         self.engine: TorchLocalEngine | None = None
+        self._engine_key: tuple | None = None
         self._closed = False
 
-    def engine_for(self, model: EngineModelConfig) -> TorchLocalEngine:
-        """The session's engine, built and initialized on first use."""
+    def engine_for(
+        self, model: EngineModelConfig, inf: InferenceConfig = InferenceConfig()
+    ) -> TorchLocalEngine:
+        """The session's engine, built and initialized on first use; a task
+        that needs another model or other serving knobs raises."""
         self._check_open()
+        serving = serving_kwargs(inf)
+        key = (model, sorted(serving.items()))
         if self.engine is None:
             self.engine = TorchLocalEngine(
-                model, device=self.device, **self._engine_kwargs
+                model, device=self.device, **{**serving, **self._engine_kwargs}
             )
             self.engine.initialize()
-        elif self.engine.model_cfg != model:
+            self._engine_key = key
+        elif self._engine_key != key:
             raise ValueError(
-                f"this session serves {self.engine.model_cfg}, not {model}"
+                f"this session serves {self._engine_key}, not {key}"
             )
         return self.engine
 
@@ -61,6 +87,7 @@ class EvalSession:
         if self.engine is not None:
             self.engine.shutdown()
             self.engine = None
+            self._engine_key = None
         self._closed = True
 
     def __enter__(self) -> "EvalSession":

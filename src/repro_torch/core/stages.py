@@ -74,7 +74,7 @@ class InferStage:
 
     def run(self, art: EvalArtifact, session: Any) -> EvalArtifact:
         model = art.task.model
-        engine = session.engine_for(model)
+        engine = session.engine_for(model, art.task.inference)
         pending = {
             engine.stream_submit(
                 InferenceRequest(p, model.max_tokens, model.temperature)

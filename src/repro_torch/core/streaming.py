@@ -73,7 +73,7 @@ class StreamingPipeline:
         return EvalResult(
             task_id=task.task_id,
             metrics=metrics,
-            engine_stats=session.engine_for(task.model).serving_stats(),
+            engine_stats=session.engine_for(task.model, task.inference).serving_stats(),
             timing=timing,
             logs={
                 "streaming": {

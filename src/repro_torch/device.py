@@ -19,4 +19,7 @@ def resolve_device(device: torch.device | str | None) -> torch.device:
         raise RuntimeError(f"{device} requested but no CUDA device is available")
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device}")
+    if device.type == "cuda" and device.index is None:
+        # the index a tensor made on "cuda" reports, so devices compare equal
+        device = torch.device("cuda", torch.cuda.current_device())
     return device

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 Every ``csrc/*.cu`` is compiled for ``sm_90a`` by its own ``nvcc`` process,
-all started together, and the objects are linked into one shared library
-with a plain C interface that is loaded through :mod:`ctypes`.  The library
+all started together (a ``csrc/*.cuh`` header is included by the sources
+that need it), and the objects are linked into one shared library with a
+plain C interface that is loaded through :mod:`ctypes`.  The library
 lands in ``build/repro_torch/<hash>/`` at the root of the checkout, keyed by
 a hash of the sources, so the first call in a fresh checkout builds it and
 every later call (and process) reuses it.
@@ -43,6 +44,13 @@ SIGNATURES = {
     "repro_decode_attention_f32cache": (
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I64P, _F, _P,
     ),
+    "repro_paged_decode_attention_f32": (
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I64P, _F, _P,
+    ),
+    "repro_quant_paged_decode_attention": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _I64P, _F, _P,
+    ),
     "repro_bootstrap_partials": (
         _P, _I, _I, _I, _U, _U, _P, _P, _P, _P, _P,
     ),
@@ -55,8 +63,9 @@ def _sources() -> list[Path]:
 
 
 def source_hash() -> str:
+    """Hash of the flags, the sources and the headers they include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted([*_sources(), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

@@ -1,7 +1,9 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on
 the card, over a shape grid at head_dim 128 (the only one the kernels are
 built for): G in {1, 4, 8}, ragged tails, ``q_offset``, strided views,
-lengths 1 and ``max_len``.  Every case carries the ``gpu``
+lengths 1 and ``max_len``; and the paged kernels over page sizes 8, 16
+and 64 with aliased pages and padding entries, the f32 one bit-equal to
+the contiguous kernel on the same rows.  Every case carries the ``gpu``
 marker and skips where there is no CUDA device.  The file imports no JAX,
 so it runs on a machine with the card and no JAX:
 
@@ -12,7 +14,15 @@ import pytest
 import torch
 
 from repro_torch.kernels.bootstrap import bootstrap_partials, bootstrap_partials_ref
-from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
+from repro_torch.kernels.decode_attention import (
+    decode_attention,
+    decode_attention_ref,
+    paged_decode_attention,
+    paged_decode_attention_ref,
+    quant_paged_decode_attention,
+    quant_paged_decode_attention_ref,
+    quantize_pages,
+)
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
 from repro_torch.models.attention import cache_update
 
@@ -110,3 +120,88 @@ def test_stale_slot_at_max_len_on_the_card(cuda):
     q = torch.randn((b, 1, kh * 4, d), device=cuda).to(torch.bfloat16)
     got = decode_attention(q, cache, cache, lens)
     assert _rowwise_ok(got, decode_attention_ref(q, cache, cache, lens), 2**-7, 1e-3)
+
+
+def _paged_case(cuda, b, kh, g_heads, ps, n_p, seed):
+    """q, an f32 pool with an aliased shared prefix, shuffled tables padded
+    with 0 past each length, and lengths from 1 to nP * ps."""
+    d = 128
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    n_shared = n_p // 4
+    n_pool = n_shared + b * n_p + 1
+    q = torch.randn((b, 1, kh * g_heads, d), generator=gen, device=cuda)
+    k = torch.randn((n_pool, ps, kh, d), generator=gen, device=cuda)
+    v = torch.randn((n_pool, ps, kh, d), generator=gen, device=cuda)
+    order = torch.randperm(n_pool - n_shared, generator=gen, device=cuda) + n_shared
+    tables = order[: b * n_p].view(b, n_p).to(torch.int32)
+    tables[:, :n_shared] = torch.arange(n_shared, device=cuda, dtype=torch.int32)
+    s = n_p * ps
+    lens = torch.tensor([1, s, ps, ps + 1, n_shared * ps, s - 1][:b],
+                        dtype=torch.int32, device=cuda)
+    n_used = (lens + ps - 1) // ps
+    pad = torch.arange(n_p, device=cuda)[None, :] >= n_used[:, None]
+    tables[pad] = 0
+    return q.to(torch.bfloat16), k, v, tables, lens
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g_heads", [1, 4])
+@pytest.mark.parametrize("ps", [8, 16, 64])
+def test_paged_kernel_matches_plain_and_is_bit_equal_to_contiguous(cuda, g_heads, ps):
+    q, k, v, tables, lens = _paged_case(cuda, 6, 8 // g_heads * 2, g_heads, ps,
+                                        256 // ps, ps + g_heads)
+    got = paged_decode_attention(q, k, v, tables, lens)
+    ref = paged_decode_attention_ref(q, k, v, tables, lens)
+    assert _rowwise_ok(got, ref, 2**-7, 1e-3)
+    # the same rows laid out contiguously: the contiguous kernel's bits
+    kc = k[tables.long()].flatten(1, 2)
+    vc = v[tables.long()].flatten(1, 2)
+    assert torch.equal(got, decode_attention(q, kc, vc, lens))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g_heads", [1, 4])
+@pytest.mark.parametrize("ps", [8, 16, 64])
+def test_quant_paged_kernel_matches_plain_version(cuda, g_heads, ps):
+    q, k, v, tables, lens = _paged_case(cuda, 6, 8 // g_heads * 2, g_heads, ps,
+                                        256 // ps, 7 * ps + g_heads)
+    kq, ks = quantize_pages(k)
+    vq, vs = quantize_pages(v)
+    # both read the same int8 * scale rows in f32; only the sum order and
+    # the final bf16 rounding differ
+    got = quant_paged_decode_attention(q, kq, vq, ks, vs, tables, lens)
+    ref = quant_paged_decode_attention_ref(q, kq, vq, ks, vs, tables, lens)
+    assert _rowwise_ok(got, ref, 2**-7, 1e-3)
+    b, kh = q.shape[0], k.shape[2]
+    gen = torch.Generator(device=cuda).manual_seed(ps)
+    k_new = torch.randn((b, kh, 128), generator=gen, device=cuda)
+    v_new = torch.randn((b, kh, 128), generator=gen, device=cuda)
+    new_pos = lens - 1
+    new_pos[0] = lens[0]  # at the length: no row is replaced
+    rows = (k_new, v_new, new_pos)
+    got = quant_paged_decode_attention(q, kq, vq, ks, vs, tables, lens, rows)
+    ref = quant_paged_decode_attention_ref(q, kq, vq, ks, vs, tables, lens, rows)
+    assert _rowwise_ok(got, ref, 2**-7, 1e-3)
+
+
+@pytest.mark.gpu
+def test_paged_stale_slot_with_an_all_zero_table_at_max_len(cuda):
+    """A free slot in the paged batcher: its table is all zeros (page 0 in
+    every entry) and its length is max_len; it reads page 0 over and over
+    and must agree with the plain version, beside a live slot."""
+    b, kh, ps, n_p, d = 2, 8, 16, 8, 128
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    k = torch.randn((n_p + 2, ps, kh, d), generator=gen, device=cuda)
+    v = torch.randn((n_p + 2, ps, kh, d), generator=gen, device=cuda)
+    q = torch.randn((b, 1, kh * 4, d), generator=gen, device=cuda).to(torch.bfloat16)
+    tables = torch.zeros((b, n_p), dtype=torch.int32, device=cuda)
+    tables[1] = torch.arange(1, n_p + 1, dtype=torch.int32, device=cuda)
+    lens = torch.tensor([n_p * ps, 37], dtype=torch.int32, device=cuda)
+    got = paged_decode_attention(q, k, v, tables, lens)
+    assert _rowwise_ok(got, paged_decode_attention_ref(q, k, v, tables, lens),
+                       2**-7, 1e-3)
+    kq, ks = quantize_pages(k)
+    vq, vs = quantize_pages(v)
+    got = quant_paged_decode_attention(q, kq, vq, ks, vs, tables, lens)
+    ref = quant_paged_decode_attention_ref(q, kq, vq, ks, vs, tables, lens)
+    assert _rowwise_ok(got, ref, 2**-7, 1e-3)
