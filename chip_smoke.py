@@ -19,7 +19,10 @@ path: ``run_task`` over few-shot prompts (a ~464-token header of worked
 examples shared by every prompt) with the f32 page pool and prefix
 sharing, then with the int8 pool, and gates through ``infer_batch``: paged
 without sharing and paged under preemption give the contiguous engine's
-texts.
+texts.  Phase 4 runs Mamba2: ``run_task`` on full-width mamba2-2.7b over
+the same few-shot prompts, every prefill layer through the SSD kernel,
+then gates the greedy tokens' batch invariance, the prefill-to-decode
+hand-off of the SSM state and the reuse of a slot.
 
 Standard output: the card's name and power limit first, then log lines,
 then one ``{"kernels": [...]}`` line, and last the
@@ -57,6 +60,9 @@ PROMPT_LEN = 12
 #: phase 3: tokens per KV page, and the few-shot header's token range
 PAGE_SIZE = 16
 HEADER_TOKENS = (448, 480)
+#: full-width mamba2-2.7b SSD geometry (phase 4's): heads, head_dim, state
+#: size, groups, chunk
+SSM_HEADS, SSM_HEAD_DIM, SSM_STATE, SSM_GROUPS, SSM_CHUNK = 80, 64, 128, 1, 256
 
 
 class CheckFailed(RuntimeError):
@@ -427,6 +433,90 @@ def bootstrap_case(torch, n: int, m: int, n_boot: int, starts: tuple[int, ...],
     return entry
 
 
+def ssd_work(slen: int, chunk: int) -> tuple[int, int]:
+    """FLOPs and bytes of one full-width SSD scan of one sequence in the
+    chunked form.  FLOPs per
+    head and chunk of ``q`` rows: the causal half of the intra-chunk
+    products (C B^T over N, then S x over P), q(q+1)/2 (N + P)
+    multiply-adds, and the chunk-state and off-diagonal products, 2 q P N;
+    a ragged last chunk counts its own rows only.  Bytes: x, dt, B and C
+    per group, y, the final state and ``a``, each once."""
+    h, p, n, g = SSM_HEADS, SSM_HEAD_DIM, SSM_STATE, SSM_GROUPS
+    q = min(chunk, slen)
+    macs = 0
+    for c0 in range(0, slen, q):
+        qv = min(q, slen - c0)
+        macs += qv * (qv + 1) // 2 * (n + p) + 2 * qv * p * n
+    flops = 2 * macs * h
+    nbytes = slen * (h * p * 2 * 2 + h * 4 + 2 * g * n * 2) + h * p * n * 4 + h * 4
+    return flops, nbytes
+
+
+def ssd_cases(torch, fs) -> list[dict]:
+    """Kernel 8 at full-width mamba2-2.7b geometry (80 heads of 64 on one
+    group of 128, chunk 256, batch 1) at 12 tokens (one partial chunk),
+    phase 4's prompt length (two chunks, the second ragged) and 2,048 (8
+    chunks); x, B and C are column views of one fused xBC row, as the model
+    slices them."""
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.models.ssm import ssd_chunked
+
+    h, p, n, g = SSM_HEADS, SSM_HEAD_DIM, SSM_STATE, SSM_GROUPS
+    out = []
+    for slen in (12, fs.prompt_len, 2048):
+        gen = torch.Generator(device="cuda").manual_seed(10 + slen)
+        xbc = torch.randn((1, slen, h * p + 2 * g * n), generator=gen,
+                          device="cuda").to(torch.bfloat16)
+        x = xbc[..., : h * p].unflatten(-1, (h, p))
+        bm = xbc[..., h * p : h * p + g * n].unflatten(-1, (g, n))
+        cm = xbc[..., h * p + g * n :].unflatten(-1, (g, n))
+        dt = torch.nn.functional.softplus(
+            torch.randn((1, slen, h), generator=gen, device="cuda"))
+        # a in [-e, -1]: the served model's A_log = 1 gives -e
+        a = -torch.exp(torch.rand((h,), generator=gen, device="cuda"))
+        args = (x, dt, a, bm, cm)
+        y, state = ssd(*args, chunk=SSM_CHUNK)
+        ry, rstate = ssd_chunked(*args, SSM_CHUNK)
+        torch.cuda.synchronize()
+        shape = (f"B=1 L={slen} H={h} P={p} N={n} G={g} chunk={SSM_CHUNK}, "
+                 f"x/B/C strided views")
+        # y: f32 on both sides until the final bf16 rounding (one bf16 ulp,
+        # 2^-7 of the value) plus 1e-3 of the row's largest output where
+        # terms cancel.  The state: f32 on both sides, summed in other
+        # orders (the running sum of dt*a, the chunk's products): 2^-10 of
+        # the value plus 1e-4 of the row's largest.  A dropped 32-row tile
+        # or chunk moves either by whole units of the allowance's scale.
+        err_y, ratio_y = rowwise(torch, y, ry, 2**-7, 1e-3)
+        err_s, ratio_s = rowwise(torch, state, rstate, 2**-10, 1e-4)
+        require(ratio_y <= 1.0, f"ssd {shape}: y error/allowance {ratio_y:.3g}")
+        require(ratio_s <= 1.0, f"ssd {shape}: state error/allowance {ratio_s:.3g}")
+        flops, nbytes = ssd_work(slen, SSM_CHUNK)
+        b_ms, b_by = bound(flops, PEAK_BF16, nbytes)
+        entry = {
+            "name": "ssd",
+            "route": "cuda",
+            "source": "src/repro_torch/csrc/ssd.cu",
+            "replaces": "src/repro/kernels/ssd/ssd.py:90",
+            "shape": shape,
+            "max_abs_err": max(err_y, err_s),
+            "ms": time_ms(torch, lambda: ssd(*args, chunk=SSM_CHUNK)),
+            "plain_ms": time_ms(torch, lambda: ssd_chunked(*args, SSM_CHUNK),
+                                iters=5),
+            "library_ms": None,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+        }
+        out.append(entry)
+        n_diff = int((state != rstate).sum())
+        log(f"ssd {shape}: y err {err_y:.3g} (ratio {ratio_y:.3g}), state err "
+            f"{err_s:.3g} (ratio {ratio_s:.3g}; max |state| "
+            f"{float(rstate.abs().max()):.4g}, {n_diff} of {state.numel()} "
+            f"elements not bit-equal); {entry['ms']:.4g} ms, plain "
+            f"{entry['plain_ms']:.4g} ms, bound {b_ms:.4g} ms ({b_by}; "
+            f"{flops} FLOPs, {nbytes} bytes)")
+    return out
+
+
 def kernel_phase(torch, fs) -> list[dict]:
     from repro_torch.core import StatisticsConfig
 
@@ -441,13 +531,14 @@ def kernel_phase(torch, fs) -> list[dict]:
         # a full-size statistics chunk whose position counter wraps past 2^32
         bootstrap_case(torch, 100_000, 4, 2_000, (2**32 - 50_000,), 7,
                        plain_iters=3),
+        *ssd_cases(torch, fs),
     ]
 
 
 # -- phase 2: the contiguous main path ---------------------------------------------
 
 KERNEL_NAMES = ("flash_attention", "decode_attention", "paged_decode_attention",
-                "quant_paged_decode_attention", "bootstrap_partials")
+                "quant_paged_decode_attention", "bootstrap_partials", "ssd")
 
 
 def counters():
@@ -458,14 +549,16 @@ def counters():
         quant_paged_decode_attention,
     )
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd import ssd
 
     return dict(zip(KERNEL_NAMES, (
         flash_attention, decode_attention, paged_decode_attention,
-        quant_paged_decode_attention, bootstrap_partials,
+        quant_paged_decode_attention, bootstrap_partials, ssd,
     )))
 
 
-def make_task(template: str | None = None, **inference):
+def make_task(template: str | None = None, model_name: str = "qwen3-4b",
+              **inference):
     from repro_torch.core import (
         DataConfig,
         EngineModelConfig,
@@ -475,11 +568,11 @@ def make_task(template: str | None = None, **inference):
         StatisticsConfig,
     )
 
-    model = EngineModelConfig(provider="torch_local", model_name="qwen3-4b",
+    model = EngineModelConfig(provider="torch_local", model_name=model_name,
                               reduced=False, seed=0, max_tokens=MAX_TOKENS)
     data = DataConfig() if template is None else DataConfig(prompt_template=template)
     return EvalTask(
-        task_id="qa-qwen3-4b",
+        task_id=f"qa-{model_name}",
         model=model,
         inference=InferenceConfig(**inference),
         data=data,
@@ -808,6 +901,135 @@ def paged_phase(torch, fs) -> dict[str, dict[str, int]]:
     return {"f32": f32, "int8": int8}
 
 
+# -- phase 4: Mamba2 -------------------------------------------------------------
+
+#: the hand-off gate: prefill(L) against prefill(L - 1) and one decode step.
+#: The two paths round the last token at other points (the conv output goes
+#: to bf16 before the SiLU in prefill and after it in decode, and y + D x is
+#: a bf16 sum in prefill and an f32 one in decode), about one bf16 ulp (2^-8)
+#: a layer, which 64 random layers compound to a few percent of the largest
+#: logit.  The gate allows 15%, and the same decode step from a zeroed slot
+#: must move the logits by at least 3x what the hand-off does, or the check
+#: could not tell the two apart.
+HANDOFF_TOL, HANDOFF_CONTROL = 0.15, 3.0
+
+
+def handoff_gate(torch, b, prompt: list[int], length: int) -> None:
+    """Slot 0: the logits of ``prefill(prompt[:length])`` against those of
+    ``prefill(prompt[:length - 1])`` then one ``decode_step`` (every slot
+    decodes; slot 0 is read), and against the same step from a zeroed
+    slot."""
+    toks = torch.tensor([prompt[:length]], device="cuda")
+    full = b.model.prefill(b.params, toks, b.cache, 0)
+    step_toks = torch.zeros((N_SLOTS, 1), dtype=torch.int64, device="cuda")
+    step_toks[0, 0] = prompt[length - 1]
+    pos = torch.full((N_SLOTS,), length - 1, device="cuda")
+    b.model.prefill(b.params, toks[:, : length - 1], b.cache, 0)
+    step = b.model.decode_step(b.params, step_toks, b.cache, pos)[:1]
+    b.cache.conv[:, 0].zero_()
+    b.cache.state[:, 0].zero_()
+    cold = b.model.decode_step(b.params, step_toks, b.cache, pos)[:1]
+    require(bool(torch.isfinite(full).all() and torch.isfinite(step).all()),
+            "hand-off logits hold NaN or inf")
+    scale = float(full.abs().max())
+    diff = float((step - full).abs().max())
+    cold_diff = float((cold - full).abs().max())
+    log(f"hand-off at L={length}: max |prefill(L) - (prefill(L-1) + decode)| = "
+        f"{diff:.4g} ({diff / scale:.4f} of max |logit| {scale:.4g}); from a "
+        f"zeroed slot {cold_diff:.4g}; argmax {int(full.argmax())} / "
+        f"{int(step.argmax())}")
+    require(diff <= HANDOFF_TOL * scale,
+            f"hand-off at L={length}: {diff:.4g} > {HANDOFF_TOL} x {scale:.4g}")
+    require(cold_diff >= HANDOFF_CONTROL * diff,
+            f"hand-off at L={length}: a zeroed slot moves the logits by "
+            f"{cold_diff:.4g}, under {HANDOFF_CONTROL} x {diff:.4g}")
+
+
+def mamba_phase(torch, fs) -> dict[str, int]:
+    """``run_task`` on full-width mamba2-2.7b (random bf16 weights from
+    seed 0) over phase 3's 64 few-shot prompts in chunks of 16, 16 slots,
+    32 new tokens; then the gates: one prefill of each prompt and 64 SSD
+    launches each, finite logits, the greedy tokens of a prompt alone and
+    among 16 slots, the prefill-to-decode hand-off at the prompt's length
+    and at 2 tokens, and a slot reused for a 1-token prompt."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import EvalSession, InferenceRequest, TorchLocalEngine
+    from repro_torch.data import iter_qa_examples, render
+    from repro_torch.models import init_params
+
+    cfg = get_config("mamba2-2.7b")
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"phase 4 weights on the card in {time.perf_counter() - t0:.3f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    torch.cuda.reset_peak_memory_stats()
+    task = make_task(fs.template, model_name=cfg.name)
+    engine_kwargs = {"n_slots": N_SLOTS, "max_len": MAX_LEN, "params": params}
+    with EvalSession(device="cuda", engine_kwargs=engine_kwargs) as session:
+        engine = session.engine_for(task.model, task.inference)
+        with Probe() as probe:
+            launches, st, _ = timed_run_task(
+                torch, session, task, ("ssd", "bootstrap_partials"), "mamba2 path")
+        require(st["admissions"] == N_ROWS, f"{st['admissions']} prefills")
+        require(launches["ssd"] == cfg.n_layers * N_ROWS,
+                f"ssd launched {launches['ssd']} times, not "
+                f"{cfg.n_layers} x {N_ROWS}")
+        require(int(probe.bad) == 0, "mamba2 path: logits hold NaN or inf")
+        b = engine.batcher
+        slot_bytes = (b.cache.conv[:, 0].numel() + b.cache.state[:, 0].numel()) * 4
+        log(f"mamba2 path: ssd {launches['ssd']} launches = {cfg.n_layers} layers "
+            f"x {st['admissions']} prefills; state bytes per slot {slot_bytes} "
+            f"({b.cache.state[:, 0].numel() * 4} SSD state + "
+            f"{b.cache.conv[:, 0].numel() * 4} conv window), "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB peak allocated")
+
+        rows = list(iter_qa_examples(N_SLOTS, seed=0))
+        reqs = [InferenceRequest(render(fs.template, r), MAX_TOKENS) for r in rows]
+        full = engine.infer_batch(reqs)
+        alone = engine.infer_batch(reqs[:1])
+        require(full[0].text == alone[0].text
+                and full[0].output_tokens == alone[0].output_tokens,
+                f"batch-dependent tokens: {full[0].text!r} vs {alone[0].text!r}")
+        log(f"batch invariance: prompt 0 gives {alone[0].output_tokens} identical "
+            f"tokens alone and among {N_SLOTS} slots")
+
+        # slot 0 last served a few-shot prompt; an empty prompt is [bos]
+        short = InferenceRequest("", MAX_TOKENS)
+        (reused,) = engine.infer_batch([short])
+        fresh_engine = TorchLocalEngine(task.model, n_slots=N_SLOTS,
+                                        max_len=MAX_LEN, device="cuda",
+                                        params=params)
+        fresh_engine.initialize()
+        # the tokenizer decodes through its own memory of the words it
+        # encoded: share it, so that the two texts compare token for token
+        fresh_engine._tokenizer = engine._tokenizer
+        (fresh,) = fresh_engine.infer_batch([short])
+        require(reused.input_tokens == 1 and reused.text == fresh.text
+                and reused.output_tokens == fresh.output_tokens,
+                f"reused slot: {reused.text!r} vs fresh engine {fresh.text!r}")
+        fresh_engine.shutdown()
+        del fresh_engine
+        log(f"slot reuse: a 1-token prompt in a slot that held a "
+            f"{fs.prompt_len}-token prompt gives the fresh engine's "
+            f"{fresh.output_tokens} tokens")
+
+        prompt = engine._tokenizer.encode(render(fs.template, rows[0]))
+        for length in (len(prompt), 2):
+            handoff_gate(torch, b, prompt, length)
+
+        toks = torch.tensor([prompt], device="cuda")
+        step_breakdown(torch, f"mamba2 prefill ({len(prompt)} tokens into slot 0)",
+                       lambda: b.model.prefill(b.params, toks, b.cache, 0))
+        nxt = torch.full((N_SLOTS, 1), 7, dtype=torch.int64, device="cuda")
+        pos = torch.zeros((N_SLOTS,), dtype=torch.int64, device="cuda")
+        step_breakdown(torch, f"mamba2 decode step (batch {N_SLOTS})",
+                       lambda: b.model.decode_step(b.params, nxt, b.cache, pos))
+    del params
+    free_cuda(torch)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -843,15 +1065,19 @@ def main() -> int:
         contiguous = main_path_phase(torch)
         free_cuda(torch)
         paged = paged_phase(torch, fs)
+        free_cuda(torch)
+        mamba = mamba_phase(torch, fs)
     except CheckFailed as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
     # each kernel's launches on the path it carries: the contiguous main path
-    # for flash, decode and bootstrap, the paged runs for the paged kernels
+    # for flash, decode and bootstrap, the paged runs for the paged kernels,
+    # the Mamba2 run for ssd
     launches = {**contiguous,
                 "paged_decode_attention": paged["f32"]["paged_decode_attention"],
                 "quant_paged_decode_attention":
-                    paged["int8"]["quant_paged_decode_attention"]}
+                    paged["int8"]["quant_paged_decode_attention"],
+                "ssd": mamba["ssd"]}
     for e in entries:
         e["launches"] = launches[e["name"]]
     for e in entries:
@@ -860,7 +1086,7 @@ def main() -> int:
                 print(f"chip_smoke: FAIL: {e['name']} {key} = {e[key]}",
                       file=sys.stderr)
                 return 1
-    log(f"phases 1-3 took {time.perf_counter() - t_start:.1f} s after the build")
+    log(f"phases 1-4 took {time.perf_counter() - t_start:.1f} s after the build")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

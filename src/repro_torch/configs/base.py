@@ -1,4 +1,4 @@
-"""Model configuration schema: the port's copy of the dense-family part of
+"""Model configuration schema: the port's copy of the dense and SSM parts of
 ``repro/configs/base.py`` (the JAX package's ``ModelConfig``)."""
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ def _round_up(x: int, m: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense
+    family: str  # dense | ssm
 
     n_layers: int
     d_model: int
@@ -29,6 +29,14 @@ class ModelConfig:
     norm_eps: float = 1e-6
     rope_theta: float = 1_000_000.0
 
+    # --- SSM (Mamba2 SSD) ----------------------------------------------------
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_ngroups: int = 1
+    ssm_chunk: int = 256
+
     def __post_init__(self) -> None:
         if self.head_dim == 0 and self.n_heads:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
@@ -38,12 +46,20 @@ class ModelConfig:
         """Vocab padded to a multiple of 256 (the reference's TP-16 rule)."""
         return _round_up(self.vocab_size, 256)
 
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_nheads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
     def replace(self, **kw: Any) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
     def reduced(self) -> "ModelConfig":
         """Tiny same-family config for CPU tests (the reference's rule)."""
-        return self.replace(
+        kw: dict[str, Any] = dict(
             name=self.name + "-reduced",
             n_layers=min(self.n_layers, 2),
             d_model=64,
@@ -53,3 +69,6 @@ class ModelConfig:
             d_ff=128,
             vocab_size=512,
         )
+        if self.family == "ssm":
+            kw.update(ssm_state=16, ssm_head_dim=16, ssm_chunk=16)
+        return self.replace(**kw)

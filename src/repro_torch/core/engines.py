@@ -14,7 +14,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.config import EngineModelConfig
 from repro_torch.data.tokenizer import HashTokenizer
 from repro_torch.device import resolve_device
-from repro_torch.models import TransformerLM, init_params
+from repro_torch.models import build_model, init_params
 from repro_torch.serve import steps as steps_lib
 from repro_torch.serve.scheduler import (
     Completion,
@@ -56,7 +56,9 @@ class TorchLocalEngine:
     ``kv_page_size`` > 0 serves from a paged KV cache with hash-chain
     prefix sharing (``prefix_cache``); ``page_pool`` or ``page_pool_bytes``
     pins the pool smaller than its never-exhausting default, so decode
-    pressure preempts; ``kv_cache_dtype="int8"`` quantizes the pages.
+    pressure preempts; ``kv_cache_dtype="int8"`` quantizes the pages.  Paging
+    is for the attention families: a Mamba2 model raises ``ValueError`` at
+    ``initialize``, as the reference's batcher does.
     """
 
     def __init__(
@@ -108,7 +110,7 @@ class TorchLocalEngine:
                 f"params are on {params['embed'].device}, the engine on {self.device}"
             )
         self.batcher = ContinuousBatcher(
-            TransformerLM(cfg), cfg, params,
+            build_model(cfg), cfg, params,
             n_slots=self.n_slots, max_len=self.max_len,
             eos_id=self._tokenizer.eos_id,
             max_prefills_per_step=self.max_prefills_per_step,

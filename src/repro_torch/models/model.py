@@ -1,6 +1,7 @@
-"""Dense GQA ``TransformerLM`` (the dense family of ``repro/models/model.py``):
-prefill of one prompt into the KV cache, and one decode step for every
-slot.
+"""The port's model families (``repro/models/model.py``): the dense GQA
+``TransformerLM`` and the pure-SSM ``MambaLM``, each with a prefill of one
+prompt into its cache and one decode step for every slot; :func:`build_model`
+picks one by ``cfg.family``.
 
 Two caches: the contiguous :class:`KVCache` (one row block per slot) and
 the :class:`PagedKVCache` (a pool of fixed-size pages that slots reach
@@ -18,7 +19,8 @@ import torch
 
 from repro_torch.configs import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models import layers
+from repro_torch.models import layers, ssm
+from repro_torch.models.ssm import SSMCache
 
 
 @dataclasses.dataclass
@@ -78,6 +80,11 @@ class PageTables:
     write_offsets: torch.Tensor
 
 
+def _block(p: dict, i: int) -> dict:
+    """Layer ``i``'s slice of the stacked parameter tree."""
+    return {k: _block(v, i) if isinstance(v, dict) else v[i] for k, v in p.items()}
+
+
 class TransformerLM:
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
@@ -117,13 +124,6 @@ class TransformerLM:
             *scales,
         )
 
-    def _block(self, p: dict, i: int) -> dict:
-        """Layer ``i``'s slice of the stacked parameter tree."""
-        return {
-            k: self._block(v, i) if isinstance(v, dict) else v[i]
-            for k, v in p.items()
-        }
-
     def prefill(
         self,
         params: dict,
@@ -158,7 +158,7 @@ class TransformerLM:
         rope = layers.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
         x = layers.embed(params["embed"], tokens, dtype)
         for i in range(cfg.n_layers):
-            p = self._block(params["layers"], i)
+            p = _block(params["layers"], i)
             h = layers.rms_norm(p["ln1"], x, cfg.norm_eps)
             if paged:
                 a = attn.gqa_prefill_paged(
@@ -198,7 +198,7 @@ class TransformerLM:
         new_pos = positions.to(torch.int32)
         x = layers.embed(params["embed"], tokens, dtype)
         for i in range(cfg.n_layers):
-            p = self._block(params["layers"], i)
+            p = _block(params["layers"], i)
             h = layers.rms_norm(p["ln1"], x, cfg.norm_eps)
             if paged:
                 a = attn.gqa_decode_paged(
@@ -214,3 +214,84 @@ class TransformerLM:
             x = x + layers.gated_mlp(p["mlp"], h)
         x = layers.rms_norm(params["final_norm"], x, cfg.norm_eps)
         return layers.unembed(params["embed"], x, dtype)[:, 0]
+
+
+class MambaLM:
+    """Pure Mamba2 stack (the ssm family): a pre-norm residual Mamba2 block
+    per layer and the tied unembedding.  Its cache is an :class:`SSMCache`,
+    O(1) in the sequence length, so ``max_len`` sizes nothing."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+
+    def init_cache(
+        self, n_slots: int, max_len: int, device: torch.device | str
+    ) -> SSMCache:
+        del max_len  # no sequence axis
+        cfg = self.cfg
+        conv_dim = cfg.d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state
+        conv = (cfg.n_layers, n_slots, cfg.ssm_conv - 1, conv_dim)
+        state = (cfg.n_layers, n_slots, cfg.ssm_nheads, cfg.ssm_head_dim,
+                 cfg.ssm_state)
+        return SSMCache(
+            conv=torch.zeros(conv, dtype=torch.float32, device=device),
+            state=torch.zeros(state, dtype=torch.float32, device=device),
+        )
+
+    def prefill(
+        self,
+        params: dict,
+        tokens: torch.Tensor,  # (1, S) one prompt
+        cache: SSMCache,
+        target: int,
+        *,
+        dtype: torch.dtype = torch.bfloat16,
+    ) -> torch.Tensor:
+        """Run the prompt at its exact length and return its last
+        position's logits, (1, Vp) f32; slot ``target``'s conv window and
+        state are overwritten with the prompt's."""
+        cfg = self.cfg
+        if tokens.dim() != 2 or tokens.shape[0] != 1:
+            raise ValueError(f"prefill takes one prompt (1, S), got {tokens.shape}")
+        x = layers.embed(params["embed"], tokens, dtype)
+        for i in range(cfg.n_layers):
+            p = _block(params["layers"], i)
+            h = layers.rms_norm(p["ln"], x, cfg.norm_eps)
+            x = x + ssm.mamba2_prefill(
+                p["mixer"], cfg, h, cache.conv[i, target], cache.state[i, target]
+            )
+        x = layers.rms_norm(params["final_norm"], x[:, -1:], cfg.norm_eps)
+        return layers.unembed(params["embed"], x, dtype)[:, 0]
+
+    def decode_step(
+        self,
+        params: dict,
+        tokens: torch.Tensor,     # (B, 1) one new token per slot
+        cache: SSMCache,
+        positions: torch.Tensor,  # unused: SSM decode is position-free
+        pages: PageTables | None = None,
+        *,
+        dtype: torch.dtype = torch.bfloat16,
+    ) -> torch.Tensor:
+        """Advance every slot by one token; returns (B, Vp) f32 logits."""
+        del positions
+        if pages is not None:
+            raise ValueError("an SSM cache is not paged")
+        cfg = self.cfg
+        x = layers.embed(params["embed"], tokens, dtype)
+        for i in range(cfg.n_layers):
+            p = _block(params["layers"], i)
+            h = layers.rms_norm(p["ln"], x, cfg.norm_eps)
+            x = x + ssm.mamba2_decode(p["mixer"], cfg, h, cache.conv[i], cache.state[i])
+        x = layers.rms_norm(params["final_norm"], x, cfg.norm_eps)
+        return layers.unembed(params["embed"], x, dtype)[:, 0]
+
+
+def build_model(cfg: ModelConfig) -> TransformerLM | MambaLM:
+    """The model of ``cfg.family``, as the reference's ``build_model``
+    picks it, for the families the port serves."""
+    if cfg.family == "dense":
+        return TransformerLM(cfg)
+    if cfg.family == "ssm":
+        return MambaLM(cfg)
+    raise ValueError(f"the port does not serve the {cfg.family!r} family yet")

@@ -1,4 +1,5 @@
-"""Continuous-batching scheduler over a contiguous or a paged KV cache (the
+"""Continuous-batching scheduler over a model's per-slot cache: a contiguous
+or a paged KV cache for the dense family, the SSM state for Mamba2 (the
 ``ContinuousBatcher`` of ``repro/serve/scheduler.py``).
 
 A fixed pool of ``n_slots`` decode slots steps in lock-step.  Each step:
@@ -50,6 +51,11 @@ from repro_torch.serve.paged_cache import (
     kv_page_bytes,
     pages_for_budget,
 )
+
+
+#: model families whose caches are pure attention KV, so that they page (the
+#: reference's ``_PAGEABLE_FAMILIES``)
+PAGEABLE_FAMILIES = ("dense", "moe")
 
 
 @dataclasses.dataclass
@@ -165,6 +171,11 @@ class ContinuousBatcher:
         kv_cache_dtype: str = "bf16",
     ):
         check_kv_cache(page_size, kv_cache_dtype)
+        if page_size and cfg.family not in PAGEABLE_FAMILIES:
+            raise ValueError(
+                f"paged KV cache supports GQA attention families "
+                f"{PAGEABLE_FAMILIES}, not {cfg.family}"
+            )
         self.model, self.cfg, self.params = model, cfg, params
         self.n_slots, self.max_len, self.eos_id = n_slots, max_len, eos_id
         #: 0 = unlimited; otherwise at most this many prompts are prefilled

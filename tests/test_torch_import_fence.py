@@ -42,7 +42,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     for module in ("repro_torch.core.session", "repro_torch.kernels._cuda",
                    "repro_torch.kernels.flash_attention.flash_attention",
                    "repro_torch.kernels.decode_attention.decode_attention",
-                   "repro_torch.kernels.bootstrap.bootstrap"):
+                   "repro_torch.kernels.bootstrap.bootstrap",
+                   "repro_torch.kernels.ssd.ssd", "repro_torch.models.ssm"):
         assert module in out["imported"]
 
 

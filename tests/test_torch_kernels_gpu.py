@@ -3,7 +3,10 @@ the card, over a shape grid at head_dim 128 (the only one the kernels are
 built for): G in {1, 4, 8}, ragged tails, ``q_offset``, strided views,
 lengths 1 and ``max_len``; and the paged kernels over page sizes 8, 16
 and 64 with aliased pages and padding entries, the f32 one bit-equal to
-the contiguous kernel on the same rows.  Every case carries the ``gpu``
+the contiguous kernel on the same rows; and the SSD scan at Mamba2's
+head_dim 64 and state 128 over G in {1, 2} and ragged lengths, its output
+and final state against the plain chunked version and the sequential
+oracle.  Every case carries the ``gpu``
 marker and skips where there is no CUDA device.  The file imports no JAX,
 so it runs on a machine with the card and no JAX:
 
@@ -12,6 +15,7 @@ so it runs on a machine with the card and no JAX:
 
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.bootstrap import bootstrap_partials, bootstrap_partials_ref
 from repro_torch.kernels.decode_attention import (
@@ -24,7 +28,9 @@ from repro_torch.kernels.decode_attention import (
     quantize_pages,
 )
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+from repro_torch.kernels.ssd import ssd, ssd_ref
 from repro_torch.models.attention import cache_update
+from repro_torch.models.ssm import ssd_chunked
 
 
 @pytest.fixture
@@ -205,3 +211,52 @@ def test_paged_stale_slot_with_an_all_zero_table_at_max_len(cuda):
     got = quant_paged_decode_attention(q, kq, vq, ks, vs, tables, lens)
     ref = quant_paged_decode_attention_ref(q, kq, vq, ks, vs, tables, lens)
     assert _rowwise_ok(got, ref, 2**-7, 1e-3)
+
+
+def _ssd_case(cuda, b, slen, h, g, seed):
+    """x, B and C as column views of one fused xBC row, as the model slices
+    them (P = 64, N = 128); dt post-softplus; a in [-e, -1]."""
+    p, n = 64, 128
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    xbc = torch.randn((b, slen, h * p + 2 * g * n), generator=gen, device=cuda)
+    xbc = xbc.to(torch.bfloat16)
+    x = xbc[..., : h * p].unflatten(-1, (h, p))
+    bm = xbc[..., h * p : h * p + g * n].unflatten(-1, (g, n))
+    cm = xbc[..., h * p + g * n :].unflatten(-1, (g, n))
+    dt = F.softplus(torch.randn((b, slen, h), generator=gen, device=cuda))
+    a = -torch.exp(torch.rand((h,), generator=gen, device=cuda))
+    return x, dt, a, bm, cm
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("slen", [1, 12, 256, 478, 1000])
+def test_ssd_kernel_matches_plain_version(cuda, g, slen):
+    """y within 2^-7 of the value plus 1e-3 of the row's largest (f32 on
+    both sides until the bf16 rounding), the final state within 2^-10 plus
+    1e-4 (f32 sums in other orders); against the chunked plain version and
+    the sequential oracle; one sequence alone gives its bits in the batch."""
+    args = _ssd_case(cuda, 2, slen, 8, g, slen + g)
+    y, state = ssd(*args, chunk=256)
+    for ry, rstate in (ssd_chunked(*args, 256), ssd_ref(*args)):
+        assert _rowwise_ok(y, ry, 2**-7, 1e-3)
+        assert _rowwise_ok(state, rstate, 2**-10, 1e-4)
+    x, dt, a, bm, cm = args
+    y1, state1 = ssd(x[1:], dt[1:], a, bm[1:], cm[1:], chunk=256)
+    assert torch.equal(y1, y[1:]) and torch.equal(state1, state[1:])
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_at_a_smaller_chunk_and_its_refusals(cuda):
+    args = _ssd_case(cuda, 1, 200, 4, 1, 5)
+    y, state = ssd(*args, chunk=64)  # three chunks and a ragged fourth
+    ry, rstate = ssd_chunked(*args, 64)
+    assert _rowwise_ok(y, ry, 2**-7, 1e-3)
+    assert _rowwise_ok(state, rstate, 2**-10, 1e-4)
+    x, dt, a, bm, cm = args
+    with pytest.raises(ValueError):
+        ssd(*args, chunk=512)
+    with pytest.raises(TypeError):
+        ssd(x.float(), dt, a, bm, cm)
+    with pytest.raises(ValueError):
+        ssd(x[..., :32], dt, a, bm, cm)  # head_dim 32

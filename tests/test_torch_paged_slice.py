@@ -112,7 +112,7 @@ def _run_jax(monkeypatch):
 
 
 def _run_port(monkeypatch, params):
-    monkeypatch.setattr(port_engines, "TransformerLM", _PortF32)
+    monkeypatch.setattr(port_engines, "build_model", _PortF32)
     texts: list[str] = []
     _record_texts(monkeypatch, port_stages, texts)
     task = EvalTask(

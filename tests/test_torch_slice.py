@@ -116,7 +116,7 @@ def _run_jax(monkeypatch, f32):
 
 def _run_port(monkeypatch, params, f32):
     if f32:
-        monkeypatch.setattr(port_engines, "TransformerLM", _PortF32)
+        monkeypatch.setattr(port_engines, "build_model", _PortF32)
     texts: list[str] = []
     _record_texts(monkeypatch, port_stages, texts)
     task = EvalTask(
