@@ -22,7 +22,15 @@ without sharing and paged under preemption give the contiguous engine's
 texts.  Phase 4 runs Mamba2: ``run_task`` on full-width mamba2-2.7b over
 the same few-shot prompts, every prefill layer through the SSD kernel,
 then gates the greedy tokens' batch invariance, the prefill-to-decode
-hand-off of the SSM state and the reuse of a slot.
+hand-off of the SSM state and the reuse of a slot.  Phase 5, in phase 2's
+session, runs ``run_task`` with the seven ported metrics (five lexical,
+``embedding_similarity`` and ``bertscore``) under the default
+``ci_method="bca"``: BERTScore goes through its kernel once per chunk, and
+each metric is range-checked by its kind (lexical in [0, 1], cosine in
+[-1, 1], BERTScore finite, every interval bracketing its value); then the
+statistics API ``bootstrap_ci`` over a million scores at B = 1,000 through
+the bootstrap-means kernel, its means held against the plain version and
+its width against the t-interval's.
 
 Standard output: the card's name and power limit first, then log lines,
 then one ``{"kernels": [...]}`` line, and last the
@@ -63,6 +71,13 @@ HEADER_TOKENS = (448, 480)
 #: full-width mamba2-2.7b SSD geometry (phase 4's): heads, head_dim, state
 #: size, groups, chunk
 SSM_HEADS, SSM_HEAD_DIM, SSM_STATE, SSM_GROUPS, SSM_CHUNK = 80, 64, 128, 1, 256
+#: phase 5: BERTScore's default max_len and the hash embedder's width, the
+#: seven metrics (name, type), and the statistics API's sample size
+BERT_LEN, BERT_DIM = 64, 256
+METRICS = (("exact_match", "lexical"), ("contains", "lexical"),
+           ("token_f1", "lexical"), ("bleu", "lexical"), ("rouge_l", "lexical"),
+           ("embedding_similarity", "semantic"), ("bertscore", "semantic"))
+N_SCORES = 1_000_000
 
 
 class CheckFailed(RuntimeError):
@@ -517,6 +532,141 @@ def ssd_cases(torch, fs) -> list[dict]:
     return out
 
 
+def rel_check(torch, out, ref, rtol: float, atol: float) -> tuple[float, float]:
+    """|out - ref| <= rtol*|ref| + atol elementwise (NaN nowhere).  Returns
+    (max abs error over the values that are not the -1e30 sentinel's, worst
+    ratio of error to allowance); a ratio above 1 fails."""
+    o, r = out.double(), ref.double()
+    require(not bool(torch.isnan(o).any()), "kernel output holds NaN")
+    err = (o - r).abs()
+    ratio = float((err / (rtol * r.abs() + atol)).max())
+    plain = r.abs() < 1e29
+    return float(err[plain].max()) if bool(plain.any()) else 0.0, ratio
+
+
+def bertscore_cases(torch) -> list[dict]:
+    """Kernel 7 at the semantic metric's widths (64 tokens a side, hash
+    embeddings of 256) at B = 16 (phase 5's chunk), 1,024 (the reference's
+    default chunk) and 16,384.  Random embeddings stand in for the hash
+    vectors; each example keeps a random prefix of its tokens, and
+    examples 0-3 are the edges: an empty candidate, an empty reference,
+    both empty, and one pair at cosine -0.995 (F1 ~ 2e9)."""
+    from repro_torch.kernels.bertscore import bertscore, bertscore_pr, bertscore_ref
+    from repro_torch.kernels.bertscore.ref import f1_from_pr
+
+    lc = lr = BERT_LEN
+    d = BERT_DIM
+    out = []
+    for b in (CHUNK, 1024, 16384):
+        g = torch.Generator(device="cuda").manual_seed(20 + b)
+        cand = torch.randn((b, lc, d), generator=g, device="cuda")
+        ref = torch.randn((b, lr, d), generator=g, device="cuda")
+        nc = torch.randint(1, lc + 1, (b,), generator=g, device="cuda")
+        nr = torch.randint(1, lr + 1, (b,), generator=g, device="cuda")
+        nc[0], nr[1], nc[2], nr[2], nc[3], nr[3] = 0, 0, 0, 0, 1, 1
+        cand[3, 0].zero_()
+        ref[3, 0].zero_()
+        cand[3, 0, 0] = 1.0
+        ref[3, 0, 0], ref[3, 0, 1] = -0.995, (1 - 0.995**2) ** 0.5
+        cm = (torch.arange(lc, device="cuda")[None, :] < nc[:, None]).float()
+        rm = (torch.arange(lr, device="cuda")[None, :] < nr[:, None]).float()
+        args = (cand, ref, cm, rm)
+        got = bertscore(*args)
+        want = bertscore_ref(*args)
+        torch.cuda.synchronize()
+        # P and R: rsqrt-normalised f32 FMA in one fixed order against a
+        # normalised einsum, 1e-5 of the value plus 1e-6.  A masked pair that
+        # leaks in, or a dropped 64-token tile, moves P or R by ~1e-2.  F1 is
+        # the epilogue on P and R, ill-conditioned where p + r nears 0, so it
+        # is held to the epilogue on the kernel's own P and R, bit for bit.
+        checks = [rel_check(torch, a, w, 1e-5, 1e-6)
+                  for a, w in zip(got[:2], want[:2])]
+        require(bool(torch.equal(got[2], f1_from_pr(got[0], got[1]))),
+                "bertscore F1 is not the epilogue of the kernel's P and R")
+        shape = (f"B={b} Lc={lc} Lr={lr} D={d}, random prefix masks, 4 edge rows "
+                 f"(max_abs_err leaves out the -1e30 sentinel rows)")
+        ratio = max(r for _, r in checks)
+        require(ratio <= 1.0, f"bertscore_pr {shape}: error/allowance {ratio:.3g}")
+        require(1.9e9 < float(got[2][3]) < 2.1e9, f"bertscore_pr: F1 {got[2][3]}")
+        pr = bertscore_pr(*args)
+        alone = bertscore_pr(*(t[5:6].contiguous() for t in args))
+        torch.cuda.synchronize()
+        require(all(bool(torch.equal(a, full[5:6])) for a, full in zip(alone, pr)),
+                f"bertscore_pr {shape}: example 5 alone is not bit-equal")
+        nbytes = 4 * b * (lc * d + lr * d + lc + lr) + 2 * 4 * b
+        b_ms, b_by = bound(2 * lc * lr * d * b, PEAK_F32, nbytes)
+        def unit_rows(t):
+            return t * torch.rsqrt(torch.clamp((t * t).sum(-1, keepdim=True),
+                                               min=1e-18))
+
+        cn, rn_t = unit_rows(cand), unit_rows(ref).transpose(1, 2)
+        entry = {
+            "name": "bertscore_pr",
+            "route": "cuda",
+            "source": "src/repro_torch/csrc/bertscore.cu",
+            "replaces": "src/repro/kernels/bertscore/bertscore.py:79",
+            "shape": shape,
+            "max_abs_err": max(e for e, _ in checks),
+            "ms": time_ms(torch, lambda: bertscore_pr(*args)),
+            "plain_ms": time_ms(torch, lambda: bertscore_ref(*args), iters=5),
+            # torch.bmm of the normalised inputs: the product alone, without
+            # the masks and maxima, so a lower bound on a library version
+            "library_ms": time_ms(torch, lambda: torch.bmm(cn, rn_t)),
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+        }
+        out.append(entry)
+        log(f"bertscore_pr {shape}: err {entry['max_abs_err']:.3g} (ratio "
+            f"{ratio:.3g}), example 5 bit-equal alone; {entry['ms']:.4g} ms, "
+            f"plain {entry['plain_ms']:.4g} ms, bmm of the normalised inputs "
+            f"(TF32 off) {entry['library_ms']:.4g} ms, bound {b_ms:.4g} ms ({b_by})")
+        del args, got, want, cand, ref, cn, rn_t
+        free_cuda(torch)
+    return out
+
+
+def bootstrap_means_cases(torch) -> list[dict]:
+    """Kernel 5 at B = 1,000, the default the Pallas kernel refuses, over
+    n = 64, 100,000 and 1,000,000 uniform scores (phase 5's size last)."""
+    from repro_torch.kernels.bootstrap import bootstrap_means, bootstrap_means_ref
+
+    out = []
+    for n in (64, 100_000, 1_000_000):
+        g = torch.Generator(device="cuda").manual_seed(30 + n)
+        x = torch.rand((n,), generator=g, device="cuda")
+        got = bootstrap_means(x, 0, n_boot=N_BOOT)
+        ref = bootstrap_means_ref(x, N_BOOT, 0)
+        torch.cuda.synchronize()
+        # identical weights, f32 sums in two fixed orders: 2e-6 of the value
+        # (the H100 showed 3.5e-7).  A dropped tile of W_T weight takes out
+        # its sum w x and sum w, moving a mean by W_T (mean - m_T) / sum w:
+        # ~1e-5 (2e-5 of the value) at n = 10^6 for a 1,024-row or the ragged
+        # 576-row last tile, ~1e-4 at n = 100,000
+        err, ratio = rowwise(torch, got, ref, 2e-6, 1e-7)
+        shape = f"n={n} n_boot={N_BOOT} seed=0"
+        require(ratio <= 1.0, f"bootstrap_means {shape}: error/allowance {ratio:.3g}")
+        b_ms, b_by = bound(3 * n * N_BOOT, PEAK_F32, 4 * (n + N_BOOT))
+        entry = {
+            "name": "bootstrap_means",
+            "route": "cuda",
+            "source": "src/repro_torch/csrc/bootstrap.cu",
+            "replaces": "src/repro/kernels/bootstrap/bootstrap.py:85",
+            "shape": shape,
+            "max_abs_err": err,
+            "ms": time_ms(torch, lambda: bootstrap_means(x, 0, n_boot=N_BOOT)),
+            "plain_ms": time_ms(torch, lambda: bootstrap_means_ref(x, N_BOOT, 0),
+                                iters=1 if n > 100_000 else 3, warmup=1),
+            "library_ms": None,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+        }
+        out.append(entry)
+        log(f"bootstrap_means {shape}: err {err:.3g} (ratio {ratio:.3g}) "
+            f"{entry['ms']:.4g} ms, plain {entry['plain_ms']:.4g} ms, "
+            f"bound {b_ms:.4g} ms ({b_by})")
+    return out
+
+
 def kernel_phase(torch, fs) -> list[dict]:
     from repro_torch.core import StatisticsConfig
 
@@ -532,17 +682,21 @@ def kernel_phase(torch, fs) -> list[dict]:
         bootstrap_case(torch, 100_000, 4, 2_000, (2**32 - 50_000,), 7,
                        plain_iters=3),
         *ssd_cases(torch, fs),
+        *bertscore_cases(torch),
+        *bootstrap_means_cases(torch),
     ]
 
 
 # -- phase 2: the contiguous main path ---------------------------------------------
 
 KERNEL_NAMES = ("flash_attention", "decode_attention", "paged_decode_attention",
-                "quant_paged_decode_attention", "bootstrap_partials", "ssd")
+                "quant_paged_decode_attention", "bootstrap_means",
+                "bootstrap_partials", "bertscore_pr", "ssd")
 
 
 def counters():
-    from repro_torch.kernels.bootstrap import bootstrap_partials
+    from repro_torch.kernels.bertscore import bertscore_pr
+    from repro_torch.kernels.bootstrap import bootstrap_means, bootstrap_partials
     from repro_torch.kernels.decode_attention import (
         decode_attention,
         paged_decode_attention,
@@ -553,7 +707,8 @@ def counters():
 
     return dict(zip(KERNEL_NAMES, (
         flash_attention, decode_attention, paged_decode_attention,
-        quant_paged_decode_attention, bootstrap_partials, ssd,
+        quant_paged_decode_attention, bootstrap_means, bootstrap_partials,
+        bertscore_pr, ssd,
     )))
 
 
@@ -582,13 +737,24 @@ def make_task(template: str | None = None, model_name: str = "qwen3-4b",
     ).with_streaming(max_memory_rows=CHUNK)
 
 
-def timed_run_task(torch, session, task, kernels: tuple[str, ...], label: str):
+def unit_range(name: str, mv) -> None:
+    """Phases 2-4: a lexical metric and its interval within [0, 1]."""
+    require(0.0 <= mv.ci[0] <= mv.value <= mv.ci[1] <= 1.0,
+            f"{name}: bad interval {mv}")
+
+
+def timed_run_task(torch, session, task, kernels: tuple[str, ...], label: str,
+                   check_metric=unit_range):
     """``run_task`` over the phase's rows with every launch count set to 0
     just before and read just after; each of ``kernels`` must have
-    launched.  Returns (launches, serving stats, wall seconds)."""
+    launched, and every metric pass ``check_metric(name, value)``.
+    Returns (launches, serving stats, wall seconds, result)."""
     from repro_torch.data import iter_qa_examples
 
     engine = session.engine_for(task.model, task.inference)
+    # an engine that served before (phase 5 reuses phase 2's) counts on
+    # from there: the serving numbers below are this run's differences
+    before = engine.serving_stats()
     for fn in counters().values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -601,25 +767,119 @@ def timed_run_task(torch, session, task, kernels: tuple[str, ...], label: str):
         require(launches[name] > 0, f"{name} was not launched on {label}")
 
     st = engine.serving_stats()
-    prefill_ms = st["prefill_s"] * 1e3 / st["admissions"]
-    step_ms = st["decode_s"] * 1e3 / st["steps"]
-    generated = st["tokens_generated"] + st["admissions"]  # + first tokens
+    run = {k: st[k] - before.get(k, 0) for k in
+           ("admissions", "steps", "tokens_generated", "prefill_s", "decode_s")}
+    prefill_ms = run["prefill_s"] * 1e3 / run["admissions"]
+    step_ms = run["decode_s"] * 1e3 / run["steps"]
+    generated = run["tokens_generated"] + run["admissions"]  # + first tokens
     log(f"{label}: run_task wall {wall:.3f} s for {N_ROWS} examples; "
-        f"{st['admissions']} prefills, {prefill_ms:.2f} ms each; "
-        f"{st['steps']} decode steps, {step_ms:.2f} ms each (batch {N_SLOTS}); "
-        f"{st['tokens_generated']} decoded tokens, "
-        f"{st['tokens_generated'] / st['decode_s']:.1f} tokens/s in decode, "
+        f"{run['admissions']} prefills, {prefill_ms:.2f} ms each; "
+        f"{run['steps']} decode steps, {step_ms:.2f} ms each (batch {N_SLOTS}); "
+        f"{run['tokens_generated']} decoded tokens, "
+        f"{run['tokens_generated'] / run['decode_s']:.1f} tokens/s in decode, "
         f"{generated / wall:.1f} generated tokens/s end to end")
     require(result.logs["streaming"]["n_examples"] == N_ROWS, "examples lost")
     for name, mv in result.metrics.items():
-        log(f"{label} metric {name}: {mv}")
+        log(f"{label} metric {name}: {mv} ({mv.ci_method})")
         require(mv.n == N_ROWS, f"{name}: scored {mv.n} of {N_ROWS}")
-        require(0.0 <= mv.ci[0] <= mv.value <= mv.ci[1] <= 1.0,
-                f"{name}: bad interval {mv}")
-    return launches, st, wall
+        check_metric(name, mv)
+    return launches, st, wall, result
 
 
-def main_path_phase(torch) -> dict[str, int]:
+def metric_range(name: str, mv) -> None:
+    """Phase 5: every interval brackets its value; lexical metrics lie in
+    [0, 1] and cosine similarity in [-1, 1]; BERTScore's F1 only has to be
+    finite, since the reference's epilogue can leave [0, 1].  The value is
+    an f64 mean and the interval's ends are replicate means of f32 partial
+    sums, so where every score is equal (BLEU gives every 32-token answer
+    without a matching word the same ~4e-4) the ends may round to either
+    side of it by the f32 rounding of the scores and of a 16-row chunk's
+    sums, at most ~1e-6 of the value: the bracket allows 1e-5 of it."""
+    lo, hi = mv.ci
+    slack = 1e-5 * abs(mv.value)
+    require(math.isfinite(lo) and math.isfinite(hi)
+            and lo - slack <= mv.value <= hi + slack,
+            f"{name}: bad interval {mv}: ({lo!r}, {hi!r}) around {mv.value!r}")
+    if name == "embedding_similarity":
+        require(-1.0 <= lo and hi <= 1.0, f"{name}: outside [-1, 1]: {mv}")
+    elif name != "bertscore":
+        require(0.0 <= lo and hi <= 1.0, f"{name}: outside [0, 1]: {mv}")
+
+
+def metrics_phase(torch, session, base_task) -> dict[str, int]:
+    """Phase 5: ``run_task`` over the 64 QA rows with the seven metrics and
+    the default ``ci_method`` (bca) in phase 2's session, BERTScore through
+    kernel 7 once per 16-row chunk; then the statistics API
+    ``bootstrap_ci`` on the card over a million scores at B = 1,000
+    through kernel 5.  Returns the launches of both."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core import MetricConfig, StatisticsConfig
+    from repro_torch.kernels.bootstrap import bootstrap_means, bootstrap_means_ref
+    from repro_torch.metrics import BINARY_METRICS
+    from repro_torch.stats import bootstrap_ci, streaming_ci, t_interval
+
+    task = dataclasses.replace(
+        base_task, task_id="qa-qwen3-4b-metrics",
+        metrics=tuple(MetricConfig(m, type=t) for m, t in METRICS),
+        statistics=StatisticsConfig(bootstrap_iterations=N_BOOT, backend="device"),
+    )
+    require(task.statistics.ci_method == "bca", "the default ci_method is not bca")
+    launches, _, wall, result = timed_run_task(
+        torch, session, task,
+        ("flash_attention", "decode_attention", "bootstrap_partials",
+         "bertscore_pr"),
+        "metrics path", check_metric=metric_range)
+    require(launches["bertscore_pr"] == N_ROWS // CHUNK,
+            f"bertscore_pr launched {launches['bertscore_pr']} times, not "
+            f"{N_ROWS // CHUNK} (one per chunk)")
+    stages = ", ".join(f"{k} {v:.4f} s" for k, v in result.timing.items())
+    log(f"metrics path per-stage seconds (run_task wall {wall:.3f} s): {stages}")
+    for name, _ in METRICS:
+        iv = streaming_ci(result.stream_stats.accs[name], None,
+                          method="analytical", binary=name in BINARY_METRICS)
+        log(f"metrics path {name}: analytical {iv.method} interval "
+            f"({iv.lo:.6g}, {iv.hi:.6g}) beside the bootstrap's "
+            f"({result.metrics[name].ci[0]:.6g}, {result.metrics[name].ci[1]:.6g})")
+
+    scores = np.random.default_rng(0).random(N_SCORES).astype(np.float32)
+    x = torch.from_numpy(scores).to(session.device)
+    for fn in counters().values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    mean, lo, hi = (float(v) for v in bootstrap_ci(x, 0, n_boot=N_BOOT))
+    ci_s = time.perf_counter() - t0
+    launches["bootstrap_means"] = bootstrap_means.launches
+    require(launches["bootstrap_means"] >= 1, "bootstrap_means was not launched")
+    require(lo <= mean <= hi, f"bootstrap_ci: mean {mean} outside ({lo}, {hi})")
+    # the interval against the quantiles of the plain version's means on the
+    # card: each end is a linear blend of two order statistics, which move
+    # no more than the means do, so phase 1's 2e-6 of the value holds
+    ref = bootstrap_means_ref(x, N_BOOT, 0)
+    alpha = (1.0 - 0.95) / 2.0
+    ends = torch.tensor([lo, hi], dtype=torch.float32)
+    ref_ends = torch.stack([torch.quantile(ref, alpha),
+                            torch.quantile(ref, 1.0 - alpha)]).cpu()
+    err, ratio = rowwise(torch, ends, ref_ends, 2e-6, 1e-7)
+    require(ratio <= 1.0, f"bootstrap_ci ends {(lo, hi)} against the plain "
+            f"version's {ref_ends.tolist()}: error/allowance {ratio:.3g}")
+    t_iv = t_interval(scores)
+    width, t_width = hi - lo, t_iv.hi - t_iv.lo
+    log(f"bootstrap_ci over {N_SCORES} scores, B={N_BOOT}: mean {mean:.7g}, "
+        f"({lo:.7g}, {hi:.7g}) in {ci_s:.4f} s host clock (first call); "
+        f"{launches['bootstrap_means']} bootstrap_means launch; the ends "
+        f"within {err:.3g} of the plain version's (ratio {ratio:.3g}); width "
+        f"{width:.6g} against the t-interval's {t_width:.6g} "
+        f"({width / t_width:.4f})")
+    require(abs(width / t_width - 1.0) <= 0.25,
+            f"bootstrap_ci width {width:.6g} is not within 25% of the "
+            f"t-interval's {t_width:.6g}")
+    return launches
+
+
+def main_path_phase(torch) -> tuple[dict[str, int], dict[str, int]]:
     from repro_torch.core import EvalSession, InferenceRequest
     from repro_torch.data import iter_qa_examples, render
 
@@ -632,7 +892,7 @@ def main_path_phase(torch) -> dict[str, int]:
         log(f"engine set-up (random bf16 weights on the card): "
             f"{time.perf_counter() - t0:.3f} s, "
             f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-        launches, _, _ = timed_run_task(
+        launches, *_ = timed_run_task(
             torch, session, task,
             ("flash_attention", "decode_attention", "bootstrap_partials"),
             "contiguous main path")
@@ -661,7 +921,8 @@ def main_path_phase(torch) -> dict[str, int]:
         step_breakdown(
             torch, f"decode step (batch {N_SLOTS}, all slots at position 4)",
             lambda: b.model.decode_step(b.params, nxt, b.cache, pos))
-    return launches
+        metrics = metrics_phase(torch, session, task)
+    return launches, metrics
 
 
 def step_breakdown(torch, label: str, run, steps: int = 5) -> None:
@@ -798,7 +1059,7 @@ def paged_run(torch, params, fs, label, kernel, **inference):
 
         engine._response = keep_tokens
         with Probe() as probe:
-            launches, st, wall = timed_run_task(
+            launches, st, _, _ = timed_run_task(
                 torch, session, task,
                 ("flash_attention", kernel, "bootstrap_partials"), label)
         require(probe.suffix_prefills > 0,
@@ -969,7 +1230,7 @@ def mamba_phase(torch, fs) -> dict[str, int]:
     with EvalSession(device="cuda", engine_kwargs=engine_kwargs) as session:
         engine = session.engine_for(task.model, task.inference)
         with Probe() as probe:
-            launches, st, _ = timed_run_task(
+            launches, st, *_ = timed_run_task(
                 torch, session, task, ("ssd", "bootstrap_partials"), "mamba2 path")
         require(st["admissions"] == N_ROWS, f"{st['admissions']} prefills")
         require(launches["ssd"] == cfg.n_layers * N_ROWS,
@@ -1062,7 +1323,7 @@ def main() -> int:
     try:
         fs = FewShot()
         entries = kernel_phase(torch, fs)
-        contiguous = main_path_phase(torch)
+        contiguous, metrics = main_path_phase(torch)
         free_cuda(torch)
         paged = paged_phase(torch, fs)
         free_cuda(torch)
@@ -1071,13 +1332,16 @@ def main() -> int:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
     # each kernel's launches on the path it carries: the contiguous main path
-    # for flash, decode and bootstrap, the paged runs for the paged kernels,
-    # the Mamba2 run for ssd
+    # for flash, decode and bootstrap partials, the paged runs for the paged
+    # kernels, the Mamba2 run for ssd, the metrics path for bertscore and the
+    # statistics API for the bootstrap means
     launches = {**contiguous,
                 "paged_decode_attention": paged["f32"]["paged_decode_attention"],
                 "quant_paged_decode_attention":
                     paged["int8"]["quant_paged_decode_attention"],
-                "ssd": mamba["ssd"]}
+                "ssd": mamba["ssd"],
+                "bertscore_pr": metrics["bertscore_pr"],
+                "bootstrap_means": metrics["bootstrap_means"]}
     for e in entries:
         e["launches"] = launches[e["name"]]
     for e in entries:
@@ -1086,7 +1350,7 @@ def main() -> int:
                 print(f"chip_smoke: FAIL: {e['name']} {key} = {e[key]}",
                       file=sys.stderr)
                 return 1
-    log(f"phases 1-4 took {time.perf_counter() - t_start:.1f} s after the build")
+    log(f"phases 1-5 took {time.perf_counter() - t_start:.1f} s after the build")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

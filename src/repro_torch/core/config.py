@@ -23,14 +23,19 @@ class EngineModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MetricConfig:
-    name: str  # a lexical metric: "exact_match" or "token_f1"
+    name: str                         # registry key, e.g. "exact_match"
+    type: str = "lexical"             # lexical | semantic | llm_judge | rag
+    #: keyword arguments bound to the scorer, e.g. {"max_len": 32} for
+    #: bertscore or {"normalized": False} for exact_match and contains
+    #: left out of the hash (a dict has none), so a task stays hashable
+    params: dict = dataclasses.field(default_factory=dict, hash=False)
 
 
 @dataclasses.dataclass(frozen=True)
 class StatisticsConfig:
     confidence_level: float = 0.95
     bootstrap_iterations: int = 1000
-    ci_method: str = "percentile"     # the only method ported so far
+    ci_method: str = "bca"            # percentile | bca | analytical
     seed: int = 0
     backend: str = "device"           # the Poisson-bootstrap partials kernel
 

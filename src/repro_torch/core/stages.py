@@ -12,7 +12,7 @@ import numpy as np
 from repro_torch.core.config import EvalTask
 from repro_torch.core.engines import InferenceRequest, InferenceResponse
 from repro_torch.data.templates import render
-from repro_torch.metrics.registry import resolve_metrics
+from repro_torch.metrics.registry import MetricContext, resolve_metrics
 
 
 @dataclasses.dataclass
@@ -102,8 +102,9 @@ class ScoreStage:
     name = "metrics"
 
     def run(self, art: EvalArtifact, session: Any) -> EvalArtifact:
+        ctx = MetricContext(device=session.device)
         art.scores = {
-            name: np.asarray(scorer(art.rows, art.texts), np.float64)
+            name: np.asarray(scorer(art.rows, art.texts, ctx), np.float64)
             for name, scorer in resolve_metrics(art.task.metrics)
         }
         return art

@@ -19,7 +19,7 @@ from repro_torch.core.stages import (
     ScoreStage,
 )
 from repro_torch.data.datasets import iter_chunks
-from repro_torch.metrics.registry import resolve_metrics
+from repro_torch.metrics.registry import BINARY_METRICS, resolve_metrics
 from repro_torch.stats.streaming import (
     BootstrapEngine,
     MetricAccumulator,
@@ -108,7 +108,7 @@ def _finalize_metrics(
             continue
         iv = streaming_ci(
             acc, engine.view(m), method=stats_cfg.ci_method,
-            confidence=stats_cfg.confidence_level,
+            confidence=stats_cfg.confidence_level, binary=m in BINARY_METRICS,
         )
         out[m] = MetricValue(m, iv.value, (iv.lo, iv.hi), iv.method, iv.n, acc.n_nan)
     return out

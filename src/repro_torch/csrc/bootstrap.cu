@@ -1,6 +1,7 @@
-// Chunked Poisson-bootstrap partials for Hopper (sm_90a).
+// Poisson-bootstrap kernels for Hopper (sm_90a): the chunked partials of
+// the streaming statistics, and the replicate means of the statistics API.
 //
-// Replaces the Pallas TPU kernel
+// Partials: replaces the Pallas TPU kernel
 //   src/repro/kernels/bootstrap/bootstrap.py:bootstrap_partials
 // which, per chunk of an (n, m) score matrix, emits the mergeable replicate
 // pairs (sum w*x, sum w) of shape (n_boot, m).  The weight of (replicate b,
@@ -22,6 +23,17 @@
 // mixer plus a compare ladder and one FMA, while the bytes are only the
 // (n, m) scores and the two (n_boot, m) outputs, so it is bound by
 // operations (integer and f32 ALU, not tensor cores).
+//
+// Means: replaces the Pallas TPU kernel
+//   src/repro/kernels/bootstrap/bootstrap.py:bootstrap_means
+// the (n_boot,) replicate means sum(w*x) / max(sum(w), 1) of one (n,) f32
+// vector, with the same weights keyed by (seed, example index, replicate).
+// It is the partials kernel's layout with one column, three differences
+// apart: NaN is not masked (a NaN makes every mean NaN, as w @ x does in
+// the TPU kernel); any n_boot >= 1 is taken, where the TPU kernel asserts
+// that its 128-replicate block divides n_boot and so refuses the default
+// 1,000; and pass 2 divides, so means come out, not pairs.  Its bound is
+// the same: operations, 3 per (example, replicate).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -109,6 +121,42 @@ __global__ void sum_tiles_kernel(const float* __restrict__ tile_wx,
   sw[t] = c;
 }
 
+__global__ void __launch_bounds__(BB)
+means_tile_kernel(const float* __restrict__ x, int n, int n_boot, uint32_t seed,
+                  float* __restrict__ tile_wx, float* __restrict__ tile_w) {
+  __shared__ float xs[CH];
+  const int i0 = blockIdx.y * CH;
+  const int cnt = min(CH, n - i0);
+  for (int t = threadIdx.x; t < cnt; t += BB) xs[t] = x[i0 + t];
+  __syncthreads();
+  const int b = blockIdx.x * BB + threadIdx.x;
+  if (b >= n_boot) return;
+  float swx = 0.f, sw = 0.f;
+  for (int i = 0; i < cnt; ++i) {
+    const float w = poisson1_weight(
+        mix_bits(static_cast<uint32_t>(b), static_cast<uint32_t>(i0 + i), seed));
+    swx = fmaf(w, xs[i], swx);  // NaN stays NaN, even at w = 0
+    sw += w;
+  }
+  const int64_t o = static_cast<int64_t>(blockIdx.y) * n_boot + b;
+  tile_wx[o] = swx;
+  tile_w[o] = sw;
+}
+
+__global__ void means_finish_kernel(const float* __restrict__ tile_wx,
+                                    const float* __restrict__ tile_w,
+                                    int n_tiles, int n_boot,
+                                    float* __restrict__ means) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= n_boot) return;
+  float a = 0.f, c = 0.f;
+  for (int s = 0; s < n_tiles; ++s) {
+    a += tile_wx[static_cast<int64_t>(s) * n_boot + b];
+    c += tile_w[static_cast<int64_t>(s) * n_boot + b];
+  }
+  means[b] = a / fmaxf(c, 1.f);
+}
+
 }  // namespace
 
 extern "C" int repro_bootstrap_tile_rows() { return CH; }
@@ -135,5 +183,25 @@ extern "C" int repro_bootstrap_partials(const void* scores, int n, int m,
   sum_tiles_kernel<<<(count + 255) / 256, 256, 0, s>>>(
       static_cast<const float*>(tile_wx), static_cast<const float*>(tile_w),
       n_tiles, count, static_cast<float*>(swx), static_cast<float*>(sw));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// data (n,) f32; tile_wx / tile_w scratch of (ceil(n / tile_rows), n_boot)
+// f32; means (n_boot,) f32 output.  Returns the launches' cudaError_t.
+extern "C" int repro_bootstrap_means(const void* data, int n, int n_boot,
+                                     unsigned int seed, void* tile_wx,
+                                     void* tile_w, void* means, void* stream) {
+  if (n <= 0 || n_boot <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int n_tiles = (n + CH - 1) / CH;
+  const dim3 grid((n_boot + BB - 1) / BB, n_tiles);
+  means_tile_kernel<<<grid, BB, 0, s>>>(
+      static_cast<const float*>(data), n, n_boot, seed,
+      static_cast<float*>(tile_wx), static_cast<float*>(tile_w));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  means_finish_kernel<<<(n_boot + 255) / 256, 256, 0, s>>>(
+      static_cast<const float*>(tile_wx), static_cast<const float*>(tile_w),
+      n_tiles, n_boot, static_cast<float*>(means));
   return static_cast<int>(cudaGetLastError());
 }

@@ -55,6 +55,8 @@ SIGNATURES = {
         _P, _I, _I, _I, _U, _U, _P, _P, _P, _P, _P,
     ),
     "repro_bootstrap_tile_rows": (),
+    "repro_bootstrap_means": (_P, _I, _I, _U, _P, _P, _P, _P),
+    "repro_bertscore_pr": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
     "repro_ssd_bf16": (
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I64P, _P,
     ),

@@ -1,6 +1,7 @@
-"""Binding of the hand-written Hopper bootstrap-partials kernel
-(``csrc/bootstrap.cu``), the port of the Pallas TPU kernel
-``repro/kernels/bootstrap/bootstrap.py:bootstrap_partials``."""
+"""Bindings of the hand-written Hopper bootstrap kernels
+(``csrc/bootstrap.cu``), the ports of the Pallas TPU kernels
+``repro/kernels/bootstrap/bootstrap.py:bootstrap_partials`` and
+``:bootstrap_means``."""
 
 from __future__ import annotations
 
@@ -44,3 +45,34 @@ def bootstrap_partials(
 
 #: kernel launches since the count was last set to 0
 bootstrap_partials.launches = 0
+
+
+def bootstrap_means(
+    data: torch.Tensor,  # (n,) f32, CUDA
+    seed: int,
+    *,
+    n_boot: int,
+) -> torch.Tensor:
+    """(n_boot,) f32 Poisson-bootstrap means on the card, any n_boot >= 1."""
+    _cuda.require_cuda(data, "data", torch.float32)
+    if data.dim() != 1 or not data.is_contiguous():
+        raise ValueError(f"data must be a contiguous (n,) vector: {data.shape}")
+    n = data.shape[0]
+    if n == 0 or n_boot <= 0 or n >= 2**31:
+        raise ValueError(f"unsupported: n={n} n_boot={n_boot}")
+    lib = _cuda.library()
+    n_tiles = math.ceil(n / lib.repro_bootstrap_tile_rows())
+    tiles = torch.empty((2, n_tiles, n_boot), dtype=torch.float32,
+                        device=data.device)
+    means = torch.empty((n_boot,), dtype=torch.float32, device=data.device)
+    err = lib.repro_bootstrap_means(
+        data.data_ptr(), n, n_boot, seed & 0xFFFFFFFF, tiles[0].data_ptr(),
+        tiles[1].data_ptr(), means.data_ptr(), _cuda.stream_of(data),
+    )
+    _cuda.check(err, "bootstrap_means")
+    bootstrap_means.launches += 1
+    return means
+
+
+#: kernel launches since the count was last set to 0
+bootstrap_means.launches = 0

@@ -1,6 +1,7 @@
-"""Plain PyTorch version of the bootstrap-partials kernel: the identical
-counter-based mixer and Poisson(1) inverse CDF as the JAX package's
-``repro/kernels/bootstrap/ref.py``, bit for bit on the weights.
+"""Plain PyTorch versions of the bootstrap-partials and bootstrap-means
+kernels: the identical counter-based mixer and Poisson(1) inverse CDF as
+the JAX package's ``repro/kernels/bootstrap/ref.py``, bit for bit on the
+weights.
 
 torch has no full uint32 arithmetic, and an int64 product of two 32-bit
 values can overflow, so uint32 values are held in int64 tensors and every
@@ -84,3 +85,27 @@ def bootstrap_partials_ref(
         swx += w @ torch.where(valid, xb, 0.0)
         sw += w @ valid.to(torch.float32)
     return swx, sw
+
+
+def bootstrap_means_ref(
+    data: torch.Tensor,  # (n,) f32
+    n_boot: int,
+    seed: int,
+) -> torch.Tensor:
+    """(n_boot,) Poisson-bootstrap means ``sum w*x / max(sum w, 1)``, the
+    weight of (replicate b, example i) keyed by ``(seed, i, b)``.  Streams
+    ``DEFAULT_BLOCK_N`` examples at a time, so the (n_boot, n) weight
+    matrix is never made.  No NaN masking: a NaN in ``data`` makes every
+    mean NaN."""
+    dev = data.device
+    x = data.to(torch.float32)
+    swx = torch.zeros((n_boot,), dtype=torch.float32, device=dev)
+    sw = torch.zeros((n_boot,), dtype=torch.float32, device=dev)
+    boot = torch.arange(n_boot, dtype=torch.int64, device=dev)[:, None]
+    for i0 in range(0, x.shape[0], DEFAULT_BLOCK_N):
+        xb = x[i0 : i0 + DEFAULT_BLOCK_N]
+        pos = (i0 + torch.arange(xb.shape[0], device=dev)) & _U32
+        w = poisson1_weight(mix_bits(boot, pos[None, :], seed))
+        swx += w @ xb
+        sw += w.sum(dim=1)
+    return swx / torch.clamp(sw, min=1.0)

@@ -1,4 +1,5 @@
-from repro_torch.stats.bootstrap import Interval
+from repro_torch.kernels.bootstrap.ops import bootstrap_ci
+from repro_torch.stats.bootstrap import Interval, t_interval, wilson_interval
 from repro_torch.stats.streaming import (
     BootstrapEngine,
     DeviceBootstrapEngine,
@@ -16,6 +17,9 @@ __all__ = [
     "MetricAccumulator",
     "PoissonBootstrap",
     "StreamingStats",
+    "bootstrap_ci",
     "make_bootstrap_engine",
     "streaming_ci",
+    "t_interval",
+    "wilson_interval",
 ]

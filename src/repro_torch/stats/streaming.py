@@ -2,7 +2,8 @@
 ``repro/stats/streaming.py``).
 
 * :class:`MetricAccumulator` — count / sum / sum-of-squares moments plus a
-  NaN (unscorable) counter; mergeable.
+  NaN (unscorable) counter; mergeable, and enough for the mean and the
+  analytical intervals.
 * :class:`PoissonBootstrap` — B replicate ``(sum w*x, sum w)`` pairs under
   Poisson(1) resampling weights, and their percentile interval.
 * :class:`DeviceBootstrapEngine` (``backend="device"``) — the replicate
@@ -21,12 +22,14 @@ makes it refuse.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
 
 from repro_torch.kernels.bootstrap.ops import bootstrap_partials, partials_path
-from repro_torch.stats.bootstrap import Interval
+from repro_torch.stats.bootstrap import Interval, wilson_interval
+from repro_torch.stats.special import t_ppf
 
 
 class MetricAccumulator:
@@ -56,6 +59,14 @@ class MetricAccumulator:
     @property
     def mean(self) -> float:
         return self.total / self.n if self.n else float("nan")
+
+    @property
+    def variance(self) -> float:
+        """Unbiased (ddof=1) variance from the accumulated moments."""
+        if self.n < 2:
+            return 0.0
+        var = (self.total_sq - self.total * self.total / self.n) / (self.n - 1)
+        return max(var, 0.0)  # clamp catastrophic-cancellation dust
 
 
 class PoissonBootstrap:
@@ -185,17 +196,30 @@ class StreamingStats:
 
 def streaming_ci(
     acc: MetricAccumulator,
-    boot: PoissonBootstrap,
+    boot: PoissonBootstrap | None,
     *,
-    method: str = "percentile",
+    method: str = "bca",
     confidence: float = 0.95,
+    binary: bool = False,
 ) -> Interval:
-    """The Poisson-bootstrap percentile interval (the percentile branch of
-    the reference's ``streaming_ci``); other methods are not ported yet."""
-    if method != "percentile":
-        raise NotImplementedError(
-            f"ci method {method!r} is not ported yet; use 'percentile'"
-        )
+    """A metric's interval from its streaming state.  ``analytical`` is
+    exact from the moments (Wilson for binary metrics, t otherwise); the
+    bootstrap methods (``percentile`` and ``bca``) both give the
+    Poisson-bootstrap percentile interval, as the reference's do."""
     if acc.n == 0:
         return Interval(float("nan"), float("nan"), float("nan"), "none", 0)
+    if method == "analytical":
+        if binary:
+            return wilson_interval(
+                int(round(acc.total)), acc.n, confidence=confidence
+            )
+        se = math.sqrt(acc.variance / acc.n) if acc.n > 1 else 0.0
+        tcrit = t_ppf(1 - (1 - confidence) / 2, acc.n - 1) if acc.n > 1 else 0.0
+        return Interval(
+            acc.mean, acc.mean - tcrit * se, acc.mean + tcrit * se, "t", acc.n
+        )
+    if method not in ("percentile", "bca"):
+        raise ValueError(f"unknown ci method {method!r}")
+    if boot is None:
+        raise ValueError(f"ci method {method!r} needs a PoissonBootstrap")
     return boot.interval(acc.mean, acc.n, confidence=confidence)

@@ -43,7 +43,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "repro_torch.kernels.flash_attention.flash_attention",
                    "repro_torch.kernels.decode_attention.decode_attention",
                    "repro_torch.kernels.bootstrap.bootstrap",
-                   "repro_torch.kernels.ssd.ssd", "repro_torch.models.ssm"):
+                   "repro_torch.kernels.ssd.ssd", "repro_torch.models.ssm",
+                   "repro_torch.kernels.bertscore.bertscore",
+                   "repro_torch.kernels.bertscore.ops",
+                   "repro_torch.kernels.bertscore.ref",
+                   "repro_torch.kernels.bootstrap.ops",
+                   "repro_torch.metrics.semantic", "repro_torch.metrics.registry",
+                   "repro_torch.stats.special", "repro_torch.stats.bootstrap"):
         assert module in out["imported"]
 
 

@@ -6,7 +6,9 @@ and 64 with aliased pages and padding entries, the f32 one bit-equal to
 the contiguous kernel on the same rows; and the SSD scan at Mamba2's
 head_dim 64 and state 128 over G in {1, 2} and ragged lengths, its output
 and final state against the plain chunked version and the sequential
-oracle.  Every case carries the ``gpu``
+oracle; BERTScore (kernel 7) over ragged token counts, widths 64 and 256,
+the sentinel edges and batch invariance; and the bootstrap means (kernel 5)
+at any replicate count.  Every case carries the ``gpu``
 marker and skips where there is no CUDA device.  The file imports no JAX,
 so it runs on a machine with the card and no JAX:
 
@@ -17,7 +19,14 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.bootstrap import bootstrap_partials, bootstrap_partials_ref
+from repro_torch.kernels.bertscore import bertscore, bertscore_pr, bertscore_ref
+from repro_torch.kernels.bertscore.ref import f1_from_pr
+from repro_torch.kernels.bootstrap import (
+    bootstrap_means,
+    bootstrap_means_ref,
+    bootstrap_partials,
+    bootstrap_partials_ref,
+)
 from repro_torch.kernels.decode_attention import (
     decode_attention,
     decode_attention_ref,
@@ -260,3 +269,91 @@ def test_ssd_kernel_at_a_smaller_chunk_and_its_refusals(cuda):
         ssd(x.float(), dt, a, bm, cm)
     with pytest.raises(ValueError):
         ssd(x[..., :32], dt, a, bm, cm)  # head_dim 32
+
+
+def _bert_case(cuda, b, lc, lr, d, seed):
+    """Random embeddings with prefix masks of random length; the first
+    four examples (where there are four) are the edges: an empty candidate,
+    an empty reference, both empty, and one pair at cosine -0.995."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    cand = torch.randn((b, lc, d), generator=g, device=cuda)
+    ref = torch.randn((b, lr, d), generator=g, device=cuda)
+    nc = torch.randint(1, lc + 1, (b,), generator=g, device=cuda)
+    nr = torch.randint(1, lr + 1, (b,), generator=g, device=cuda)
+    if b >= 4:
+        nc[0], nr[1], nc[2], nr[2], nc[3], nr[3] = 0, 0, 0, 0, 1, 1
+        cand[3, 0].zero_()
+        ref[3, 0].zero_()
+        cand[3, 0, 0] = 1.0
+        ref[3, 0, 0], ref[3, 0, 1] = -0.995, (1 - 0.995**2) ** 0.5
+    cm = (torch.arange(lc, device=cuda)[None, :] < nc[:, None]).float()
+    rm = (torch.arange(lr, device=cuda)[None, :] < nr[:, None]).float()
+    return cand, ref, cm, rm
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("lc,lr", [(64, 64), (64, 37), (5, 64)])
+@pytest.mark.parametrize("b", [1, 16, 1024])
+def test_bertscore_kernel_matches_plain_version(cuda, b, lc, lr, d):
+    """P and R within 1e-5 of the value plus 1e-6 (rsqrt-normalised f32
+    FMA in one order against a normalised einsum); F1 is the epilogue on
+    the kernel's P and R (ill-conditioned where p + r nears 0, so not held
+    to the plain version's); the -1e30 sentinel and F1's -0.0 and ~2e9 at
+    the edges, as the plain version gives."""
+    args = _bert_case(cuda, b, lc, lr, d, b + lc + lr + d)
+    before = bertscore_pr.launches
+    got = bertscore(*args)
+    assert bertscore_pr.launches == before + 1
+    want = bertscore_ref(*args)
+    for a, r in zip(got[:2], want[:2]):
+        torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-6)
+    assert torch.equal(got[2], f1_from_pr(got[0], got[1]))
+    if b >= 4:
+        p, r, f1 = got
+        assert float(r[0]) < -0.9e30 and f1[0] == 0 and torch.signbit(f1[0])
+        assert float(p[1]) < -0.9e30 and torch.signbit(f1[1])
+        assert (float(p[2]), float(r[2]), float(f1[2])) == (0.0, 0.0, 0.0)
+        assert 1.9e9 < float(f1[3]) < 2.1e9
+
+
+@pytest.mark.gpu
+def test_bertscore_kernel_is_batch_invariant_and_takes_its_limits(cuda):
+    """An example's P and R are the same bits alone as among 16; 512
+    tokens a side and width 1,024 run, one more of either raises."""
+    args = _bert_case(cuda, 16, 64, 37, 256, 3)
+    p, r = bertscore_pr(*args)
+    for i in (0, 5, 15):
+        pi, ri = bertscore_pr(*(t[i:i + 1].contiguous() for t in args))
+        assert torch.equal(pi, p[i:i + 1]) and torch.equal(ri, r[i:i + 1])
+    big = _bert_case(cuda, 2, 512, 300, 1024, 4)
+    for a, b in zip(bertscore_pr(*big), bertscore_ref(*big)[:2]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    for lc, lr, d in ((513, 8, 8), (8, 513, 8), (8, 8, 1025)):
+        with pytest.raises(ValueError, match="takes"):
+            bertscore_pr(*_bert_case(cuda, 1, lc, lr, d, 5))
+    cand, ref, cm, rm = args
+    with pytest.raises(TypeError):
+        bertscore_pr(cand.double(), ref, cm, rm)
+    with pytest.raises(ValueError, match="disagree"):
+        bertscore_pr(cand, ref[:, :, :8].contiguous(), cm, rm)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_boot", [1, 1000, 1024])
+@pytest.mark.parametrize("n", [1, 1000, 1025, 100_000])
+def test_bootstrap_means_kernel_matches_plain_version(cuda, n, n_boot):
+    """Identical weights, f32 sums in two fixed orders: 2e-6 of the value
+    (a dropped 1,024-row tile moves a mean by W_T (mean - m_T) / sum w,
+    ~1e-4 at n = 100,000); a NaN makes every mean NaN, as in the plain
+    version."""
+    gen = torch.Generator(device=cuda).manual_seed(n + n_boot)
+    x = torch.rand((n,), generator=gen, device=cuda)
+    before = bootstrap_means.launches
+    got = bootstrap_means(x, 21, n_boot=n_boot)
+    assert bootstrap_means.launches == before + 1
+    torch.testing.assert_close(got, bootstrap_means_ref(x, n_boot, 21),
+                               rtol=2e-6, atol=0)
+    x[n // 2] = float("nan")
+    assert torch.isnan(bootstrap_means(x, 21, n_boot=n_boot)).all()
+    assert torch.isnan(bootstrap_means_ref(x, n_boot, 21)).all()
