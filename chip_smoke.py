@@ -9,10 +9,16 @@ Phase 1 builds the hand-written CUDA kernels from ``src/repro_torch/csrc``
 and holds each one, at the main paths' full-width shapes, against its plain
 PyTorch version on the same inputs, row by row with a relative tolerance
 (the f32 paged decode kernel also bit for bit against the contiguous one
-on the same rows); it times the kernel, the plain version and a library
-yardstick where one exists, with CUDA events.  Phase 2 runs the contiguous
-main path through the user's entry point, ``EvalSession.run_task``, on
-full-width qwen3-4b with random bf16 weights, and checks that its kernels
+on the same rows, the prefill kernel's last rows bit for bit between a
+full and a suffix prefill, each column of a 13-metric bootstrap chunk bit
+for bit against a call on it alone); it times the kernel, the plain
+version and a library yardstick where one exists, with CUDA events (the
+prefill kernel also by its device time in a profiler trace, and its
+wrapper's host time).  Every task of phases 2-5 streams
+(``StreamingConfig(enabled=True)``) unless it says otherwise.  Phase 2
+runs the contiguous main path through the user's entry point,
+``EvalSession.run_task``, on full-width qwen3-4b with random bf16 weights,
+and checks that its kernels
 launched there, that the greedy tokens of a prompt do not depend on the
 batch around it, and that the logits are finite.  Phase 3 runs the paged
 path: ``run_task`` over few-shot prompts (a ~464-token header of worked
@@ -28,9 +34,12 @@ session, runs ``run_task`` with the seven ported metrics (five lexical,
 ``ci_method="bca"``: BERTScore goes through its kernel once per chunk, and
 each metric is range-checked by its kind (lexical in [0, 1], cosine in
 [-1, 1], BERTScore finite, every interval bracketing its value); then the
-statistics API ``bootstrap_ci`` over a million scores at B = 1,000 through
-the bootstrap-means kernel, its means held against the plain version and
-its width against the t-interval's.
+same task with the default ``StreamingConfig()``, which runs in memory (BCa
+over exact multinomial resamples drawn on the card, per-example scores
+kept), and streaming under ``ci_method="analytical"``, which must launch no
+bootstrap partials; then the statistics API ``bootstrap_ci`` over a
+million scores at B = 1,000 through the bootstrap-means kernel, its means
+held against the plain version and its width against the t-interval's.
 
 Standard output: the card's name and power limit first, then log lines,
 then one ``{"kernels": [...]}`` line, and last the
@@ -68,6 +77,10 @@ PROMPT_LEN = 12
 #: phase 3: tokens per KV page, and the few-shot header's token range
 PAGE_SIZE = 16
 HEADER_TOKENS = (448, 480)
+#: phase 1's prefill shapes (Sq, Sk, q_offset); the last is phase 3's suffix
+#: prefill after a prefix-cache hit (478 tokens, 464 shared; FewShot checks)
+FLASH_SHAPES = ((PROMPT_LEN, PROMPT_LEN, 0), (37, 37, 0), (512, 512, 0),
+                (2048, 2048, 0), (512, 2048, 1536), (14, 478, 464))
 #: full-width mamba2-2.7b SSD geometry (phase 4's): heads, head_dim, state
 #: size, groups, chunk
 SSM_HEADS, SSM_HEAD_DIM, SSM_STATE, SSM_GROUPS, SSM_CHUNK = 80, 64, 128, 1, 256
@@ -137,10 +150,7 @@ def flash_cases(torch, fs):
 
     g = torch.Generator(device="cuda").manual_seed(0)
     out = []
-    # the last shape is phase 3's suffix prefill after a prefix-cache hit
-    for sq, sk, off in ((PROMPT_LEN, PROMPT_LEN, 0), (37, 37, 0), (512, 512, 0),
-                        (2048, 2048, 0), (512, 2048, 1536),
-                        (fs.prompt_len - fs.shared, fs.prompt_len, fs.shared)):
+    for sq, sk, off in FLASH_SHAPES:
         def rnd(s, h):
             return torch.randn((1, s, h, HEAD_DIM), generator=g, device="cuda",
                                dtype=torch.float32).to(torch.bfloat16)
@@ -173,16 +183,91 @@ def flash_cases(torch, fs):
             "shape": shape,
             "max_abs_err": err,
             "ms": time_ms(torch, lambda: flash_attention(q, k, v, q_offset=off)),
+            "device_ms": device_ms(
+                torch, lambda: flash_attention(q, k, v, q_offset=off), "flash"),
             "plain_ms": time_ms(
                 torch, lambda: flash_attention_ref(q, k, v, q_offset=off), iters=5),
             "library_ms": time_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask)),
             "bound_ms": b_ms,
             "bound_by": b_by,
         })
+        causal = ""
+        if sq == sk:
+            causal_ms = time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True))
+            causal = f", sdpa is_causal (no mask tensor) {causal_ms:.4g} ms"
         log(f"flash_attention {shape}: err {err:.3g} (ratio {ratio:.3g}) "
-            f"{out[-1]['ms']:.4g} ms, plain {out[-1]['plain_ms']:.4g} ms, "
-            f"sdpa {out[-1]['library_ms']:.4g} ms, bound {b_ms:.4g} ms ({b_by})")
+            f"{out[-1]['ms']:.4g} ms (device {out[-1]['device_ms']:.4g} ms), plain "
+            f"{out[-1]['plain_ms']:.4g} ms, sdpa {out[-1]['library_ms']:.4g} ms"
+            f"{causal}, bound {b_ms:.4g} ms ({b_by})")
+
+    # a row's bits do not depend on its tile, on Sq or on q_offset: the last
+    # rows of phase 3's full prefill against the suffix prefill after a hit
+    q, k, v = rnd(fs.prompt_len, HEADS), rnd(fs.prompt_len, KV_HEADS), \
+        rnd(fs.prompt_len, KV_HEADS)
+    full = flash_attention(q, k, v)
+    tail = flash_attention(q[:, fs.shared:], k, v, q_offset=fs.shared)
+    torch.cuda.synchronize()
+    require(bool(torch.equal(full[:, fs.shared:], tail)),
+            f"flash_attention: the last {fs.prompt_len - fs.shared} rows of a "
+            f"{fs.prompt_len}-token prefill differ from the suffix prefill")
+    log(f"flash_attention: rows {fs.shared}..{fs.prompt_len - 1} bit-equal between "
+        f"the full {fs.prompt_len}-token prefill and the suffix prefill "
+        f"(q_offset {fs.shared})")
+
+    # the wrapper's host time per call at phase 2's shape, the device left
+    # to drain: what a prefill layer pays on the host
+    q, k, v = rnd(PROMPT_LEN, HEADS), rnd(PROMPT_LEN, KV_HEADS), \
+        rnd(PROMPT_LEN, KV_HEADS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(500):
+        flash_attention(q, k, v)
+    host_us = (time.perf_counter() - t0) / 500 * 1e6
+    torch.cuda.synchronize()
+    log(f"flash_attention wrapper at Sq=Sk={PROMPT_LEN}: {host_us:.2f} us of host "
+        f"time per call")
+    flash_limits()
     return out
+
+
+def flash_limits() -> None:
+    """What limits kernel 1, as the runtime reports it: registers and
+    local bytes a thread (0 local bytes: no spills), dynamic shared memory
+    a block and resident blocks an SM, for one and two consumer
+    warpgroups."""
+    import ctypes
+
+    from repro_torch.kernels import _cuda
+
+    for wgs in (1, 2):
+        vals = [ctypes.c_int() for _ in range(4)]
+        _cuda.check(_cuda.library().repro_flash_kernel_info(
+            wgs, *(ctypes.byref(v) for v in vals)), "repro_flash_kernel_info")
+        regs, local, smem, blocks = (v.value for v in vals)
+        log(f"flash_attention kernel, {wgs} consumer warpgroup(s) + 1 producer "
+            f"warp: {regs} registers a thread, {local} local bytes a thread, "
+            f"{smem} bytes of dynamic shared memory a block, {blocks} block(s) "
+            f"an SM")
+        require(local == 0, f"flash_attention spills: {local} local bytes a thread")
+
+
+def device_ms(torch, fn, name: str, calls: int = 10) -> float:
+    """Median device time (ms) of the kernels whose name holds ``name``,
+    from a ``torch.profiler`` trace of ``calls`` calls of ``fn``: the
+    kernel alone, without the host time that CUDA events around a loop of
+    short launches also measure.  NaN where the profiler saw none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    times = sorted(e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and name in e.name)
+    return times[len(times) // 2] if times else float("nan")
 
 
 def decode_case(torch):
@@ -422,6 +507,13 @@ def bootstrap_case(torch, n: int, m: int, n_boot: int, starts: tuple[int, ...],
         require(bool(torch.equal(got[1], ref[1])),
                 f"bootstrap_partials n={n} start={start}: sum w differs")
         xs.append(x)
+        # a column's bits are those of a call on that column alone
+        for j in range(m):
+            alone = bootstrap_partials(x[:, j : j + 1].contiguous(), seed, start,
+                                       n_boot=n_boot)
+            require(all(bool(torch.equal(a[:, 0], b[:, j]))
+                        for a, b in zip(alone, got)),
+                    f"bootstrap_partials n={n} m={m}: column {j} differs alone")
     shape = (f"n={n} m={m} n_boot={n_boot} seed={seed} start="
              + "/".join(str(s) for s in starts))
     require(max(r for _, r in errs) <= 1.0, f"bootstrap_partials {shape}: {errs}")
@@ -442,9 +534,9 @@ def bootstrap_case(torch, n: int, m: int, n_boot: int, starts: tuple[int, ...],
         "bound_ms": b_ms,
         "bound_by": b_by,
     }
-    log(f"bootstrap_partials {shape}: err {entry['max_abs_err']:.3g} "
-        f"{entry['ms']:.4g} ms, plain {entry['plain_ms']:.4g} ms, "
-        f"bound {b_ms:.4g} ms ({b_by})")
+    log(f"bootstrap_partials {shape}: err {entry['max_abs_err']:.3g}, every column "
+        f"bit-equal alone, {-(-m // 8)} launch(es) a call; {entry['ms']:.4g} ms, "
+        f"plain {entry['plain_ms']:.4g} ms, bound {b_ms:.4g} ms ({b_by})")
     return entry
 
 
@@ -681,6 +773,8 @@ def kernel_phase(torch, fs) -> list[dict]:
         # a full-size statistics chunk whose position counter wraps past 2^32
         bootstrap_case(torch, 100_000, 4, 2_000, (2**32 - 50_000,), 7,
                        plain_iters=3),
+        # a chunk of a task with 13 metric configs: two column groups
+        bootstrap_case(torch, CHUNK, 13, N_BOOT, (0, CHUNK), seed, plain_iters=20),
         *ssd_cases(torch, fs),
         *bertscore_cases(torch),
         *bootstrap_means_cases(torch),
@@ -721,6 +815,7 @@ def make_task(template: str | None = None, model_name: str = "qwen3-4b",
         InferenceConfig,
         MetricConfig,
         StatisticsConfig,
+        StreamingConfig,
     )
 
     model = EngineModelConfig(provider="torch_local", model_name=model_name,
@@ -734,7 +829,8 @@ def make_task(template: str | None = None, model_name: str = "qwen3-4b",
         metrics=(MetricConfig("exact_match"), MetricConfig("token_f1")),
         statistics=StatisticsConfig(bootstrap_iterations=N_BOOT,
                                     ci_method="percentile", backend="device"),
-    ).with_streaming(max_memory_rows=CHUNK)
+        streaming=StreamingConfig(enabled=True, max_memory_rows=CHUNK),
+    )
 
 
 def unit_range(name: str, mv) -> None:
@@ -778,7 +874,12 @@ def timed_run_task(torch, session, task, kernels: tuple[str, ...], label: str,
         f"{run['tokens_generated']} decoded tokens, "
         f"{run['tokens_generated'] / run['decode_s']:.1f} tokens/s in decode, "
         f"{generated / wall:.1f} generated tokens/s end to end")
-    require(result.logs["streaming"]["n_examples"] == N_ROWS, "examples lost")
+    if task.streaming.enabled:
+        require(result.logs["streaming"]["n_examples"] == N_ROWS, "examples lost")
+    else:
+        require(len(result.responses) == N_ROWS
+                and all(v.shape == (N_ROWS,) for v in result.scores.values()),
+                "in memory: responses or per-example scores lost")
     for name, mv in result.metrics.items():
         log(f"{label} metric {name}: {mv} ({mv.ci_method})")
         require(mv.n == N_ROWS, f"{name}: scored {mv.n} of {N_ROWS}")
@@ -809,17 +910,19 @@ def metric_range(name: str, mv) -> None:
 def metrics_phase(torch, session, base_task) -> dict[str, int]:
     """Phase 5: ``run_task`` over the 64 QA rows with the seven metrics and
     the default ``ci_method`` (bca) in phase 2's session, BERTScore through
-    kernel 7 once per 16-row chunk; then the statistics API
-    ``bootstrap_ci`` on the card over a million scores at B = 1,000
-    through kernel 5.  Returns the launches of both."""
+    kernel 7 once per 16-row chunk; the same task in memory (the default
+    ``StreamingConfig()``) and streaming under ``analytical``; then the
+    statistics API ``bootstrap_ci`` on the card over a million scores at B
+    = 1,000 through kernel 5.  Returns the launches of the streaming run
+    and of ``bootstrap_ci``."""
     import dataclasses
 
     import numpy as np
 
-    from repro_torch.core import MetricConfig, StatisticsConfig
+    from repro_torch.core import MetricConfig, StatisticsConfig, StreamingConfig
     from repro_torch.kernels.bootstrap import bootstrap_means, bootstrap_means_ref
     from repro_torch.metrics import BINARY_METRICS
-    from repro_torch.stats import bootstrap_ci, streaming_ci, t_interval
+    from repro_torch.stats import bootstrap_ci, compute_ci, streaming_ci, t_interval
 
     task = dataclasses.replace(
         base_task, task_id="qa-qwen3-4b-metrics",
@@ -843,6 +946,51 @@ def metrics_phase(torch, session, base_task) -> dict[str, int]:
         log(f"metrics path {name}: analytical {iv.method} interval "
             f"({iv.lo:.6g}, {iv.hi:.6g}) beside the bootstrap's "
             f"({result.metrics[name].ci[0]:.6g}, {result.metrics[name].ci[1]:.6g})")
+
+    # the reference's default path: the same task with the default
+    # StreamingConfig() runs in memory, BCa over exact multinomial resamples
+    # drawn on the card, and keeps the per-example scores
+    inmem = dataclasses.replace(task, task_id="qa-qwen3-4b-inmemory",
+                                streaming=StreamingConfig())
+    mem_launches, _, mem_wall, mem = timed_run_task(
+        torch, session, inmem, ("flash_attention", "decode_attention", "bertscore_pr"),
+        "in-memory path", check_metric=metric_range)
+    require(all(mv.ci_method == "bca" for mv in mem.metrics.values()),
+            f"in memory: methods {[mv.ci_method for mv in mem.metrics.values()]}")
+    require(mem_launches["bootstrap_partials"] == 0,
+            "in memory: the streaming partials kernel was launched")
+    require(mem_launches["bertscore_pr"] == 1,
+            f"in memory: bertscore_pr launched {mem_launches['bertscore_pr']} "
+            f"times, not once over the {N_ROWS} rows")
+    # the threefry draws and BCa on the card against the same on the CPU:
+    # 0/1 scores have exact f32 replicate sums, so the two agree bit for bit
+    st = inmem.statistics
+    em = mem.metrics["exact_match"]
+    cpu = compute_ci(mem.scores["exact_match"], method="bca",
+                     confidence=st.confidence_level, n_boot=st.bootstrap_iterations,
+                     seed=st.seed, device="cpu")
+    require((em.value, *em.ci) == (cpu.value, cpu.lo, cpu.hi),
+            f"in memory: exact_match {em.value!r} {em.ci!r} on the card, "
+            f"{cpu.value!r} ({cpu.lo!r}, {cpu.hi!r}) on the CPU")
+    log(f"in-memory exact_match BCa on the card equals the CPU's bit for bit: "
+        f"{em.value!r} ({em.ci[0]!r}, {em.ci[1]!r})")
+    stages = ", ".join(f"{k} {v:.4f} s" for k, v in mem.timing.items())
+    log(f"in-memory path per-stage seconds (run_task wall {mem_wall:.3f} s): "
+        f"{stages}; the stats stage (BCa for {len(METRICS)} metrics at B={N_BOOT}) "
+        f"{mem.timing['stats_s']:.4f} s")
+
+    # analytical intervals keep no replicate state: no partials launch
+    analytical = dataclasses.replace(
+        task, task_id="qa-qwen3-4b-analytical",
+        statistics=StatisticsConfig(ci_method="analytical"))
+    an_launches, *_, an = timed_run_task(
+        torch, session, analytical, ("flash_attention", "decode_attention"),
+        "analytical streaming path", check_metric=metric_range)
+    require(an_launches["bootstrap_partials"] == 0 and an.stream_stats.engine is None,
+            f"analytical: {an_launches['bootstrap_partials']} bootstrap_partials "
+            f"launches, engine {an.stream_stats.engine}")
+    log("analytical streaming path: no bootstrap engine, 0 bootstrap_partials "
+        "launches")
 
     scores = np.random.default_rng(0).random(N_SCORES).astype(np.float32)
     x = torch.from_numpy(scores).to(session.device)
@@ -921,14 +1069,23 @@ def main_path_phase(torch) -> tuple[dict[str, int], dict[str, int]]:
         step_breakdown(
             torch, f"decode step (batch {N_SLOTS}, all slots at position 4)",
             lambda: b.model.decode_step(b.params, nxt, b.cache, pos))
+        # where a prefill's time goes: a main-path prompt, and a prompt of
+        # phase 3's length prefilled in full
+        for n_tok in (PROMPT_LEN, 478):
+            toks = torch.arange(2, 2 + n_tok, device="cuda")[None, :]
+            step_breakdown(torch, f"prefill ({n_tok} tokens into slot 0)",
+                           lambda: b.model.prefill(b.params, toks, b.cache, 0),
+                           kernel="flash")
         metrics = metrics_phase(torch, session, task)
     return launches, metrics
 
 
-def step_breakdown(torch, label: str, run, steps: int = 5) -> None:
+def step_breakdown(torch, label: str, run, steps: int = 5,
+                   kernel: str | None = None) -> None:
     """Where a step's time goes: host-clock wall per call of ``run``
     without the profiler, then device time per call by kernel from a
-    ``torch.profiler`` trace of further calls."""
+    ``torch.profiler`` trace of further calls (and the share of the
+    kernels whose name holds ``kernel``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -955,6 +1112,11 @@ def step_breakdown(torch, label: str, run, steps: int = 5) -> None:
     log(f"{label}: {wall_ms:.2f} ms wall without the profiler; device busy "
         f"{busy_ms:.2f} ms per step ({100 * busy_ms / wall_ms:.1f}% of wall) in "
         f"{n_events:.0f} kernels and copies per step")
+    if kernel is not None:
+        mine = [t for name, ts in by_name.items() if kernel in name for t in ts]
+        mine_ms = sum(mine) / 1e3 / steps
+        log(f"  {mine_ms:.3f} ms/step ({100 * mine_ms / busy_ms:.1f}% of device "
+            f"busy) in {len(mine) // steps} launches/step of the {kernel} kernel")
     top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:6]
     for name, times in top:
         log(f"  {sum(times) / 1e3 / steps:.3f} ms/step in {len(times) // steps} "
@@ -994,6 +1156,8 @@ class FewShot:
         common = next(i for i, (a, b) in enumerate(zip(*prompts[:2])) if a != b)
         # the paged cache shares whole pages, never the final token's page
         self.shared = min(common, min(lens) - 1) // PAGE_SIZE * PAGE_SIZE
+        require((self.prompt_len - self.shared, self.prompt_len, self.shared)
+                == FLASH_SHAPES[-1], "phase 3's suffix shape is not phase 1's")
         log(f"few-shot header: {self.k} examples, {self.header_tokens} tokens; "
             f"prompts {min(lens)}-{max(lens)} tokens, {self.shared} shared "
             f"({self.shared // PAGE_SIZE} pages of {PAGE_SIZE})")

@@ -1,5 +1,5 @@
 """Evaluation-task configuration: the parts of ``repro/core/config.py`` that
-the port's streaming path reads."""
+the port's in-memory and streaming paths read."""
 
 from __future__ import annotations
 
@@ -42,10 +42,14 @@ class StatisticsConfig:
 
 @dataclasses.dataclass(frozen=True)
 class StreamingConfig:
-    """Chunked execution: prepare, infer and score one chunk of
-    ``max_memory_rows`` examples at a time, folding scores into mergeable
-    accumulators, so peak per-example state is one chunk."""
+    """Bounded-memory chunked execution.  When ``enabled``, the session
+    prepares, infers and scores one chunk of ``max_memory_rows`` examples
+    at a time, folding scores into mergeable accumulators, so peak
+    per-example state is one chunk; otherwise (the default, as in the
+    reference) it runs the stages over the whole task in memory and keeps
+    the per-example scores."""
 
+    enabled: bool = False
     max_memory_rows: int = 1024
 
 
@@ -84,6 +88,9 @@ class EvalTask:
     streaming: StreamingConfig = StreamingConfig()
 
     def with_streaming(self, **kw: Any) -> "EvalTask":
+        """Enable (or reconfigure) streaming execution; unspecified fields
+        keep their current values."""
+        kw.setdefault("enabled", True)
         return dataclasses.replace(
             self, streaming=dataclasses.replace(self.streaming, **kw)
         )

@@ -1,17 +1,19 @@
 """EvalSession: the port's entry point (``repro/core/session.py``).  A
-session holds one inference engine on one device and runs streaming tasks
-through it; the inference service, response cache, replicas and suites of
-the reference come in later slices."""
+session holds one inference engine on one device and runs tasks through
+it, in memory by default and in chunks with ``streaming.enabled``; the
+inference service, response cache, middleware, replicas and suites of the
+reference come in later slices."""
 
 from __future__ import annotations
 
-from typing import Any, Iterable
+import time
+from typing import Any, Iterable, Sequence
 
 import torch
 
 from repro_torch.core.config import EngineModelConfig, EvalTask, InferenceConfig
 from repro_torch.core.engines import TorchLocalEngine
-from repro_torch.core.stages import EvalResult
+from repro_torch.core.stages import EvalArtifact, EvalResult, default_stages
 from repro_torch.core.streaming import StreamingPipeline
 from repro_torch.device import resolve_device
 
@@ -72,12 +74,36 @@ class EvalSession:
             )
         return self.engine
 
-    def run_task(self, rows: Iterable[dict], task: EvalTask) -> EvalResult:
-        """Stream ``rows`` through prepare -> infer -> score in chunks of
-        ``task.streaming.max_memory_rows``; the result carries ``metrics``
-        and the mergeable ``stream_stats``."""
+    def run_task(
+        self,
+        rows: Iterable[dict],
+        task: EvalTask,
+        *,
+        stages: Sequence[Any] | None = None,
+    ) -> EvalResult:
+        """With ``task.streaming.enabled``, stream ``rows`` through prepare
+        -> infer -> score in chunks of ``max_memory_rows``: the result
+        carries ``metrics`` and the mergeable ``stream_stats``.  Otherwise
+        run ``stages`` (default: prepare -> infer -> score -> aggregate)
+        over all of ``rows`` in memory, each stage's seconds in
+        ``timing[f"{stage.name}_s"]``: the result carries ``metrics``, the
+        per-example ``scores`` and the ``responses``."""
         self._check_open()
-        return StreamingPipeline.from_task(task).run(rows, task, self)
+        if task.streaming.enabled:
+            if stages is not None:
+                raise ValueError(
+                    "streaming tasks run a fixed per-chunk pipeline; "
+                    "custom stages are not supported"
+                )
+            return StreamingPipeline.from_task(task).run(rows, task, self)
+        pipeline = list(stages) if stages is not None else default_stages()
+        art = EvalArtifact(rows=list(rows), task=task)
+        for stage in pipeline:
+            t0 = time.monotonic()
+            art = stage.run(art, self)
+            art.timing[f"{stage.name}_s"] = time.monotonic() - t0
+        engine_stats = self.engine.serving_stats() if self.engine is not None else {}
+        return art.to_result(engine_stats)
 
     def _check_open(self) -> None:
         if self._closed:

@@ -1,6 +1,8 @@
-"""Per-chunk stages of the streaming evaluation (the prepare, infer and score
-stages of ``repro/core/stages.py``): each is ``run(artifact, session) ->
-artifact`` over one :class:`EvalArtifact`."""
+"""The evaluation stages of ``repro/core/stages.py``: each is
+``run(artifact, session) -> artifact`` over one :class:`EvalArtifact`.  The
+in-memory pipeline (:func:`default_stages`) is prepare -> infer -> score ->
+aggregate over the whole task; the streaming pipeline runs the first three
+per chunk and aggregates from mergeable state instead."""
 
 from __future__ import annotations
 
@@ -12,7 +14,12 @@ import numpy as np
 from repro_torch.core.config import EvalTask
 from repro_torch.core.engines import InferenceRequest, InferenceResponse
 from repro_torch.data.templates import render
-from repro_torch.metrics.registry import MetricContext, resolve_metrics
+from repro_torch.metrics.registry import (
+    BINARY_METRICS,
+    MetricContext,
+    resolve_metrics,
+)
+from repro_torch.stats.bootstrap import compute_ci
 
 
 @dataclasses.dataclass
@@ -38,15 +45,19 @@ class EvalResult:
     engine_stats: dict
     timing: dict
     logs: dict
-    #: merged accumulator and bootstrap-replicate state of the run
+    #: streaming runs only: merged accumulator and bootstrap-replicate state
     stream_stats: Any = None
+    #: in-memory runs only: per-example scores by metric and the responses
+    scores: dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
+    responses: list[str] = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass
 class EvalArtifact:
-    """One chunk flowing through the stages: ``PrepareStage`` fills
-    ``prompts``, ``InferStage`` ``texts``/``failures``,
-    ``ScoreStage`` ``scores``."""
+    """The rows of a task (or of one chunk) flowing through the stages:
+    ``PrepareStage`` fills ``prompts``, ``InferStage`` ``texts`` and
+    ``failures``, ``ScoreStage`` ``scores``, ``AggregateStage``
+    ``metrics``; the session records each stage's seconds in ``timing``."""
 
     rows: list[dict]
     task: EvalTask
@@ -54,6 +65,19 @@ class EvalArtifact:
     texts: list[str] = dataclasses.field(default_factory=list)
     failures: list[dict] = dataclasses.field(default_factory=list)
     scores: dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
+    metrics: dict[str, MetricValue] = dataclasses.field(default_factory=dict)
+    timing: dict = dataclasses.field(default_factory=dict)
+
+    def to_result(self, engine_stats: dict) -> EvalResult:
+        return EvalResult(
+            task_id=self.task.task_id,
+            metrics=self.metrics,
+            engine_stats=engine_stats,
+            timing=self.timing,
+            logs={},
+            scores=self.scores,
+            responses=self.texts,
+        )
 
 
 class PrepareStage:
@@ -108,3 +132,43 @@ class ScoreStage:
             for name, scorer in resolve_metrics(art.task.metrics)
         }
         return art
+
+
+class AggregateStage:
+    """Each metric's value and interval from its per-example scores, NaN
+    (unscorable) examples left out: ``compute_ci`` with the task's
+    statistics settings, Wilson under ``analytical`` for binary metrics.
+    The bootstrap methods resample on the session's device."""
+
+    name = "stats"
+
+    def run(self, art: EvalArtifact, session: Any) -> EvalArtifact:
+        stats_cfg = art.task.statistics
+        metric_values: dict[str, MetricValue] = {}
+        for name, vals in art.scores.items():
+            nan_mask = np.isnan(vals)
+            ok = vals[~nan_mask]
+            n_unscored = int(nan_mask.sum())
+            if len(ok) == 0:
+                metric_values[name] = MetricValue(
+                    name, float("nan"), (float("nan"),) * 2, "none", 0, n_unscored
+                )
+                continue
+            iv = compute_ci(
+                ok,
+                method=stats_cfg.ci_method,
+                confidence=stats_cfg.confidence_level,
+                n_boot=stats_cfg.bootstrap_iterations,
+                seed=stats_cfg.seed,
+                binary=name in BINARY_METRICS,
+                device=session.device,
+            )
+            metric_values[name] = MetricValue(
+                name, iv.value, (iv.lo, iv.hi), iv.method, iv.n, n_unscored
+            )
+        art.metrics = metric_values
+        return art
+
+
+def default_stages() -> list:
+    return [PrepareStage(), InferStage(), ScoreStage(), AggregateStage()]

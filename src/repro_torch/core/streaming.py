@@ -1,8 +1,10 @@
 """Serial streaming evaluation (``StreamingPipeline.run`` of
 ``repro/core/streaming.py``, without the spill manifest and without
 concurrent chunks): prepare, infer and score one chunk at a time, fold its
-scores into mergeable accumulators and the device bootstrap engine, and
-drop it, so peak per-example state is one chunk."""
+scores into mergeable accumulators and, for the bootstrap interval methods,
+the device bootstrap engine, and drop it, so peak per-example state is one
+chunk.  ``EvalSession.run_task`` takes this path for a task with
+``streaming.enabled``."""
 
 from __future__ import annotations
 
@@ -42,10 +44,14 @@ class StreamingPipeline:
         stats_cfg = task.statistics
         names = [name for name, _ in resolve_metrics(task.metrics)]
         accs = {m: MetricAccumulator() for m in names}
+        # the analytical interval comes straight from the moments; only the
+        # bootstrap methods pay for replicate state (one partials launch per
+        # chunk), as in the reference
+        use_boot = stats_cfg.ci_method in ("percentile", "bca")
         engine = make_bootstrap_engine(
             stats_cfg.backend, stats_cfg.bootstrap_iterations, stats_cfg.seed,
             tuple(names), device=session.device,
-        )
+        ) if use_boot else None
         timing: dict[str, float] = {}
         n_failures = n_examples = n_chunks = 0
         start = 0
@@ -61,9 +67,10 @@ class StreamingPipeline:
             t0 = time.monotonic()
             for m in names:
                 accs[m].update(art.scores[m])
-            chunk_engine = engine.spawn()
-            chunk_engine.update(art.scores, start)
-            engine.merge(chunk_engine)
+            if engine is not None:
+                chunk_engine = engine.spawn()
+                chunk_engine.update(art.scores, start)
+                engine.merge(chunk_engine)
             timing["stats_s"] = timing.get("stats_s", 0.0) + time.monotonic() - t0
             n_failures += len(art.failures)
             start += len(chunk)
@@ -81,7 +88,8 @@ class StreamingPipeline:
                     "n_chunks": n_chunks,
                     "chunk_size": self.chunk_size,
                     "n_failures": n_failures,
-                    "stats_stream": engine.stream_id(),
+                    "stats_backend": stats_cfg.backend if use_boot else "",
+                    "stats_stream": engine.stream_id() if use_boot else None,
                 }
             },
             stream_stats=StreamingStats(
@@ -94,7 +102,7 @@ class StreamingPipeline:
 def _finalize_metrics(
     names: list[str],
     accs: dict[str, MetricAccumulator],
-    engine: BootstrapEngine,
+    engine: BootstrapEngine | None,
     task: EvalTask,
 ) -> dict[str, MetricValue]:
     stats_cfg = task.statistics
@@ -107,7 +115,8 @@ def _finalize_metrics(
             )
             continue
         iv = streaming_ci(
-            acc, engine.view(m), method=stats_cfg.ci_method,
+            acc, engine.view(m) if engine is not None else None,
+            method=stats_cfg.ci_method,
             confidence=stats_cfg.confidence_level, binary=m in BINARY_METRICS,
         )
         out[m] = MetricValue(m, iv.value, (iv.lo, iv.hi), iv.method, iv.n, acc.n_nan)

@@ -19,6 +19,13 @@
 // multiplies wrap, (bits >> 8) * 2^-24 is exact in f32, and it is compared
 // against the f32-rounded CDF constants given below as bit patterns.
 //
+// The TPU kernel pads the metrics to 128 lanes and takes any m.  Here a
+// launch takes at most 8 columns, whose per-thread sums live in registers;
+// the wrapper launches once per group of 8 in ascending order, each into
+// its slice of the outputs through the row stride ld.  The weights do not
+// depend on the column, so a column's bits are those of a launch on it
+// alone.
+//
 // Bound on the H100: each (example, replicate, metric) costs the integer
 // mixer plus a compare ladder and one FMA, while the bytes are only the
 // (n, m) scores and the two (n_boot, m) outputs, so it is bound by
@@ -42,7 +49,7 @@ namespace {
 
 constexpr int BB = 128;    // replicates per block (one per thread)
 constexpr int CH = 1024;   // score rows per tile (grid axis y)
-constexpr int MAXM = 8;    // metrics
+constexpr int MAXM = 8;    // metric columns per launch
 
 __device__ __forceinline__ uint32_t mix_bits(uint32_t boot, uint32_t pos,
                                              uint32_t seed) {
@@ -67,14 +74,14 @@ __device__ __forceinline__ float poisson1_weight(uint32_t bits) {
 }
 
 __global__ void __launch_bounds__(BB)
-partials_tile_kernel(const float* __restrict__ x, int n, int m, int n_boot,
-                     uint32_t seed, uint32_t start,
+partials_tile_kernel(const float* __restrict__ x, int ld, int n, int m,
+                     int n_boot, uint32_t seed, uint32_t start,
                      float* __restrict__ tile_wx, float* __restrict__ tile_w) {
   __shared__ float xs[CH * MAXM];
   const int i0 = blockIdx.y * CH;
   const int cnt = min(CH, n - i0);
   for (int t = threadIdx.x; t < cnt * m; t += BB)
-    xs[t] = x[static_cast<int64_t>(i0) * m + t];
+    xs[t] = x[static_cast<int64_t>(i0 + t / m) * ld + t % m];
   __syncthreads();
   const int b = blockIdx.x * BB + threadIdx.x;
   if (b >= n_boot) return;
@@ -108,17 +115,20 @@ partials_tile_kernel(const float* __restrict__ x, int n, int m, int n_boot,
 
 __global__ void sum_tiles_kernel(const float* __restrict__ tile_wx,
                                  const float* __restrict__ tile_w, int n_tiles,
-                                 int count, float* __restrict__ swx,
+                                 int n_boot, int m, int ld,
+                                 float* __restrict__ swx,
                                  float* __restrict__ sw) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int count = n_boot * m;
   if (t >= count) return;
   float a = 0.f, c = 0.f;
   for (int s = 0; s < n_tiles; ++s) {
     a += tile_wx[static_cast<int64_t>(s) * count + t];
     c += tile_w[static_cast<int64_t>(s) * count + t];
   }
-  swx[t] = a;
-  sw[t] = c;
+  const int64_t out = static_cast<int64_t>(t / m) * ld + t % m;
+  swx[out] = a;
+  sw[out] = c;
 }
 
 __global__ void __launch_bounds__(BB)
@@ -160,29 +170,32 @@ __global__ void means_finish_kernel(const float* __restrict__ tile_wx,
 }  // namespace
 
 extern "C" int repro_bootstrap_tile_rows() { return CH; }
+extern "C" int repro_bootstrap_tile_cols() { return MAXM; }
 
-// scores (n, m) f32 row-major, NaN = unscorable; tile_wx / tile_w scratch of
-// (ceil(n / tile_rows), n_boot, m) f32; swx / sw outputs (n_boot, m) f32.
-// Returns the launches' cudaError_t.
-extern "C" int repro_bootstrap_partials(const void* scores, int n, int m,
-                                        int n_boot, unsigned int seed,
+// One group of at most tile_cols() metric columns: scores points at the
+// group's first column of an (n, ld) f32 row-major matrix (NaN =
+// unscorable), swx / sw at the same column of (n_boot, ld) f32 outputs;
+// tile_wx / tile_w are scratch of (ceil(n / tile_rows), n_boot, m) f32.  A
+// column's sums do not depend on the other columns of its group.  Returns
+// the launches' cudaError_t.
+extern "C" int repro_bootstrap_partials(const void* scores, int ld, int n,
+                                        int m, int n_boot, unsigned int seed,
                                         unsigned int start, void* tile_wx,
                                         void* tile_w, void* swx, void* sw,
                                         void* stream) {
-  if (n <= 0 || m <= 0 || m > MAXM || n_boot <= 0)
+  if (n <= 0 || m <= 0 || m > MAXM || ld < m || n_boot <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_tiles = (n + CH - 1) / CH;
   const dim3 grid((n_boot + BB - 1) / BB, n_tiles);
   partials_tile_kernel<<<grid, BB, 0, s>>>(
-      static_cast<const float*>(scores), n, m, n_boot, seed, start,
+      static_cast<const float*>(scores), ld, n, m, n_boot, seed, start,
       static_cast<float*>(tile_wx), static_cast<float*>(tile_w));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int count = n_boot * m;
-  sum_tiles_kernel<<<(count + 255) / 256, 256, 0, s>>>(
+  sum_tiles_kernel<<<(n_boot * m + 255) / 256, 256, 0, s>>>(
       static_cast<const float*>(tile_wx), static_cast<const float*>(tile_w),
-      n_tiles, count, static_cast<float*>(swx), static_cast<float*>(sw));
+      n_tiles, n_boot, m, ld, static_cast<float*>(swx), static_cast<float*>(sw));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -35,12 +35,14 @@ _I = ctypes.c_int
 _U = ctypes.c_uint
 _F = ctypes.c_float
 _I64P = ctypes.POINTER(ctypes.c_int64)
+_IP = ctypes.POINTER(ctypes.c_int)
 
 #: C entry points and their argument types (every one returns cudaError_t)
 SIGNATURES = {
     "repro_flash_prefill_bf16": (
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I64P, _I, _F, _P,
     ),
+    "repro_flash_kernel_info": (_I, _IP, _IP, _IP, _IP),
     "repro_decode_attention_f32cache": (
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I64P, _F, _P,
     ),
@@ -52,9 +54,10 @@ SIGNATURES = {
         _I, _I, _I, _I, _I, _I, _I64P, _F, _P,
     ),
     "repro_bootstrap_partials": (
-        _P, _I, _I, _I, _U, _U, _P, _P, _P, _P, _P,
+        _P, _I, _I, _I, _I, _U, _U, _P, _P, _P, _P, _P,
     ),
     "repro_bootstrap_tile_rows": (),
+    "repro_bootstrap_tile_cols": (),
     "repro_bootstrap_means": (_P, _I, _I, _U, _P, _P, _P, _P),
     "repro_bertscore_pr": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
     "repro_ssd_bf16": (
@@ -136,13 +139,13 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err}")
 
 
-def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+def stream_of(t: torch.Tensor) -> int:
+    """The raw handle of the current stream on ``t``'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def int64_array(values) -> ctypes.Array:
-    vals = [int(v) for v in values]
-    return (ctypes.c_int64 * len(vals))(*vals)
+def int64_array(values: tuple[int, ...] | list[int]) -> ctypes.Array:
+    return (ctypes.c_int64 * len(values))(*values)
 
 
 def require_cuda(t: torch.Tensor, name: str, dtype: torch.dtype) -> None:

@@ -20,26 +20,32 @@ def bootstrap_partials(
     n_boot: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(sum w*x, sum w)`` f32 replicate pairs of shape (n_boot, m) on
-    the card; at most 8 metrics."""
+    the card, any m.  One launch per group of at most 8 columns, in
+    ascending order, each writing its slice of the outputs; a column's bits
+    are those of a call on that column alone, since the weights depend only
+    on (seed, example, replicate)."""
     _cuda.require_cuda(scores, "scores", torch.float32)
     if scores.dim() != 2 or not scores.is_contiguous():
         raise ValueError(f"scores must be a contiguous (n, m) matrix: {scores.shape}")
     n, m = scores.shape
-    if n == 0 or not 1 <= m <= 8 or n_boot <= 0:
+    if n == 0 or m == 0 or n_boot <= 0:
         raise ValueError(f"unsupported: n={n} m={m} n_boot={n_boot}")
     lib = _cuda.library()
     n_tiles = math.ceil(n / lib.repro_bootstrap_tile_rows())
-    tiles = torch.empty((2, n_tiles, n_boot, m), dtype=torch.float32,
-                        device=scores.device)
+    group = lib.repro_bootstrap_tile_cols()
+    tiles = torch.empty((2, n_tiles * n_boot * min(m, group)),
+                        dtype=torch.float32, device=scores.device)
     swx = torch.empty((n_boot, m), dtype=torch.float32, device=scores.device)
     sw = torch.empty_like(swx)
-    err = lib.repro_bootstrap_partials(
-        scores.data_ptr(), n, m, n_boot, seed & 0xFFFFFFFF, start & 0xFFFFFFFF,
-        tiles[0].data_ptr(), tiles[1].data_ptr(), swx.data_ptr(),
-        sw.data_ptr(), _cuda.stream_of(scores),
-    )
-    _cuda.check(err, "bootstrap_partials")
-    bootstrap_partials.launches += 1
+    for j in range(0, m, group):
+        err = lib.repro_bootstrap_partials(
+            scores.data_ptr() + 4 * j, m, n, min(group, m - j), n_boot,
+            seed & 0xFFFFFFFF, start & 0xFFFFFFFF, tiles[0].data_ptr(),
+            tiles[1].data_ptr(), swx.data_ptr() + 4 * j,
+            sw.data_ptr() + 4 * j, _cuda.stream_of(scores),
+        )
+        _cuda.check(err, "bootstrap_partials")
+        bootstrap_partials.launches += 1
     return swx, sw
 
 

@@ -186,10 +186,11 @@ def make_bootstrap_engine(
 @dataclasses.dataclass
 class StreamingStats:
     """A streaming run's aggregate statistical state, carried on the result
-    in place of per-example scores."""
+    in place of per-example scores.  ``engine`` is ``None`` under
+    ``ci_method="analytical"``, which keeps no replicate state."""
 
     accs: dict[str, MetricAccumulator]
-    engine: BootstrapEngine
+    engine: BootstrapEngine | None
     chunk_size: int
     n_examples: int
 

@@ -1,8 +1,11 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on
 the card, over a shape grid at head_dim 128 (the only one the kernels are
 built for): G in {1, 4, 8}, ragged tails, ``q_offset``, strided views,
-lengths 1 and ``max_len``; and the paged kernels over page sizes 8, 16
-and 64 with aliased pages and padding entries, the f32 one bit-equal to
+lengths 1 and ``max_len``, the flash kernel's rows bit-equal between a
+full and a suffix prefill, the bootstrap partials over more than 8
+metrics (each column bit-equal to a call on it alone); and the paged
+kernels over page sizes 8, 16 and 64 with aliased pages and padding
+entries, the f32 one bit-equal to
 the contiguous kernel on the same rows; and the SSD scan at Mamba2's
 head_dim 64 and state 128 over G in {1, 2} and ragged lengths, its output
 and final state against the plain chunked version and the sequential
@@ -58,22 +61,40 @@ def _rowwise_ok(out, ref, rtol, row_frac):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize(
-    "h,kh,sq,sk,off",
-    [(4, 4, 37, 37, 0), (32, 8, 100, 100, 0), (32, 8, 64, 300, 236),
-     (8, 2, 1, 1, 0), (8, 8, 129, 129, 0), (32, 8, 5, 513, 508)],
+    "h,kh,sq,sk,off,kv_view,suffix",
+    [(4, 4, 37, 37, 0, False, 0), (32, 8, 100, 100, 0, False, 0),
+     (32, 8, 64, 300, 236, False, 0), (8, 2, 1, 1, 0, False, 0),
+     (8, 8, 129, 129, 0, False, 0), (32, 8, 5, 513, 508, False, 0),
+     # Sq not a multiple of the 128-row tile, G = 8, K/V views of one
+     # fused tensor, q_offset > 0
+     (32, 4, 200, 200, 0, True, 0), (16, 2, 70, 330, 260, True, 0),
+     (8, 8, 257, 257, 0, True, 0), (32, 8, 12, 12, 0, True, 0),
+     # the last rows of a full prefill against a suffix prefill of them
+     # after a prefix-cache hit (phase 3's 478 tokens, 464 shared): bit-equal
+     (32, 8, 478, 478, 0, False, 14), (32, 4, 300, 300, 0, True, 45)],
 )
-def test_flash_kernel_matches_plain_version(cuda, h, kh, sq, sk, off):
+def test_flash_kernel_matches_plain_version(cuda, h, kh, sq, sk, off, kv_view,
+                                            suffix):
     d = 128
     g = torch.Generator(device=cuda).manual_seed(sq + sk)
     # q is a strided view, as in a fused projection
     q = torch.randn((2, sq, 2, h, d), generator=g, device=cuda).to(torch.bfloat16)
     q = q[:, :, 1]
-    k = torch.randn((2, sk, kh, d), generator=g, device=cuda).to(torch.bfloat16)
-    v = torch.randn((2, sk, kh, d), generator=g, device=cuda).to(torch.bfloat16)
+    if kv_view:
+        kv = torch.randn((2, sk, 2, kh, d), generator=g, device=cuda)
+        k, v = kv.to(torch.bfloat16).unbind(2)
+    else:
+        k = torch.randn((2, sk, kh, d), generator=g, device=cuda).to(torch.bfloat16)
+        v = torch.randn((2, sk, kh, d), generator=g, device=cuda).to(torch.bfloat16)
     got = flash_attention(q, k, v, q_offset=off)
     ref = flash_attention_ref(q, k, v, q_offset=off)
     # bf16 P (unnormalised) in the kernel vs normalised in the plain version
     assert _rowwise_ok(got, ref, 2**-7, 1e-2)
+    if suffix:
+        # a row's bits do not depend on its tile, on Sq or on q_offset
+        tail = flash_attention(q[:, sq - suffix :], k, v,
+                               q_offset=off + sq - suffix)
+        assert torch.equal(tail, got[:, sq - suffix :])
 
 
 @pytest.mark.gpu
@@ -104,16 +125,27 @@ def test_decode_kernel_refuses_a_cache_that_is_not_f32(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize(
-    "n,m,start", [(1, 1, 0), (1000, 2, 5), (3000, 4, 2**32 - 1500)]
+    "n,m,start",
+    [(1, 1, 0), (1000, 2, 5), (3000, 4, 2**32 - 1500), (2000, 13, 77),
+     (1500, 8, 3), (700, 9, 0)],
 )
 def test_bootstrap_kernel_matches_plain_version(cuda, n, m, start):
     gen = torch.Generator(device=cuda).manual_seed(n)
     x = torch.rand((n, m), generator=gen, device=cuda)
     x[::7, 0] = float("nan")
+    bootstrap_partials.launches = 0
     got = bootstrap_partials(x, 11, start, n_boot=300)
+    # one launch per group of at most 8 columns
+    assert bootstrap_partials.launches == -(-m // 8)
     ref = bootstrap_partials_ref(x, 11, start, n_boot=300)
     torch.testing.assert_close(got[1], ref[1], rtol=0, atol=0)  # same weights
     torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=1e-5)
+    # a column's bits are those of a call on that column alone
+    for j in range(m):
+        alone = bootstrap_partials(x[:, j : j + 1].contiguous(), 11, start,
+                                   n_boot=300)
+        assert torch.equal(alone[0][:, 0], got[0][:, j])
+        assert torch.equal(alone[1][:, 0], got[1][:, j])
 
 
 @pytest.mark.gpu
