@@ -14,7 +14,11 @@ full and a suffix prefill, each column of a 13-metric bootstrap chunk bit
 for bit against a call on it alone); it times the kernel, the plain
 version and a library yardstick where one exists, with CUDA events (the
 prefill kernel also by its device time in a profiler trace, and its
-wrapper's host time).  Every task of phases 2-5 streams
+wrapper's host time; the SSD and int8 paged kernels by the device time of
+a whole call, whose three and two device kernels are summed), and logs
+the registers, spills and shared memory of kernels 1, 4 and 8 from the
+runtime, failing on any spill.  The decode kernel is also held and timed
+at the main path's own lengths (11..45).  Every task of phases 2-5 streams
 (``StreamingConfig(enabled=True)``) unless it says otherwise.  Phase 2
 runs the contiguous main path through the user's entry point,
 ``EvalSession.run_task``, on full-width qwen3-4b with random bf16 weights,
@@ -184,7 +188,7 @@ def flash_cases(torch, fs):
             "max_abs_err": err,
             "ms": time_ms(torch, lambda: flash_attention(q, k, v, q_offset=off)),
             "device_ms": device_ms(
-                torch, lambda: flash_attention(q, k, v, q_offset=off), "flash"),
+                torch, lambda: flash_attention(q, k, v, q_offset=off)),
             "plain_ms": time_ms(
                 torch, lambda: flash_attention_ref(q, k, v, q_offset=off), iters=5),
             "library_ms": time_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask)),
@@ -226,36 +230,33 @@ def flash_cases(torch, fs):
     torch.cuda.synchronize()
     log(f"flash_attention wrapper at Sq=Sk={PROMPT_LEN}: {host_us:.2f} us of host "
         f"time per call")
-    flash_limits()
+    # kernel 1 with one and two consumer warpgroups (+ 1 producer warp)
+    kernel_limits("repro_flash_kernel_info",
+                  {1: "flash_attention, 1 consumer warpgroup",
+                   2: "flash_attention, 2 consumer warpgroups"})
     return out
 
 
-def flash_limits() -> None:
-    """What limits kernel 1, as the runtime reports it: registers and
-    local bytes a thread (0 local bytes: no spills), dynamic shared memory
-    a block and resident blocks an SM, for one and two consumer
-    warpgroups."""
-    import ctypes
-
-    from repro_torch.kernels import _cuda
-
-    for wgs in (1, 2):
-        vals = [ctypes.c_int() for _ in range(4)]
-        _cuda.check(_cuda.library().repro_flash_kernel_info(
-            wgs, *(ctypes.byref(v) for v in vals)), "repro_flash_kernel_info")
-        regs, local, smem, blocks = (v.value for v in vals)
-        log(f"flash_attention kernel, {wgs} consumer warpgroup(s) + 1 producer "
-            f"warp: {regs} registers a thread, {local} local bytes a thread, "
-            f"{smem} bytes of dynamic shared memory a block, {blocks} block(s) "
-            f"an SM")
-        require(local == 0, f"flash_attention spills: {local} local bytes a thread")
+def decode_cases(torch) -> list[dict]:
+    """Kernel 2 over phase 2's cache (16 slots of 1,024 f32 rows) at ragged
+    lengths 1..1,024 and at the main path's: a 10-13-token prompt plus up
+    to 32 new tokens, 11..45."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    ragged = torch.randint(2, MAX_LEN, (N_SLOTS,), generator=g, device="cuda",
+                           dtype=torch.int32)
+    ragged[0], ragged[1] = 1, MAX_LEN
+    lo, hi = PROMPT_LEN - 1, PROMPT_LEN + 1 + MAX_TOKENS
+    main = (lo + (hi - lo) * torch.arange(N_SLOTS, device="cuda") // (N_SLOTS - 1))
+    return [decode_case(torch, g, ragged, f"lengths 1..{MAX_LEN}"),
+            decode_case(torch, g, main.to(torch.int32),
+                        f"main-path lengths {lo}..{hi} (phase 2)")]
 
 
-def device_ms(torch, fn, name: str, calls: int = 10) -> float:
-    """Median device time (ms) of the kernels whose name holds ``name``,
-    from a ``torch.profiler`` trace of ``calls`` calls of ``fn``: the
-    kernel alone, without the host time that CUDA events around a loop of
-    short launches also measure.  NaN where the profiler saw none."""
+def device_ms(torch, fn, calls: int = 10) -> float:
+    """Device time (ms) of one call of ``fn``, every kernel it launches
+    summed, from a ``torch.profiler`` trace of ``calls`` calls: the kernels
+    alone, without the host time that CUDA events around a loop of short
+    calls also measure.  NaN where the profiler saw none."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -265,32 +266,48 @@ def device_ms(torch, fn, name: str, calls: int = 10) -> float:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    times = sorted(e.time_range.elapsed_us() / 1e3 for e in prof.events()
-                   if e.device_type == DeviceType.CUDA and name in e.name)
-    return times[len(times) // 2] if times else float("nan")
+    total = sum(e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == DeviceType.CUDA)
+    return total / 1e3 / calls if total else float("nan")
 
 
-def decode_case(torch):
+def kernel_limits(lib_fn: str, names: dict[int, str]) -> None:
+    """Registers and local bytes a thread (0: no spills), shared memory a
+    block and resident blocks an SM of each device kernel behind an entry
+    point (``names``: the info entry's index -> a label), as the runtime
+    reports them; fails on any spill."""
+    import ctypes
+
+    from repro_torch.kernels import _cuda
+
+    for which, name in names.items():
+        vals = [ctypes.c_int() for _ in range(4)]
+        _cuda.check(getattr(_cuda.library(), lib_fn)(
+            which, *(ctypes.byref(v) for v in vals)), lib_fn)
+        regs, local, smem, blocks = (v.value for v in vals)
+        log(f"{name}: {regs} registers a thread, {local} local bytes a thread, "
+            f"{smem} bytes of shared memory a block, {blocks} block(s) an SM")
+        require(local == 0, f"{name} spills: {local} local bytes a thread")
+
+
+def decode_case(torch, g, lens, label: str) -> dict:
     from repro_torch.kernels.decode_attention import (
         decode_attention,
         decode_attention_ref,
     )
 
     b, s = N_SLOTS, MAX_LEN
-    g = torch.Generator(device="cuda").manual_seed(1)
     q = torch.randn((b, 1, HEADS, HEAD_DIM), generator=g, device="cuda").to(
         torch.bfloat16)
     kc = torch.randn((b, s, KV_HEADS, HEAD_DIM), generator=g, device="cuda")
     vc = torch.randn((b, s, KV_HEADS, HEAD_DIM), generator=g, device="cuda")
-    lens = torch.randint(2, s, (b,), generator=g, device="cuda", dtype=torch.int32)
-    lens[0], lens[1] = 1, s
     got = decode_attention(q, kc, vc, lens)
     ref = decode_attention_ref(q, kc, vc, lens)
     torch.cuda.synchronize()
     # both sides are f32 until the final bf16 rounding of the output
     err, ratio = rowwise(torch, got, ref, 2**-7, 1e-3)
     shape = (f"B={b} H={HEADS} K={KV_HEADS} d={HEAD_DIM} S={s} f32 cache, "
-             f"lengths 1..{s}")
+             f"{label}")
     require(ratio <= 1.0, f"decode_attention {shape}: error/allowance {ratio:.3g}")
     n_rows = int(lens.sum())
     nbytes = 2 * b * HEADS * HEAD_DIM * 2 + n_rows * KV_HEADS * HEAD_DIM * 4 * 2 + 4 * b
@@ -310,11 +327,13 @@ def decode_case(torch):
         "ms": time_ms(torch, lambda: decode_attention(q, kc, vc, lens)),
         "plain_ms": time_ms(torch, lambda: decode_attention_ref(q, kc, vc, lens)),
         "library_ms": time_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask)),
+        "device_ms": device_ms(torch, lambda: decode_attention(q, kc, vc, lens)),
         "bound_ms": b_ms,
         "bound_by": b_by,
     }
     log(f"decode_attention {shape}: err {err:.3g} (ratio {ratio:.3g}) "
-        f"{entry['ms']:.4g} ms, plain {entry['plain_ms']:.4g} ms, "
+        f"{entry['ms']:.4g} ms (device {entry['device_ms']:.4g} ms), plain "
+        f"{entry['plain_ms']:.4g} ms, "
         f"sdpa {entry['library_ms']:.4g} ms, bound {b_ms:.4g} ms ({b_by})")
     return entry
 
@@ -470,14 +489,21 @@ def paged_cases(torch, fs) -> list[dict]:
             "bound_ms": b_ms,
             "bound_by": b_by,
         }
+        entry["device_ms"] = device_ms(torch, lambda: quant_paged_decode_attention(
+            q, kq, vq, ks, vs, tables, lens, rows))
         plain_form_ms = time_ms(torch, lambda: quant_paged_decode_attention(
             q, kq, vq, ks, vs, tables, lens))
         out.append(entry)
         log(f"quant_paged_decode_attention {entry['shape']}: err "
             f"{errs[0][0]:.3g} / {errs[1][0]:.3g} (ratio {errs[0][1]:.3g} / "
             f"{errs[1][1]:.3g}) without / with fresh rows; {entry['ms']:.4g} ms "
-            f"({plain_form_ms:.4g} ms without fresh rows), plain "
+            f"(device {entry['device_ms']:.4g} ms, split and combine; "
+            f"{plain_form_ms:.4g} ms without fresh rows), plain "
             f"{entry['plain_ms']:.4g} ms, bound {b_ms:.4g} ms ({b_by})")
+    kernel_limits("repro_quant_paged_kernel_info",
+                  {0: "quant_paged_decode_attention split, G <= 4",
+                   1: "quant_paged_decode_attention split, G <= 8",
+                   2: "quant_paged_decode_attention combine"})
     return out
 
 
@@ -613,14 +639,19 @@ def ssd_cases(torch, fs) -> list[dict]:
             "bound_ms": b_ms,
             "bound_by": b_by,
         }
+        entry["device_ms"] = device_ms(torch, lambda: ssd(*args, chunk=SSM_CHUNK))
         out.append(entry)
         n_diff = int((state != rstate).sum())
         log(f"ssd {shape}: y err {err_y:.3g} (ratio {ratio_y:.3g}), state err "
             f"{err_s:.3g} (ratio {ratio_s:.3g}; max |state| "
             f"{float(rstate.abs().max()):.4g}, {n_diff} of {state.numel()} "
-            f"elements not bit-equal); {entry['ms']:.4g} ms, plain "
+            f"elements not bit-equal); {entry['ms']:.4g} ms (device "
+            f"{entry['device_ms']:.4g} ms, three kernels), plain "
             f"{entry['plain_ms']:.4g} ms, bound {b_ms:.4g} ms ({b_by}; "
             f"{flops} FLOPs, {nbytes} bytes)")
+    kernel_limits("repro_ssd_kernel_info",
+                  {0: "ssd chunk states and C B^T", 1: "ssd recurrence",
+                   2: "ssd outputs"})
     return out
 
 
@@ -701,9 +732,11 @@ def bertscore_cases(torch) -> list[dict]:
             "max_abs_err": max(e for e, _ in checks),
             "ms": time_ms(torch, lambda: bertscore_pr(*args)),
             "plain_ms": time_ms(torch, lambda: bertscore_ref(*args), iters=5),
-            # torch.bmm of the normalised inputs: the product alone, without
-            # the masks and maxima, so a lower bound on a library version
-            "library_ms": time_ms(torch, lambda: torch.bmm(cn, rn_t)),
+            # no one PyTorch call computes P and R; torch.bmm of the
+            # normalised inputs is the product alone, without the masks and
+            # maxima: a lower bound on any library version, kept apart
+            "library_ms": None,
+            "bmm_only_ms": time_ms(torch, lambda: torch.bmm(cn, rn_t)),
             "bound_ms": b_ms,
             "bound_by": b_by,
         }
@@ -711,7 +744,8 @@ def bertscore_cases(torch) -> list[dict]:
         log(f"bertscore_pr {shape}: err {entry['max_abs_err']:.3g} (ratio "
             f"{ratio:.3g}), example 5 bit-equal alone; {entry['ms']:.4g} ms, "
             f"plain {entry['plain_ms']:.4g} ms, bmm of the normalised inputs "
-            f"(TF32 off) {entry['library_ms']:.4g} ms, bound {b_ms:.4g} ms ({b_by})")
+            f"alone (TF32 off; a lower bound, not the same function) "
+            f"{entry['bmm_only_ms']:.4g} ms, bound {b_ms:.4g} ms ({b_by})")
         del args, got, want, cand, ref, cn, rn_t
         free_cuda(torch)
     return out
@@ -765,7 +799,7 @@ def kernel_phase(torch, fs) -> list[dict]:
     seed = StatisticsConfig().seed
     return [
         *flash_cases(torch, fs),
-        decode_case(torch),
+        *decode_cases(torch),
         *paged_cases(torch, fs),
         # the main path's calls: one per chunk, at the chunk's first position
         bootstrap_case(torch, CHUNK, 2, N_BOOT,

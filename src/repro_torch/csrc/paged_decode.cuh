@@ -1,6 +1,4 @@
-// GQA decode attention over a page pool, shared by the f32 kernel
-// (paged_decode_attention.cu) and the int8 kernel
-// (quant_paged_decode_attention.cu).
+// GQA decode attention over the f32 page pool (paged_decode_attention.cu).
 //
 // The structure is decode_attention.cu's, row for row: one block per
 // (sequence, KV head) serving all G query heads of the group, 32-row tiles
@@ -8,10 +6,11 @@
 // score, online-softmax and P V arithmetic in the same order.  Only the
 // address of a row changes: position p lives in pool page
 // tables[b][p / ps] at row p % ps.  At the top of every tile the first 32
-// threads look up their row's page once and leave its offsets (and, for
-// int8, its page scales) in shared memory.  So the result does not depend
-// on the page size, and on the same rows it is bit-equal to the contiguous
-// kernel (DESIGN.md section 8's page-size invariance).
+// threads look up their row's page once and leave its offsets in shared
+// memory.  So the result does not depend on the page size, and on the same
+// rows it is bit-equal to the contiguous kernel (DESIGN.md section 8's
+// page-size invariance).  The int8 pool has its own kernel
+// (quant_paged_decode_attention.cu).
 //
 // Pool layout is the model's, (P, ps, K, d), read through strides.  Table
 // entries past ceil(length / ps) are padding: they must be valid page ids
@@ -37,26 +36,18 @@ constexpr int MAXG = 8;      // query heads per KV head
 
 struct Args {
   const __nv_bfloat16* q;   // (B, 1, H, d)
-  const void* k;            // pool (P, ps, K, d), f32 or int8
-  const void* v;
-  const float* k_scale;     // int8: (P, K) per-(page, KV head) scales
-  const float* v_scale;
-  const float* k_new;       // int8, optional: (B, K, d) f32 current-token rows
-  const float* v_new;
-  const int* new_pos;       // int8 with k_new: (B,) position they replace
+  const float* k;           // pool (P, ps, K, d)
+  const float* v;
   const int* tables;        // (B, n_table) int32
   const int* lengths;       // (B,) int32
   __nv_bfloat16* out;       // (B, 1, H, d)
   int group, page_size, n_table;
   int64_t q_sb, q_sh;
   int64_t k_sp, k_sr, k_sh, v_sp, v_sr, v_sh;
-  int64_t ks_sp, ks_sh, vs_sp, vs_sh;
-  int64_t n_sb, n_sh;
   int64_t o_sb, o_sh;
   float scale;
 };
 
-template <bool QUANT>
 __global__ void __launch_bounds__(NTHREADS) paged_decode_kernel(const Args a) {
   __shared__ float s_p[MAXG][T];  // scores, then probabilities
   __shared__ float s_m[MAXG];
@@ -64,8 +55,6 @@ __global__ void __launch_bounds__(NTHREADS) paged_decode_kernel(const Args a) {
   __shared__ float s_c[MAXG];
   __shared__ int64_t s_krow[T];   // element offset of each tile row (this head)
   __shared__ int64_t s_vrow[T];
-  __shared__ float s_ks[T];       // int8: the row's page scales
-  __shared__ float s_vs[T];
 
   const int kh = blockIdx.x;
   const int b = blockIdx.y;
@@ -74,14 +63,7 @@ __global__ void __launch_bounds__(NTHREADS) paged_decode_kernel(const Args a) {
   const int lane = tid % 32;
   const int group = a.group;
   const int len = min(a.lengths[b], a.n_table * a.page_size);
-  const int fresh = (QUANT && a.k_new != nullptr) ? a.new_pos[b] : -1;
   const int* tab = a.tables + static_cast<int64_t>(b) * a.n_table;
-  const float* kf_src = static_cast<const float*>(a.k);
-  const float* vf_src = static_cast<const float*>(a.v);
-  const int8_t* kq_src = static_cast<const int8_t*>(a.k);
-  const int8_t* vq_src = static_cast<const int8_t*>(a.v);
-  const float* kn = QUANT && a.k_new ? a.k_new + b * a.n_sb + kh * a.n_sh : nullptr;
-  const float* vn = QUANT && a.v_new ? a.v_new + b * a.n_sb + kh * a.n_sh : nullptr;
 
   float qf[MAXG][EPL];
 #pragma unroll
@@ -108,10 +90,6 @@ __global__ void __launch_bounds__(NTHREADS) paged_decode_kernel(const Args a) {
       const int64_t off = pos % a.page_size;
       s_krow[tid] = page * a.k_sp + off * a.k_sr + kh * a.k_sh;
       s_vrow[tid] = page * a.v_sp + off * a.v_sr + kh * a.v_sh;
-      if (QUANT) {
-        s_ks[tid] = a.k_scale[page * a.ks_sp + kh * a.ks_sh];
-        s_vs[tid] = a.v_scale[page * a.vs_sp + kh * a.vs_sh];
-      }
     }
     __syncthreads();
 
@@ -123,22 +101,9 @@ __global__ void __launch_bounds__(NTHREADS) paged_decode_kernel(const Args a) {
       float part[MAXG];
       if (kpos < len) {
         float kf[EPL];
-        if (!QUANT) {
-          const float4 k4 = *reinterpret_cast<const float4*>(
-              kf_src + s_krow[j] + lane * EPL);
-          kf[0] = k4.x; kf[1] = k4.y; kf[2] = k4.z; kf[3] = k4.w;
-        } else if (kpos == fresh) {
-          const float4 k4 = *reinterpret_cast<const float4*>(kn + lane * EPL);
-          kf[0] = k4.x; kf[1] = k4.y; kf[2] = k4.z; kf[3] = k4.w;
-        } else {
-          const char4 c4 = *reinterpret_cast<const char4*>(
-              kq_src + s_krow[j] + lane * EPL);
-          const float sc = s_ks[j];
-          kf[0] = static_cast<float>(c4.x) * sc;
-          kf[1] = static_cast<float>(c4.y) * sc;
-          kf[2] = static_cast<float>(c4.z) * sc;
-          kf[3] = static_cast<float>(c4.w) * sc;
-        }
+        const float4 k4 = *reinterpret_cast<const float4*>(
+            a.k + s_krow[j] + lane * EPL);
+        kf[0] = k4.x; kf[1] = k4.y; kf[2] = k4.z; kf[3] = k4.w;
 #pragma unroll
         for (int g = 0; g < MAXG; ++g) {
           float acc_g = 0.f;
@@ -194,13 +159,7 @@ __global__ void __launch_bounds__(NTHREADS) paged_decode_kernel(const Args a) {
         if (g < group) acc[g] *= s_c[g];
       const int nk = min(T, len - k0);
       for (int j = 0; j < nk; ++j) {
-        float vv;
-        if (!QUANT)
-          vv = vf_src[s_vrow[j] + tid];
-        else if (k0 + j == fresh)
-          vv = vn[tid];
-        else
-          vv = static_cast<float>(vq_src[s_vrow[j] + tid]) * s_vs[j];
+        const float vv = a.v[s_vrow[j] + tid];
 #pragma unroll
         for (int g = 0; g < MAXG; ++g)
           if (g < group) acc[g] = fmaf(s_p[g][j], vv, acc[g]);
@@ -219,16 +178,14 @@ __global__ void __launch_bounds__(NTHREADS) paged_decode_kernel(const Args a) {
 
 // Checks the geometry, launches on ``stream`` and returns the launch's
 // cudaError_t.
-template <bool QUANT>
-int launch(const Args& a, int batch, int n_heads, int n_kv_heads, int head_dim,
-           void* stream) {
+inline int launch(const Args& a, int batch, int n_heads, int n_kv_heads, int head_dim,
+                  void* stream) {
   if (batch <= 0 || n_kv_heads <= 0 || n_heads % n_kv_heads != 0 ||
       head_dim != D || a.page_size <= 0 || a.n_table <= 0 ||
       n_heads / n_kv_heads > MAXG || a.group != n_heads / n_kv_heads)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(n_kv_heads, batch);
-  paged_decode_kernel<QUANT>
-      <<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  paged_decode_kernel<<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -40,8 +40,8 @@ extern "C" int repro_paged_decode_attention_f32(
   const int64_t* st = strides;
   paged::Args a{};
   a.q = static_cast<const __nv_bfloat16*>(q);
-  a.k = k_pages;
-  a.v = v_pages;
+  a.k = static_cast<const float*>(k_pages);
+  a.v = static_cast<const float*>(v_pages);
   a.tables = static_cast<const int*>(tables);
   a.lengths = static_cast<const int*>(lengths);
   a.out = static_cast<__nv_bfloat16*>(out);
@@ -53,5 +53,5 @@ extern "C" int repro_paged_decode_attention_f32(
   a.v_sp = st[5]; a.v_sr = st[6]; a.v_sh = st[7];
   a.o_sb = st[8]; a.o_sh = st[9];
   a.scale = scale;
-  return paged::launch<false>(a, batch, n_heads, n_kv_heads, head_dim, stream);
+  return paged::launch(a, batch, n_heads, n_kv_heads, head_dim, stream);
 }

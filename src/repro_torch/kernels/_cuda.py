@@ -34,6 +34,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
 _F = ctypes.c_float
+_I64 = ctypes.c_int64
 _I64P = ctypes.POINTER(ctypes.c_int64)
 _IP = ctypes.POINTER(ctypes.c_int)
 
@@ -51,8 +52,10 @@ SIGNATURES = {
     ),
     "repro_quant_paged_decode_attention": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _I, _I64P, _F, _P,
+        _I, _I, _I, _I, _I, _I, _I64P, _F, _P, _I64, _P,
     ),
+    "repro_quant_paged_kernel_info": (_I, _IP, _IP, _IP, _IP),
+    "repro_quant_paged_span": (),
     "repro_bootstrap_partials": (
         _P, _I, _I, _I, _I, _U, _U, _P, _P, _P, _P, _P,
     ),
@@ -62,7 +65,9 @@ SIGNATURES = {
     "repro_bertscore_pr": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
     "repro_ssd_bf16": (
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I64P, _P,
+        _I64, _P,
     ),
+    "repro_ssd_kernel_info": (_I, _IP, _IP, _IP, _IP),
 }
 
 

@@ -10,6 +10,10 @@ import torch
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.decode_attention.paged import check_paged_inputs
 
+#: positions a block of the split pass reads (``SPAN`` in the CUDA source):
+#: a constant, so a sequence's result never depends on the batch
+SPAN = 128
+
 
 def quant_paged_decode_attention(
     q: torch.Tensor,         # (B, 1, H, d) bf16, CUDA
@@ -24,7 +28,9 @@ def quant_paged_decode_attention(
     """Decode attention over int8 pages dequantized in the kernel.
     ``new_rows = (k_new, v_new, new_pos)``, two (B, K, d) f32 rows and a
     (B,) int32 position, are read in place of pool row ``new_pos[b]`` where
-    that lies below the length.  Returns (B, 1, H, d) bf16."""
+    that lies below the length.  One call runs two device kernels (a split
+    over spans of ``SPAN`` positions, then their combine in span order) and
+    counts one launch.  Returns (B, 1, H, d) bf16."""
     check_paged_inputs(q, k_pages, v_pages, tables, lengths, torch.int8)
     b, _, h, d = q.shape
     p_pool, kh = k_pages.shape[0], k_pages.shape[2]
@@ -45,6 +51,9 @@ def quant_paged_decode_attention(
             raise ValueError(f"new_pos must be a contiguous ({b},) tensor")
         new_strides = list(k_new.stride()[:2])
     out = torch.empty((b, 1, h, d), dtype=torch.bfloat16, device=q.device)
+    n_span = -(-tables.shape[1] * k_pages.shape[1] // SPAN)
+    scratch = torch.empty(b * kh * n_span * (h // kh) * (d + 2),
+                          dtype=torch.float32, device=q.device)
     strides = [q.stride(0), q.stride(2), *k_pages.stride()[:3],
                *v_pages.stride()[:3], *k_scales.stride(), *v_scales.stride(),
                *new_strides, out.stride(0), out.stride(2)]
@@ -56,7 +65,7 @@ def quant_paged_decode_attention(
         None if new_pos is None else new_pos.data_ptr(),
         tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, h, kh, d,
         k_pages.shape[1], tables.shape[1], _cuda.int64_array(strides),
-        d**-0.5, _cuda.stream_of(q),
+        d**-0.5, scratch.data_ptr(), scratch.numel(), _cuda.stream_of(q),
     )
     _cuda.check(err, "quant_paged_decode_attention")
     quant_paged_decode_attention.launches += 1

@@ -18,6 +18,16 @@ def _check_rows(t: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name} must be 16-byte aligned in every row")
 
 
+def scratch_floats(bsz: int, slen: int, h: int, g: int, chunk: int) -> int:
+    """f32 scratch of one call (``csrc/ssd.cu``): each chunk's running sums
+    (B, H, QP), states (B, H, P, N) and C B^T (B, G, QP, QP), where Q =
+    min(chunk, L), QP is Q rounded up to 16 and there are ceil(L / Q)
+    chunks."""
+    q = min(chunk, slen)
+    qp, nc = -(-q // 16) * 16, -(-slen // q)
+    return bsz * nc * (h * qp + h * HEAD_DIM * STATE_DIM + g * qp * qp)
+
+
 def ssd(
     x: torch.Tensor,      # (B, L, H, P) bf16, CUDA
     dt: torch.Tensor,     # (B, L, H) f32, post-softplus
@@ -31,7 +41,9 @@ def ssd(
     P) bf16 and the final state (B, H, P, N) f32.  ``x``, ``B`` and ``C``
     may be strided views (columns of the fused ``xBC`` projection) with unit
     stride on their last axis; G divides H; P = 64, N = 128, chunk <= 256.
-    A ragged last chunk is computed as if padded with ``dt = 0``."""
+    A ragged last chunk is computed as if padded with ``dt = 0``.  One call
+    runs three device kernels (chunk states with C B^T, the recurrence
+    across chunks, outputs) and counts one launch."""
     _cuda.require_cuda(x, "x", torch.bfloat16)
     _cuda.require_cuda(dt, "dt", torch.float32)
     _cuda.require_cuda(a, "a", torch.float32)
@@ -53,12 +65,15 @@ def ssd(
                          f"N={n} chunk={chunk}")
     y = torch.empty((bsz, slen, h, p), dtype=torch.bfloat16, device=x.device)
     final = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    scratch = torch.empty(scratch_floats(bsz, slen, h, g, chunk),
+                          dtype=torch.float32, device=x.device)
     strides = [*x.stride()[:3], *dt.stride(), *b_mat.stride()[:3],
                *c_mat.stride()[:3]]
     err = _cuda.library().repro_ssd_bf16(
         x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_mat.data_ptr(),
         c_mat.data_ptr(), y.data_ptr(), final.data_ptr(), bsz, slen, h, g, p,
-        n, chunk, _cuda.int64_array(strides), _cuda.stream_of(x),
+        n, chunk, _cuda.int64_array(strides), scratch.data_ptr(),
+        scratch.numel(), _cuda.stream_of(x),
     )
     _cuda.check(err, "ssd")
     ssd.launches += 1

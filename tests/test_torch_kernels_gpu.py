@@ -11,7 +11,11 @@ head_dim 64 and state 128 over G in {1, 2} and ragged lengths, its output
 and final state against the plain chunked version and the sequential
 oracle; BERTScore (kernel 7) over ragged token counts, widths 64 and 256,
 the sentinel edges and batch invariance; and the bootstrap means (kernel 5)
-at any replicate count.  Every case carries the ``gpu``
+at any replicate count.  The SSD scan and the int8 paged decode kernel
+are also held at full width (mamba2-2.7b's 80 heads; phase 3's 16
+sequences of 8 KV heads, G in {4, 8}): batch-invariant and repeatable bit
+for bit, the int8 kernel bit-equal across page sizes over the same
+values, and none of their device kernels spilling.  Every case carries the ``gpu``
 marker and skips where there is no CUDA device.  The file imports no JAX,
 so it runs on a machine with the card and no JAX:
 
@@ -389,3 +393,133 @@ def test_bootstrap_means_kernel_matches_plain_version(cuda, n, n_boot):
     x[n // 2] = float("nan")
     assert torch.isnan(bootstrap_means(x, 21, n_boot=n_boot)).all()
     assert torch.isnan(bootstrap_means_ref(x, n_boot, 21)).all()
+
+
+# -- the redesigned SSD (kernel 8) and int8 paged decode (kernel 4) ------------
+
+
+def _full_ssd(cuda, b, slen, seed):
+    """mamba2-2.7b's SSD geometry (80 heads of 64, state 128, one group)."""
+    return _ssd_case(cuda, b, slen, 80, 1, seed)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("slen", [12, 478, 2048])
+def test_ssd_kernel_at_full_width_is_batch_invariant_and_repeatable(cuda, slen):
+    """At ``chip_smoke.py``'s shapes: y and the final state within the
+    gates of the plain chunked version (y 2^-7 of the value plus 1e-3 of
+    the row's largest, state 2^-10 plus 1e-4); a sequence alone gives the
+    bits it gives in a batch of 16; a second call gives the same bits (no
+    atomics, fixed sums)."""
+    x, dt, a, bm, cm = _full_ssd(cuda, 16 if slen < 2048 else 4, slen, 7 + slen)
+    y, state = ssd(x, dt, a, bm, cm, chunk=256)
+    ry, rstate = ssd_chunked(x[:2], dt[:2], a, bm[:2], cm[:2], 256)
+    assert _rowwise_ok(y[:2], ry, 2**-7, 1e-3)
+    assert _rowwise_ok(state[:2], rstate, 2**-10, 1e-4)
+    y1, s1 = ssd(x[3:4], dt[3:4], a, bm[3:4], cm[3:4], chunk=256)
+    assert torch.equal(y1, y[3:4]) and torch.equal(s1, state[3:4])
+    y2, s2 = ssd(x, dt, a, bm, cm, chunk=256)
+    assert torch.equal(y2, y) and torch.equal(s2, state)
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_counts_one_launch_a_call_and_reports_no_spills(cuda):
+    """A call runs three device kernels and counts one launch; none of the
+    three spills to local memory."""
+    import ctypes
+
+    from repro_torch.kernels import _cuda
+
+    before = ssd.launches
+    ssd(*_full_ssd(cuda, 1, 300, 1))
+    assert ssd.launches == before + 1
+    for which in range(3):
+        vals = [ctypes.c_int() for _ in range(4)]
+        assert _cuda.library().repro_ssd_kernel_info(
+            which, *(ctypes.byref(v) for v in vals)) == 0
+        assert vals[1].value == 0 and vals[3].value >= 1
+
+
+def _quant_full(cuda, lens, ps, g_heads=4, seed=0):
+    """Phase 3's int8 geometry (8 KV heads of 128) over ``lens``: K/V
+    positions drawn once and laid into a pool of ``ps``-row pages under
+    shuffled page ids, one scale per KV head for every page, so the values
+    a position reads do not depend on the page size."""
+    kh, d = 8, 128
+    b, s = len(lens), max(lens)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn((b, 1, kh * g_heads, d), generator=gen, device=cuda)
+    kv = torch.randint(-127, 128, (2, b, s, kh, d), generator=gen, device=cuda)
+    scales = torch.rand((2, kh), generator=gen, device=cuda) / 64
+    k_new = torch.randn((b, kh, d), generator=gen, device=cuda)
+    v_new = torch.randn((b, kh, d), generator=gen, device=cuda)
+    n_p = -(-s // ps)
+    kv = torch.nn.functional.pad(kv, (0, 0, 0, 0, 0, n_p * ps - s))
+    pages = kv.reshape(2, b * n_p, ps, kh, d).to(torch.int8)
+    order = torch.randperm(b * n_p, generator=gen, device=cuda)
+    pool = torch.empty((2, b * n_p + 1, ps, kh, d), dtype=torch.int8, device=cuda)
+    pool[:, order + 1] = pages
+    pool[:, 0] = 0
+    tables = (order + 1).view(b, n_p).to(torch.int32)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    used = (lens_t + ps - 1) // ps
+    tables[torch.arange(n_p, device=cuda)[None, :] >= used[:, None]] = 0
+    sc = scales[:, None, :].expand(2, b * n_p + 1, kh).contiguous()
+    return (q.to(torch.bfloat16), pool[0], pool[1], sc[0], sc[1], tables, lens_t,
+            (k_new, v_new, lens_t - 1))
+
+
+#: 16 sequences at phase 3's main-path lengths, and ragged ones around the span
+MAIN_LENS = [479 + 2 * i for i in range(16)]
+RAGGED_LENS = [1, 127, 128, 129, 256, 300, 1024, 5, 640, 641, 17, 999, 384, 2, 700, 128]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lens", [MAIN_LENS, RAGGED_LENS], ids=["main", "ragged"])
+@pytest.mark.parametrize("g_heads", [4, 8])
+def test_quant_paged_kernel_full_width_invariances(cuda, lens, g_heads):
+    """Against the plain version (2^-7 of the value plus 1e-3 of the row's
+    largest) with and without fresh rows; a sequence alone gives the bits
+    it gives among 16 of other lengths; page sizes 8, 16 and 64 over the
+    same positions' values give the same bits; a second call gives the
+    same bits."""
+    outs = []
+    for ps in (8, 16, 64):
+        args = _quant_full(cuda, lens, ps, g_heads)
+        q, kq, vq, ks, vs, tables, ln, rows = args
+        got = quant_paged_decode_attention(*args)
+        ref = quant_paged_decode_attention_ref(*args)
+        assert _rowwise_ok(got, ref, 2**-7, 1e-3)
+        plain = quant_paged_decode_attention(*args[:7])
+        assert _rowwise_ok(plain, quant_paged_decode_attention_ref(*args[:7]),
+                           2**-7, 1e-3)
+        i = 5
+        alone = quant_paged_decode_attention(
+            q[i:i + 1], kq, vq, ks, vs, tables[i:i + 1].contiguous(), ln[i:i + 1],
+            tuple(t[i:i + 1].contiguous() for t in rows))
+        assert torch.equal(alone, got[i:i + 1])
+        assert torch.equal(quant_paged_decode_attention(*args), got)
+        outs.append(got)
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+
+
+@pytest.mark.gpu
+def test_quant_paged_kernel_span_and_limits(cuda):
+    """The span the CUDA source is built with is the wrapper's (its
+    scratch size); a call counts one launch; no kernel of the three
+    spills."""
+    import ctypes
+
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.decode_attention.paged_quant import SPAN
+
+    lib = _cuda.library()
+    assert lib.repro_quant_paged_span() == SPAN
+    before = quant_paged_decode_attention.launches
+    quant_paged_decode_attention(*_quant_full(cuda, [300, 1], 16))
+    assert quant_paged_decode_attention.launches == before + 1
+    for which in range(3):
+        vals = [ctypes.c_int() for _ in range(4)]
+        assert lib.repro_quant_paged_kernel_info(
+            which, *(ctypes.byref(v) for v in vals)) == 0
+        assert vals[1].value == 0 and vals[3].value >= 1

@@ -14,6 +14,9 @@ from repro.kernels.decode_attention import paged_decode_attention as jax_paged
 from repro.kernels.decode_attention import (
     quant_paged_decode_attention as jax_quant_paged,
 )
+from repro.kernels.decode_attention.quant import (
+    dequantize_pages as jax_dequantize_pages,
+)
 from repro.kernels.decode_attention.quant import quantize_pages as jax_quantize_pages
 from repro.kernels.decode_attention.ref import (
     paged_decode_attention_ref as jax_paged_ref,
@@ -28,6 +31,7 @@ from repro_torch.kernels.decode_attention import (
     quant_paged_decode_attention_bshd,
     quant_paged_decode_attention_ref,
 )
+from repro_torch.kernels.decode_attention.paged_quant import SPAN
 
 #: f32 throughout: the same math summed in another order
 TOL = 1e-5
@@ -136,3 +140,125 @@ def test_fresh_row_form_is_dequantize_overwrite_then_paged(g):
     unchanged = quant_paged_decode_attention_ref(qt, kqt, vqt, kst, vst, tab, ln)
     assert torch.equal(got[2], unchanged[2])
     assert not torch.equal(got[1], unchanged[1])
+
+
+def _span_split_combine(q, kq, vq, ks, vs, tables, lens, new_rows=None,
+                        span=SPAN):
+    """Test-only mirror of ``csrc/quant_paged_decode_attention.cu`` in f32:
+    per (sequence, KV head) the positions in spans of ``span``; a span's
+    rows looked up through the table, its scores k_scale (q . k_int) (the
+    fresh row's from ``k_new``), its max m, sum of exps l and unnormalised
+    P V (V dequantized, the fresh row's from ``v_new``); then the spans
+    combined in order, sum_s acc_s e^(m_s - M) / sum_s l_s e^(m_s - M).
+    Port layouts: q (B, 1, H, d), pools (P, ps, K, d)."""
+    b, _, h, d = q.shape
+    ps, kh = kq.shape[1], kq.shape[2]
+    g = h // kh
+    out = torch.zeros((b, 1, h, d))
+    for i in range(b):
+        n = min(int(lens[i]), tables.shape[1] * ps)
+        for k in range(kh):
+            qg = q[i, 0, k * g:(k + 1) * g].float()
+            parts = []
+            for p0 in range(0, n, span):
+                pos = torch.arange(p0, min(p0 + span, n))
+                page, row = tables[i, pos // ps].long(), pos % ps
+                kf = kq[page, row, k].float()
+                s = (qg @ kf.T) * ks[page, k] * d**-0.5
+                vf = vq[page, row, k].float() * vs[page, k][:, None]
+                if new_rows is not None and p0 <= int(new_rows[2][i]) < p0 + len(pos):
+                    f = int(new_rows[2][i]) - p0
+                    s[:, f] = (qg @ new_rows[0][i, k]) * d**-0.5
+                    vf[f] = new_rows[1][i, k]
+                m = s.max(dim=1, keepdim=True).values
+                pe = torch.exp(s - m)
+                parts.append((m, pe.sum(dim=1, keepdim=True), pe @ vf))
+            big_m = torch.stack([m for m, _, _ in parts]).max(dim=0).values
+            l_tot = sum(l * torch.exp(m - big_m) for m, l, _ in parts)
+            acc = sum(a * torch.exp(m - big_m) for m, _, a in parts)
+            out[i, 0, k * g:(k + 1) * g] = acc / l_tot
+    return out
+
+
+def _span_case(rng, g, ps, lens):
+    """q and a pool with the first pages shared by every sequence, tables
+    padded with 0, at the given lengths; d = 32, 2 KV heads."""
+    b, kh, d = len(lens), 2, 32
+    n_p = -(-max(lens) // ps)
+    n_shared = n_p // 2
+    n_pool = n_shared + b * n_p
+    q = rng.standard_normal((b, kh, g, d)).astype(np.float32)
+    k = rng.standard_normal((n_pool, kh, ps, d)).astype(np.float32)
+    v = rng.standard_normal((n_pool, kh, ps, d)).astype(np.float32)
+    tables = (n_shared + rng.permutation(b * n_p)).reshape(b, n_p)
+    tables[:, :n_shared] = np.arange(n_shared)
+    lens = np.array(lens, np.int32)
+    tables[np.arange(n_p)[None, :] >= -(-lens // ps)[:, None]] = 0
+    kq, ks = jax_quantize_pages(jnp.asarray(k))
+    vq, vs = jax_quantize_pages(jnp.asarray(v))
+    return q, (kq, vq, ks, vs), tables.astype(np.int32), lens
+
+
+#: lengths around the span: one position, exactly one span, one past it,
+#: exactly two spans, and a ragged third span
+SPAN_LENS = [1, SPAN, SPAN + 1, 2 * SPAN, 2 * SPAN + 45, SPAN - 1]
+
+
+@pytest.mark.parametrize("g", [1, 4])
+# 16 and 32: span boundaries on page boundaries (a span across several
+# pages); 48 and 256: span boundaries inside a page
+@pytest.mark.parametrize("ps", [16, 32, 48, 256])
+def test_span_split_matches_jax_quant_kernel_and_oracle(g, ps):
+    """The CUDA int8 kernel's algorithm, spans of ``SPAN`` positions each
+    reduced alone then combined in span order, against the JAX Pallas
+    kernel in interpret mode and its oracle on the same int8 pages, f32,
+    within 1e-5 (the same products summed in another order)."""
+    rng = np.random.default_rng(300 + 10 * g + ps)
+    q, (kq, vq, ks, vs), tables, lens = _span_case(rng, g, ps, SPAN_LENS)
+    qt, kqt = _port(q, np.asarray(kq))
+    _, vqt = _port(q, np.asarray(vq))
+    ours = _back(_span_split_combine(
+        qt, kqt, vqt, torch.from_numpy(np.array(ks)), torch.from_numpy(np.array(vs)),
+        torch.from_numpy(tables), torch.from_numpy(lens)), q)
+    args = (jnp.asarray(q), kq, vq, ks, vs, jnp.asarray(tables), jnp.asarray(lens))
+    for want in (jax_quant_paged(*args, interpret=True), jax_quant_paged_ref(*args)):
+        np.testing.assert_allclose(ours, np.asarray(want), atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("ps", [16, 48])
+def test_span_split_fresh_row_on_a_span_boundary(ps):
+    """The current token's rows on a span's first and last position (and
+    at the length, where they replace nothing): the mirror against JAX's
+    f32 paged oracle over the dequantized pool with those rows written in,
+    f32 within 1e-5, and against the port's plain int8 version."""
+    rng = np.random.default_rng(400 + ps)
+    lens = [SPAN + 1, 2 * SPAN, SPAN + 7, SPAN]
+    q, (kq, vq, ks, vs), tables, lens = _span_case(rng, 4, ps, lens)
+    qt, kqt = _port(q, np.asarray(kq))
+    _, vqt = _port(q, np.asarray(vq))
+    kst, vst = torch.from_numpy(np.array(ks)), torch.from_numpy(np.array(vs))
+    tab, ln = torch.from_numpy(tables), torch.from_numpy(lens)
+    b, kh, _, d = q.shape
+    k_new = torch.from_numpy(rng.standard_normal((b, kh, d)).astype(np.float32))
+    v_new = torch.from_numpy(rng.standard_normal((b, kh, d)).astype(np.float32))
+    # first row of span 1, last row of span 1, last row of span 0, none
+    new_pos = torch.tensor([SPAN, 2 * SPAN - 1, SPAN - 1, SPAN], dtype=torch.int32)
+    rows = (k_new, v_new, new_pos)
+    ours = _span_split_combine(qt, kqt, vqt, kst, vst, tab, ln, rows)
+    np.testing.assert_allclose(
+        ours.numpy(), quant_paged_decode_attention_ref(qt, kqt, vqt, kst, vst, tab,
+                                                       ln, rows).numpy(),
+        atol=TOL, rtol=TOL)
+    kd = np.array(jax_dequantize_pages(kq, ks))  # (P, K, ps, d)
+    vd = np.array(jax_dequantize_pages(vq, vs))
+    want = []
+    for i in range(b):  # one sequence at a time: its rows must not reach others
+        kdi, vdi = kd.copy(), vd.copy()
+        if new_pos[i] < ln[i]:
+            page, r = tables[i, new_pos[i] // ps], int(new_pos[i]) % ps
+            kdi[page, :, r] = k_new[i].numpy()
+            vdi[page, :, r] = v_new[i].numpy()
+        want.append(np.asarray(jax_paged_ref(
+            jnp.asarray(q[i:i + 1]), jnp.asarray(kdi), jnp.asarray(vdi),
+            jnp.asarray(tables[i:i + 1]), jnp.asarray(lens[i:i + 1])))[0])
+    np.testing.assert_allclose(_back(ours, q), np.stack(want), atol=TOL, rtol=TOL)

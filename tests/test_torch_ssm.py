@@ -107,6 +107,101 @@ def test_grouped_form_equals_repeated_form(g, slen, rng):
     np.testing.assert_allclose(gs.numpy(), np.asarray(ws), atol=5e-5)
 
 
+def _split_bf16(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """An f32 operand as the kernel feeds it to the bf16 tensor cores: hi =
+    bf16(v), lo = bf16(v - hi), both back in f32 (their products with a
+    bf16 value are exact in f32)."""
+    hi = v.to(torch.bfloat16).float()
+    return hi, (v - hi).to(torch.bfloat16).float()
+
+
+def _ssd_passes(x, dt, a, b_mat, c_mat, chunk):
+    """Test-only mirror of the four passes of ``csrc/ssd.cu`` in f32: each
+    chunk padded to a multiple of 16 rows with dt = 0; (1) the running sums
+    and each chunk's own state from the split operand x dt exp(cum_last -
+    cum); (2) C B^T once per (sequence, chunk, group); (3) the state
+    recurrence across chunks, keeping the state entering each one; (4) y =
+    (C B^T o exp(cum_i - cum_j) o dt_j)(split) x + exp(cum_i) C s_in(split).
+    Returns y (f32) and the final state."""
+    bsz, slen, h, p = x.shape
+    g, n = b_mat.shape[2], b_mat.shape[3]
+    heads = torch.arange(h) // (h // g)
+    q = min(chunk, slen)
+    nc, qp = -(-slen // q), -(-q // 16) * 16
+
+    def chunks(t):  # (B, L, ...) -> (B, nc, qp, ...), zero past each chunk
+        t = torch.nn.functional.pad(t.float(), (0, 0) * (t.dim() - 2)
+                                    + (0, nc * q - slen))
+        t = t.unflatten(1, (nc, q))
+        return torch.nn.functional.pad(t, (0, 0) * (t.dim() - 3) + (0, qp - q))
+
+    xc, dtc, bc, cc = chunks(x), chunks(dt), chunks(b_mat), chunks(c_mat)
+    # pass 1
+    cum = torch.cumsum(dtc * a.float(), dim=2)            # (B, nc, qp, H)
+    last = cum[:, :, -1]                                  # (B, nc, H)
+    xw = xc * (dtc * torch.exp(last[:, :, None] - cum))[..., None]
+    local = sum(torch.einsum("bcjhp,bcjhn->bchpn", part, bc[:, :, :, heads])
+                for part in _split_bf16(xw))
+    # pass 2
+    cbt = torch.einsum("bcign,bcjgn->bcgij", cc, bc)      # (B, nc, G, qp, qp)
+    # pass 3
+    state = torch.zeros((bsz, h, p, n))
+    entering = []
+    for c in range(nc):
+        entering.append(state)
+        state = state * torch.exp(last[:, c])[..., None, None] + local[:, c]
+    s_in = torch.stack(entering, dim=1)                   # (B, nc, H, P, N)
+    # pass 4
+    ch = cum.permute(0, 1, 3, 2)                          # (B, nc, H, qp)
+    causal = torch.tril(torch.ones((qp, qp), dtype=torch.bool))
+    diff = ch[..., :, None] - ch[..., None, :]
+    decay = torch.exp(diff.masked_fill(~causal, -torch.inf))
+    smat = cbt[:, :, heads] * decay * dtc.permute(0, 1, 3, 2)[..., None, :]
+    y = sum(torch.einsum("bchij,bcjhp->bcihp", part, xc) for part in _split_bf16(smat))
+    y_off = sum(torch.einsum("bcihn,bchpn->bcihp", cc[:, :, :, heads], part)
+                for part in _split_bf16(s_in))
+    y = y + y_off * torch.exp(cum)[..., None]
+    return y[:, :, :q].flatten(1, 2)[:, :slen], state
+
+
+def _bf16_exact(*arrs):
+    """The kernel's x, B and C are bf16: the same values in f32."""
+    return [np.asarray(torch.from_numpy(a).bfloat16().float()) for a in arrs]
+
+
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize(
+    "slen,chunk",
+    # one, two and three chunks; a chunk of 12 rows (padded to 16 in the
+    # kernel); lengths the Pallas kernel refuses: a ragged last chunk
+    [(16, 16), (32, 16), (48, 16), (12, 16), (36, 12), (40, 16), (30, 12)],
+)
+def test_ssd_kernel_passes_match_jax(slen, chunk, g, rng):
+    """The four-pass algorithm of the CUDA kernel, C B^T once per group and
+    f32 factors as split bf16 operands, against the JAX Pallas ``ssd`` in
+    interpret mode (lengths that are a multiple of the chunk) and JAX's
+    ``ssd_ref`` (all), on B and C repeated out to heads for JAX, under the
+    chip's gates (``chip_smoke.py``): y within 2^-7 of the value plus 1e-3
+    of the row's largest, the state within 2^-10 plus 1e-4.  The split
+    operands carry ~16 bits; a dropped chunk or head block moves either by
+    whole units of the row's scale."""
+    h = 4
+    x, dt, a, bm, cm = _ssd_inputs(rng, 2, slen, h, 16, 32, g=g)
+    x, bm, cm = _bf16_exact(x, bm, cm)
+    rep_b, rep_c = (np.repeat(m, h // g, axis=2) for m in (bm, cm))
+    gy, gs = _ssd_passes(*_t(x, dt, a, bm, cm), chunk)
+    wants = [jax_ssd_ref(*_j(x, dt, a, rep_b, rep_c))]
+    if slen % min(chunk, slen) == 0:
+        wants.append(jax_ssd_pallas(*_j(x, dt, a, rep_b, rep_c), chunk=chunk,
+                                    interpret=True))
+    for wy, ws in wants:
+        for got, want, rtol, row_frac in ((gy, wy, 2**-7, 1e-3),
+                                          (gs, ws, 2**-10, 1e-4)):
+            want = torch.from_numpy(np.array(want))
+            allow = rtol * want.abs() + row_frac * want.abs().amax(-1, keepdim=True)
+            assert bool(((got - want).abs() <= allow).all())
+
+
 def test_ssd_dispatch_by_device(rng):
     """CPU tensors take the plain version and launch nothing; the kernel
     binding takes CUDA tensors only; another device raises."""
