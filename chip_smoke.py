@@ -14,12 +14,13 @@ full and a suffix prefill, each column of a 13-metric bootstrap chunk bit
 for bit against a call on it alone); it times the kernel, the plain
 version and a library yardstick where one exists, with CUDA events (the
 prefill kernel also by its device time in a profiler trace, and its
-wrapper's host time; the SSD and int8 paged kernels by the device time of
-a whole call, whose three and two device kernels are summed), and logs
-the registers, spills and shared memory of kernels 1, 4 and 8 from the
-runtime, failing on any spill.  The decode kernel is also held and timed
-at the main path's own lengths (11..45).  Every task of phases 2-5 streams
-(``StreamingConfig(enabled=True)``) unless it says otherwise.  Phase 2
+wrapper's host time; the decode kernels 2, 3 and 4 and the SSD kernel by
+the device time of a whole call, whose device kernels are summed), and
+logs the registers, spills and shared memory of kernels 1, 2, 3, 4 and 8
+from the runtime, failing on any spill.  The decode kernel is also held
+and timed at the main path's own lengths (11..45).  Every task of phases
+2-5 streams (``StreamingConfig(enabled=True)``) unless it says otherwise.
+Phase 2
 runs the contiguous main path through the user's entry point,
 ``EvalSession.run_task``, on full-width qwen3-4b with random bf16 weights,
 and checks that its kernels
@@ -247,9 +248,16 @@ def decode_cases(torch) -> list[dict]:
     ragged[0], ragged[1] = 1, MAX_LEN
     lo, hi = PROMPT_LEN - 1, PROMPT_LEN + 1 + MAX_TOKENS
     main = (lo + (hi - lo) * torch.arange(N_SLOTS, device="cuda") // (N_SLOTS - 1))
-    return [decode_case(torch, g, ragged, f"lengths 1..{MAX_LEN}"),
-            decode_case(torch, g, main.to(torch.int32),
-                        f"main-path lengths {lo}..{hi} (phase 2)")]
+    out = [decode_case(torch, g, ragged, f"lengths 1..{MAX_LEN}"),
+           decode_case(torch, g, main.to(torch.int32),
+                       f"main-path lengths {lo}..{hi} (phase 2)")]
+    # kernels 2 and 3 are one span-split template, four instantiations
+    kernel_limits("repro_decode_kernel_info",
+                  {0: "decode_attention split, G <= 4",
+                   1: "decode_attention split, G <= 8",
+                   2: "paged_decode_attention split, G <= 4",
+                   3: "paged_decode_attention split, G <= 8"})
+    return out
 
 
 def device_ms(torch, fn, calls: int = 10) -> float:
@@ -444,6 +452,8 @@ def paged_cases(torch, fs) -> list[dict]:
             "library_ms": None,
             "bound_ms": b_ms,
             "bound_by": b_by,
+            "device_ms": device_ms(
+                torch, lambda: paged_decode_attention(q, k, v, tables, lens)),
         }
         contiguous_ms = time_ms(torch, lambda: decode_attention(q, kc, vc, lens))
         qt = q.float().transpose(1, 2)
@@ -455,7 +465,8 @@ def paged_cases(torch, fs) -> list[dict]:
         sdpa_ms = time_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask))
         out.append(entry)
         log(f"paged_decode_attention {shape}: err {err:.3g} (ratio {ratio:.3g}), "
-            f"bit-equal to decode_attention; {entry['ms']:.4g} ms, plain "
+            f"bit-equal to decode_attention; {entry['ms']:.4g} ms (device "
+            f"{entry['device_ms']:.4g} ms), plain "
             f"{entry['plain_ms']:.4g} ms, bound {b_ms:.4g} ms ({b_by}); "
             f"decode_attention on the same rows gathered beforehand "
             f"{contiguous_ms:.4g} ms, SDPA on them gathered and expanded "
@@ -1102,7 +1113,8 @@ def main_path_phase(torch) -> tuple[dict[str, int], dict[str, int]]:
                 "logits hold NaN or inf")
         step_breakdown(
             torch, f"decode step (batch {N_SLOTS}, all slots at position 4)",
-            lambda: b.model.decode_step(b.params, nxt, b.cache, pos))
+            lambda: b.model.decode_step(b.params, nxt, b.cache, pos),
+            kernel=DEVICE_KERNEL["decode_attention"])
         # where a prefill's time goes: a main-path prompt, and a prompt of
         # phase 3's length prefilled in full
         for n_tok in (PROMPT_LEN, 478):
@@ -1112,6 +1124,13 @@ def main_path_phase(torch) -> tuple[dict[str, int], dict[str, int]]:
                            kernel="flash")
         metrics = metrics_phase(torch, session, task)
     return launches, metrics
+
+
+#: a part of the device kernel names behind each decode wrapper, for the
+#: step breakdowns (kernels 2 and 3 are one template, split_decode.cuh)
+DEVICE_KERNEL = {"decode_attention": "split_kernel<false",
+                 "paged_decode_attention": "split_kernel<true",
+                 "quant_paged_decode_attention": "quant_"}
 
 
 def step_breakdown(torch, label: str, run, steps: int = 5,
@@ -1279,7 +1298,8 @@ def paged_run(torch, params, fs, label, kernel, **inference):
             engine.stream_submit(InferenceRequest(render(fs.template, r), MAX_TOKENS))
         engine.stream_pump()
         step_breakdown(torch, f"{label} batcher step (batch {N_SLOTS}, positions "
-                       f"~{fs.prompt_len})", engine.batcher.step)
+                       f"~{fs.prompt_len})", engine.batcher.step,
+                       kernel=DEVICE_KERNEL[kernel])
     free_cuda(torch)
     return launches, st, tokens
 

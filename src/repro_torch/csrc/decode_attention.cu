@@ -3,187 +3,87 @@
 // Replaces the Pallas TPU kernel
 //   src/repro/kernels/decode_attention/decode_attention.py:decode_attention
 // whose grid (B, K, nS) walks cache tiles sequentially and keeps the online-
-// softmax state of a whole query-head group in VMEM scratch.  Here one block
-// owns one (sequence, KV head) and loops over the cache tiles itself, up to
-// that sequence's length only; every K/V row it reads serves all G query
-// heads of the group.  The tile order and every reduction order are fixed,
-// so a sequence's result depends on its own data alone, never on the batch.
+// softmax state of a whole query-head group in VMEM scratch.  Here the
+// positions are split over blocks instead: the span split of
+// split_decode.cuh, shared with the paged kernel (paged_decode_attention.cu),
+// with position p of sequence b at row b * k_sb + p * k_ss + kh * k_sh.
 //
 // Inputs: q (B, 1, H, d) bf16, cache (B, S, K, d) f32 (the serving cache
 // holds bf16-rounded values in f32, as the JAX package's does), lengths (B,)
 // int32 in [1, S].  Output (B, 1, H, d) bf16.  Scores, softmax and the P V
-// sum are f32 FMA: G is too small for a tensor-core tile.
+// sum are f32 FMA: G is too small for a tensor-core tile, and the rows are
+// not bf16-representable in general.
 //
-// Bound on the H100: decode reads each visible cache row once (2 x d x 4
-// bytes per row per KV head) for 4 d FLOPs per (query head, key) pair, far
-// below the card's operations-per-byte balance, so it is bound by bytes.  A
-// (B, K) grid gives B*K blocks (128 at B=16, K=8), about one per SM, which
-// leaves the memory system underused; splitting S across blocks with a
-// fixed combine order is the next step.
+// Bound on the H100: bytes.  Decode reads each visible cache row once (2 x
+// d x 4 bytes per row per KV head) for 4 d FLOPs per (query head, key)
+// pair, far below the card's operations-per-byte balance.  What held the
+// kernel this replaced far above that bound (0.35 ms at ragged lengths
+// 1..1,024 against 0.021): one block per (sequence, KV head), 128 blocks
+// at B = 16 and K = 8, each walking its positions in 32-row tiles with
+// three barriers a tile, nothing fetched ahead, and P V reading V as one
+// dependent 4-byte load a row.  Now: a block per span of 128 positions
+// (up to 8x the blocks), three blocks an SM, every row of a span copied
+// ahead with cp.async and V in flight while K is scored, 16-byte V loads
+// in P V, and one launch a call (the combine is the last block's).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "split_decode.cuh"
 
-namespace {
+using split_decode::Args;
 
-constexpr int D = 128;       // head_dim (qwen3-4b)
-constexpr int EPL = D / 32;  // d elements per lane in the Q K dot: one float4
-constexpr int NTHREADS = 128;
-constexpr int NWARPS = NTHREADS / 32;
-constexpr int T = 32;        // cache rows per tile
-constexpr int MAXG = 8;      // query heads per KV head
-
-__global__ void __launch_bounds__(NTHREADS)
-decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
-                        const float* __restrict__ kc,
-                        const float* __restrict__ vc,
-                        const int* __restrict__ lengths,
-                        __nv_bfloat16* __restrict__ out, int group,
-                        int64_t q_sb, int64_t q_sh,
-                        int64_t k_sb, int64_t k_ss, int64_t k_sh,
-                        int64_t v_sb, int64_t v_ss, int64_t v_sh,
-                        int64_t o_sb, int64_t o_sh, float scale) {
-  __shared__ float s_p[MAXG][T];  // scores, then probabilities
-  __shared__ float s_m[MAXG];
-  __shared__ float s_l[MAXG];
-  __shared__ float s_c[MAXG];
-
-  const int kh = blockIdx.x;
-  const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int len = lengths[b];
-
-  float qf[MAXG][EPL];
-#pragma unroll
-  for (int g = 0; g < MAXG; ++g)
-#pragma unroll
-    for (int e = 0; e < EPL; ++e)
-      qf[g][e] = g < group
-                     ? __bfloat162float(q[b * q_sb + (kh * group + g) * q_sh +
-                                          lane * EPL + e])
-                     : 0.f;
-  if (tid < MAXG) {
-    s_m[tid] = -INFINITY;
-    s_l[tid] = 0.f;
-  }
-  float acc[MAXG];
-#pragma unroll
-  for (int g = 0; g < MAXG; ++g) acc[g] = 0.f;
-
-  const float* kb = kc + b * k_sb + kh * k_sh;
-  const float* vb = vc + b * v_sb + kh * v_sh;
-
-  for (int k0 = 0; k0 < len; k0 += T) {
-    __syncthreads();  // the previous tile's probabilities are consumed
-    // scores: warp w owns rows k0 + w*T/4 ...; lanes split d, then reduce
-#pragma unroll
-    for (int jj = 0; jj < T / NWARPS; ++jj) {
-      const int j = warp * (T / NWARPS) + jj;
-      const int kpos = k0 + j;
-      float part[MAXG];
-      if (kpos < len) {
-        const float4 k4 =
-            *reinterpret_cast<const float4*>(kb + kpos * k_ss + lane * EPL);
-        const float kf[EPL] = {k4.x, k4.y, k4.z, k4.w};
-#pragma unroll
-        for (int g = 0; g < MAXG; ++g) {
-          float acc_g = 0.f;
-#pragma unroll
-          for (int e = 0; e < EPL; ++e) acc_g = fmaf(qf[g][e], kf[e], acc_g);
-          part[g] = acc_g;
-        }
-      } else {
-#pragma unroll
-        for (int g = 0; g < MAXG; ++g) part[g] = 0.f;
-      }
-#pragma unroll
-      for (int g = 0; g < MAXG; ++g)
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          part[g] += __shfl_xor_sync(0xffffffffu, part[g], off);
-      if (lane == 0) {
-#pragma unroll
-        for (int g = 0; g < MAXG; ++g)
-          if (g < group) s_p[g][j] = kpos < len ? part[g] * scale : -INFINITY;
-      }
-    }
-    __syncthreads();
-
-    // online softmax: warp w updates heads w, w + 4, ...; lane = row in tile
-    for (int g = warp; g < group; g += NWARPS) {
-      const float x = s_p[g][lane];
-      float mx = x;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = s_m[g];
-      const float m_new = fmaxf(m_old, mx);  // row k0 < len is always visible
-      const float p = expf(x - m_new);
-      float sum = p;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      s_p[g][lane] = p;
-      if (lane == 0) {
-        const float c = expf(m_old - m_new);
-        s_c[g] = c;
-        s_l[g] = s_l[g] * c + sum;
-        s_m[g] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // P V: thread t owns output column t for every head of the group
-    if (tid < D) {
-#pragma unroll
-      for (int g = 0; g < MAXG; ++g)
-        if (g < group) acc[g] *= s_c[g];
-      const int nk = min(T, len - k0);
-      for (int j = 0; j < nk; ++j) {
-        const float vv = vb[(k0 + j) * v_ss + tid];
-#pragma unroll
-        for (int g = 0; g < MAXG; ++g)
-          if (g < group) acc[g] = fmaf(s_p[g][j], vv, acc[g]);
-      }
-    }
-  }
-  __syncthreads();
-  if (tid < D) {
-#pragma unroll
-    for (int g = 0; g < MAXG; ++g)
-      if (g < group)
-        out[b * o_sb + (kh * group + g) * o_sh + tid] =
-            __float2bfloat16(acc[g] / fmaxf(s_l[g], 1e-37f));
-  }
-}
-
-}  // namespace
-
-// q (B, 1, H, d) bf16; k_cache and v_cache (B, S, K, d) f32; lengths (B,)
-// int32 in [1, S]; out (B, 1, H, d) bf16; d = 128, unit stride on d
-// everywhere.
-// strides[10] = q (batch, head), k (batch, seq, head), v (batch, seq, head),
-// out (batch, head), in elements.  Returns the launch's cudaError_t.
+// q (B, 1, H, d) bf16; k_cache and v_cache (B, S, K, d) f32 with 16-byte
+// aligned rows; lengths (B,) int32 in [1, S]; out (B, 1, H, d) bf16; d =
+// 128, unit stride on d everywhere.  strides[10] = q (batch, head), k
+// (batch, seq, head), v (batch, seq, head), out (batch, head), in
+// elements.  scratch: at least B * K * ceil(S / span) * G * (d + 2) f32,
+// 16-byte aligned; arrivals: at least B * K uint32, zero (the kernel leaves
+// them zero).  One launch on `stream`; returns its cudaError_t.
 extern "C" int repro_decode_attention_f32cache(
     const void* q, const void* k_cache, const void* v_cache,
     const void* lengths, void* out, int batch, int n_heads, int n_kv_heads,
-    int head_dim, const int64_t* strides, float scale, void* stream) {
-  if (batch <= 0 || n_kv_heads <= 0 || n_heads % n_kv_heads != 0 ||
-      head_dim != D)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int group = n_heads / n_kv_heads;
-  if (group > MAXG) return static_cast<int>(cudaErrorInvalidValue);
+    int head_dim, int max_len, const int64_t* strides, float scale,
+    void* scratch, int64_t scratch_floats, void* arrivals, int64_t n_arrivals,
+    void* stream) {
+  if (n_kv_heads <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t* st = strides;
-  const dim3 grid(n_kv_heads, batch);
-  decode_attention_kernel<<<grid, NTHREADS, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const float*>(k_cache),
-      static_cast<const float*>(v_cache), static_cast<const int*>(lengths),
-      static_cast<__nv_bfloat16*>(out), group, st[0], st[1], st[2], st[3],
-      st[4], st[5], st[6], st[7], st[8], st[9], scale);
-  return static_cast<int>(cudaGetLastError());
+  Args a{};
+  a.q = static_cast<const __nv_bfloat16*>(q);
+  a.k = static_cast<const float*>(k_cache);
+  a.v = static_cast<const float*>(v_cache);
+  a.lengths = static_cast<const int*>(lengths);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.group = n_heads / n_kv_heads;
+  a.n_kv = n_kv_heads;
+  a.limit = max_len;
+  a.q_sb = st[0]; a.q_sh = st[1];
+  a.k_s0 = st[2]; a.k_s1 = st[3]; a.k_s2 = st[4];
+  a.v_s0 = st[5]; a.v_s1 = st[6]; a.v_s2 = st[7];
+  a.o_sb = st[8]; a.o_sh = st[9];
+  a.scale = scale;
+  return split_decode::launch<false>(a, batch, n_heads, head_dim, scratch,
+                                     scratch_floats, arrivals, n_arrivals, stream);
 }
+
+// Registers, local (spill) bytes a thread, shared memory a block and
+// resident blocks an SM of the split kernel `which`, as the runtime
+// reports them: 0 and 1 the contiguous kernel for G <= 4 and G <= 8, 2 and
+// 3 the paged kernel's.
+extern "C" int repro_decode_kernel_info(int which, int* regs, int* local_bytes,
+                                        int* smem_bytes, int* blocks_per_sm) {
+  switch (which) {
+    case 0:
+      return split_decode::kernel_info<false, 4>(regs, local_bytes, smem_bytes,
+                                                 blocks_per_sm);
+    case 1:
+      return split_decode::kernel_info<false, 8>(regs, local_bytes, smem_bytes,
+                                                 blocks_per_sm);
+    case 2:
+    case 3:
+      return repro_paged_decode_kernel_info(which == 3, regs, local_bytes,
+                                            smem_bytes, blocks_per_sm);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The span length, for the wrappers' scratch (both kernels).
+extern "C" int repro_decode_span() { return split_decode::SPAN; }

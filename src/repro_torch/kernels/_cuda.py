@@ -45,11 +45,14 @@ SIGNATURES = {
     ),
     "repro_flash_kernel_info": (_I, _IP, _IP, _IP, _IP),
     "repro_decode_attention_f32cache": (
-        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I64P, _F, _P,
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I64P, _F, _P, _I64, _P, _I64, _P,
     ),
     "repro_paged_decode_attention_f32": (
-        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I64P, _F, _P,
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I64P, _F, _P, _I64, _P,
+        _I64, _P,
     ),
+    "repro_decode_kernel_info": (_I, _IP, _IP, _IP, _IP),
+    "repro_decode_span": (),
     "repro_quant_paged_decode_attention": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _I64P, _F, _P, _I64, _P,

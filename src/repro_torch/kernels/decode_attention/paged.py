@@ -8,6 +8,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _cuda
+from repro_torch.kernels.decode_attention.decode_attention import workspace
 
 
 def check_paged_inputs(
@@ -51,17 +52,22 @@ def paged_decode_attention(
 ) -> torch.Tensor:
     """One query token per sequence over its first ``lengths[b]`` positions,
     read from the pool through its page table, on the card.  Every table
-    entry must be a valid page id.  Returns (B, 1, H, d) bf16."""
+    entry must be a valid page id.  The contiguous kernel's span split and
+    combine, one device kernel a call: on the same rows its bits at any
+    page size.  Returns (B, 1, H, d) bf16."""
     check_paged_inputs(q, k_pages, v_pages, tables, lengths, torch.float32)
     b, _, h, d = q.shape
+    ps, kh, n_table = k_pages.shape[1], k_pages.shape[2], tables.shape[1]
     out = torch.empty((b, 1, h, d), dtype=torch.bfloat16, device=q.device)
     strides = [q.stride(0), q.stride(2), *k_pages.stride()[:3],
                *v_pages.stride()[:3], out.stride(0), out.stride(2)]
+    stream = _cuda.stream_of(q)
+    scratch, arrivals = workspace(q, stream, n_table * ps, kh)
     err = _cuda.library().repro_paged_decode_attention_f32(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, h,
-        k_pages.shape[2], d, k_pages.shape[1], tables.shape[1],
-        _cuda.int64_array(strides), d**-0.5, _cuda.stream_of(q),
+        tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, h, kh, d,
+        ps, n_table, _cuda.int64_array(strides), d**-0.5, scratch.data_ptr(),
+        scratch.numel(), arrivals.data_ptr(), arrivals.numel(), stream,
     )
     _cuda.check(err, "paged_decode_attention")
     paged_decode_attention.launches += 1

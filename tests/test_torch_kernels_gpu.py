@@ -15,7 +15,12 @@ at any replicate count.  The SSD scan and the int8 paged decode kernel
 are also held at full width (mamba2-2.7b's 80 heads; phase 3's 16
 sequences of 8 KV heads, G in {4, 8}): batch-invariant and repeatable bit
 for bit, the int8 kernel bit-equal across page sizes over the same
-values, and none of their device kernels spilling.  Every case carries the ``gpu``
+values, and none of their device kernels spilling.  The f32 decode
+kernels 2 and 3 (one span-split design) are held at the span's edge
+lengths: a sequence alone against among 16, repeatable, independent of
+the cache length beyond the sequence's, kernel 3 bit-equal to kernel 2 at
+page sizes 8, 16 and 64, the span constant agreeing with the wrapper, and
+no spill.  Every case carries the ``gpu``
 marker and skips where there is no CUDA device.  The file imports no JAX,
 so it runs on a machine with the card and no JAX:
 
@@ -43,6 +48,7 @@ from repro_torch.kernels.decode_attention import (
     quant_paged_decode_attention_ref,
     quantize_pages,
 )
+from repro_torch.kernels.decode_attention.decode_attention import SPAN
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
 from repro_torch.kernels.ssd import ssd, ssd_ref
 from repro_torch.models.attention import cache_update
@@ -104,13 +110,16 @@ def test_flash_kernel_matches_plain_version(cuda, h, kh, sq, sk, off, kv_view,
 @pytest.mark.gpu
 @pytest.mark.parametrize("g_heads", [1, 4, 8])
 def test_decode_kernel_matches_plain_version(cuda, g_heads):
-    b, kh, s, d = 6, 8 // max(1, g_heads // 4), 256, 128
+    s, kh, d = 512, 8 // max(1, g_heads // 4), 128
+    # the old 32-row tile's edges, and the span's
+    lens = torch.tensor([1, s, 31, 32, 33, 200, SPAN - 1, SPAN, SPAN + 1, 2 * SPAN,
+                         2 * SPAN + 45], dtype=torch.int32, device=cuda)
+    b = lens.numel()
     gen = torch.Generator(device=cuda).manual_seed(g_heads)
     q = torch.randn((b, 1, kh * g_heads, d), generator=gen, device=cuda)
     q = q.to(torch.bfloat16)
     kc = torch.randn((b, s, kh, d), generator=gen, device=cuda)
     vc = torch.randn((b, s, kh, d), generator=gen, device=cuda)
-    lens = torch.tensor([1, s, 31, 32, 33, 200], dtype=torch.int32, device=cuda)
     got = decode_attention(q, kc, vc, lens)
     ref = decode_attention_ref(q, kc, vc, lens)
     assert _rowwise_ok(got, ref, 2**-7, 1e-3)
@@ -521,5 +530,104 @@ def test_quant_paged_kernel_span_and_limits(cuda):
     for which in range(3):
         vals = [ctypes.c_int() for _ in range(4)]
         assert lib.repro_quant_paged_kernel_info(
+            which, *(ctypes.byref(v) for v in vals)) == 0
+        assert vals[1].value == 0 and vals[3].value >= 1
+
+
+# -- the redesigned f32 decode kernels 2 and 3 (one span split) ---------------------
+
+
+def _f32_full(cuda, lens, g_heads, s, seed):
+    """q and a contiguous f32 cache of ``s`` rows at full width (8 KV heads
+    of 128; 4 at G = 8) over ``lens``."""
+    kh, d, b = 8 if g_heads < 8 else 4, 128, len(lens)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn((b, 1, kh * g_heads, d), generator=gen, device=cuda)
+    kc = torch.randn((b, s, kh, d), generator=gen, device=cuda)
+    vc = torch.randn((b, s, kh, d), generator=gen, device=cuda)
+    return (q.to(torch.bfloat16), kc, vc,
+            torch.tensor(lens, dtype=torch.int32, device=cuda))
+
+
+def _paged_from(cuda, kc, vc, lens, ps, seed):
+    """The cache's rows laid into a pool of ``ps``-row pages under shuffled
+    page ids (page 0 the padding target), tables padded with 0."""
+    b, s = kc.shape[:2]
+    n_p = -(-s // ps)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    order = torch.randperm(b * n_p, generator=gen, device=cuda) + 1
+    pools = []
+    for t in (kc, vc):
+        t = torch.nn.functional.pad(t, (0, 0, 0, 0, 0, n_p * ps - s))
+        pool = torch.zeros((b * n_p + 1, ps, *t.shape[2:]), device=cuda)
+        pool[order] = t.reshape(b * n_p, ps, *t.shape[2:])
+        pools.append(pool)
+    tables = order.view(b, n_p).to(torch.int32)
+    used = (lens + ps - 1) // ps
+    tables[torch.arange(n_p, device=cuda)[None, :] >= used[:, None]] = 0
+    return pools[0], pools[1], tables
+
+
+#: the span's edges, S, and ragged lengths: 16 sequences
+F32_LENS = [1, SPAN - 1, SPAN, SPAN + 1, 2 * SPAN, 2 * SPAN + 45, 512,
+            5, 17, 300, 400, 64, 200, 33, 511, 384]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g_heads", [1, 4, 8])
+def test_f32_decode_kernels_full_width_invariances(cuda, g_heads):
+    """Kernels 2 and 3 at S = 512 over the span's edge lengths: within the
+    plain version's gate (2^-7 of the value plus 1e-3 of the row's
+    largest); a sequence alone gives the bits it gives among 16; a second
+    call gives the same bits; a cache of 1,024 rows holding the same first
+    512 gives the same bits (nothing depends on S beyond the length); and
+    kernel 3 over the same rows in pages of 8, 16 and 64 gives kernel 2's
+    bits, alone and among 16, and with tables of twice the entries."""
+    s = 512
+    q, kc, vc, lens = _f32_full(cuda, F32_LENS, g_heads, 2 * s, 11 + g_heads)
+    kc5, vc5 = kc[:, :s].contiguous(), vc[:, :s].contiguous()
+    got = decode_attention(q, kc5, vc5, lens)
+    assert _rowwise_ok(got, decode_attention_ref(q, kc5, vc5, lens), 2**-7, 1e-3)
+    assert torch.equal(decode_attention(q, kc5, vc5, lens), got)
+    assert torch.equal(decode_attention(q, kc, vc, lens), got)
+    assert torch.equal(decode_attention(q, kc[:, :s], vc[:, :s], lens), got)
+    for i in (0, 5, 6, 9):
+        alone = decode_attention(q[i:i + 1], kc5[i:i + 1], vc5[i:i + 1], lens[i:i + 1])
+        assert torch.equal(alone, got[i:i + 1])
+    for ps in (8, 16, 64):
+        kp, vp, tables = _paged_from(cuda, kc5, vc5, lens, ps, ps)
+        paged = paged_decode_attention(q, kp, vp, tables, lens)
+        assert torch.equal(paged, got), ps
+        assert torch.equal(paged_decode_attention(q, kp, vp, tables, lens), got)
+        for i in (0, 5, 6):
+            alone = paged_decode_attention(q[i:i + 1], kp, vp,
+                                           tables[i:i + 1].contiguous(), lens[i:i + 1])
+            assert torch.equal(alone, got[i:i + 1])
+    # twice the table entries (nP * ps = 1,024) over the same positions
+    assert torch.equal(paged_decode_attention(q, *_paged_from(cuda, kc, vc, lens, 16, 3),
+                                              lens), got)
+
+
+@pytest.mark.gpu
+def test_f32_decode_kernels_span_and_limits(cuda):
+    """The span the CUDA source is built with is the wrappers' (their
+    scratch size); a call counts one launch, however many spans it has;
+    none of the four split kernels (contiguous and paged, G <= 4 and
+    G <= 8) spills."""
+    import ctypes
+
+    from repro_torch.kernels import _cuda
+
+    lib = _cuda.library()
+    assert lib.repro_decode_span() == SPAN
+    q, kc, vc, lens = _f32_full(cuda, [300, 1], 4, 512, 2)
+    before = (decode_attention.launches, paged_decode_attention.launches)
+    decode_attention(q, kc, vc, lens)
+    paged_decode_attention(q, *_paged_from(cuda, kc, vc, lens, 16, 1), lens)
+    assert (decode_attention.launches, paged_decode_attention.launches) == (
+        before[0] + 1, before[1] + 1)
+    for which in range(4):
+        vals = [ctypes.c_int() for _ in range(4)]
+        assert lib.repro_decode_kernel_info(
             which, *(ctypes.byref(v) for v in vals)) == 0
         assert vals[1].value == 0 and vals[3].value >= 1

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.decode_attention import decode_attention as jax_decode
 from repro.kernels.decode_attention import paged_decode_attention as jax_paged
 from repro.kernels.decode_attention import (
     quant_paged_decode_attention as jax_quant_paged,
@@ -18,6 +19,9 @@ from repro.kernels.decode_attention.quant import (
     dequantize_pages as jax_dequantize_pages,
 )
 from repro.kernels.decode_attention.quant import quantize_pages as jax_quantize_pages
+from repro.kernels.decode_attention.ref import (
+    decode_attention_ref as jax_decode_ref,
+)
 from repro.kernels.decode_attention.ref import (
     paged_decode_attention_ref as jax_paged_ref,
 )
@@ -31,7 +35,10 @@ from repro_torch.kernels.decode_attention import (
     quant_paged_decode_attention_bshd,
     quant_paged_decode_attention_ref,
 )
+from repro_torch.kernels.decode_attention.decode_attention import SPAN as F32_SPAN
+from repro_torch.kernels.decode_attention.decode_attention import workspace
 from repro_torch.kernels.decode_attention.paged_quant import SPAN
+from repro_torch.kernels.decode_attention.ref import gather_pages
 
 #: f32 throughout: the same math summed in another order
 TOL = 1e-5
@@ -142,47 +149,61 @@ def test_fresh_row_form_is_dequantize_overwrite_then_paged(g):
     assert not torch.equal(got[1], unchanged[1])
 
 
-def _span_split_combine(q, kq, vq, ks, vs, tables, lens, new_rows=None,
+def _span_split_combine(q, k, v, lens, tables=None, scales=None, new_rows=None,
                         span=SPAN):
-    """Test-only mirror of ``csrc/quant_paged_decode_attention.cu`` in f32:
-    per (sequence, KV head) the positions in spans of ``span``; a span's
-    rows looked up through the table, its scores k_scale (q . k_int) (the
-    fresh row's from ``k_new``), its max m, sum of exps l and unnormalised
-    P V (V dequantized, the fresh row's from ``v_new``); then the spans
-    combined in order, sum_s acc_s e^(m_s - M) / sum_s l_s e^(m_s - M).
-    Port layouts: q (B, 1, H, d), pools (P, ps, K, d)."""
+    """Test-only mirror of the CUDA span split in f32: the f32 kernels'
+    (``csrc/split_decode.cuh``, over a contiguous cache or an f32 pool) and
+    the int8 kernel's (``csrc/quant_paged_decode_attention.cu``).  Per
+    (sequence, KV head) the positions in spans of ``span``; a span's rows
+    read from the contiguous cache (B, S, K, d) where ``tables`` is None,
+    else looked up through the table in the pool (P, ps, K, d); its scores
+    q . k (times k_scale (q . k_int) for int8 pages, ``scales = (ks, vs)``;
+    the fresh row's from ``k_new``), its max m, sum of exps l and
+    unnormalised P V (V dequantized for int8, the fresh row's from
+    ``v_new``); then the spans combined in order, sum_s acc_s e^(m_s - M)
+    / sum_s l_s e^(m_s - M).  Port layouts: q (B, 1, H, d)."""
     b, _, h, d = q.shape
-    ps, kh = kq.shape[1], kq.shape[2]
+    kh = k.shape[2]
     g = h // kh
+    limit = k.shape[1] if tables is None else tables.shape[1] * k.shape[1]
     out = torch.zeros((b, 1, h, d))
     for i in range(b):
-        n = min(int(lens[i]), tables.shape[1] * ps)
-        for k in range(kh):
-            qg = q[i, 0, k * g:(k + 1) * g].float()
+        n = min(int(lens[i]), limit)
+        for kk in range(kh):
+            qg = q[i, 0, kk * g:(kk + 1) * g].float()
             parts = []
             for p0 in range(0, n, span):
                 pos = torch.arange(p0, min(p0 + span, n))
-                page, row = tables[i, pos // ps].long(), pos % ps
-                kf = kq[page, row, k].float()
-                s = (qg @ kf.T) * ks[page, k] * d**-0.5
-                vf = vq[page, row, k].float() * vs[page, k][:, None]
+                if tables is None:
+                    kf, vf = k[i, pos, kk].float(), v[i, pos, kk].float()
+                    s = qg @ kf.T
+                else:
+                    ps = k.shape[1]
+                    page, row = tables[i, pos // ps].long(), pos % ps
+                    kf, vf = k[page, row, kk].float(), v[page, row, kk].float()
+                    s = qg @ kf.T
+                    if scales is not None:
+                        s = s * scales[0][page, kk]
+                        vf = vf * scales[1][page, kk][:, None]
+                s = s * d**-0.5
                 if new_rows is not None and p0 <= int(new_rows[2][i]) < p0 + len(pos):
                     f = int(new_rows[2][i]) - p0
-                    s[:, f] = (qg @ new_rows[0][i, k]) * d**-0.5
-                    vf[f] = new_rows[1][i, k]
+                    s[:, f] = (qg @ new_rows[0][i, kk]) * d**-0.5
+                    vf[f] = new_rows[1][i, kk]
                 m = s.max(dim=1, keepdim=True).values
                 pe = torch.exp(s - m)
                 parts.append((m, pe.sum(dim=1, keepdim=True), pe @ vf))
             big_m = torch.stack([m for m, _, _ in parts]).max(dim=0).values
             l_tot = sum(l * torch.exp(m - big_m) for m, l, _ in parts)
             acc = sum(a * torch.exp(m - big_m) for m, _, a in parts)
-            out[i, 0, k * g:(k + 1) * g] = acc / l_tot
+            out[i, 0, kk * g:(kk + 1) * g] = acc / l_tot
     return out
 
 
-def _span_case(rng, g, ps, lens):
+def _span_case(rng, g, ps, lens, quantize=True):
     """q and a pool with the first pages shared by every sequence, tables
-    padded with 0, at the given lengths; d = 32, 2 KV heads."""
+    padded with 0, at the given lengths; d = 32, 2 KV heads.  The pool is
+    quantized to int8 pages and scales, or (``quantize=False``) left f32."""
     b, kh, d = len(lens), 2, 32
     n_p = -(-max(lens) // ps)
     n_shared = n_p // 2
@@ -194,6 +215,8 @@ def _span_case(rng, g, ps, lens):
     tables[:, :n_shared] = np.arange(n_shared)
     lens = np.array(lens, np.int32)
     tables[np.arange(n_p)[None, :] >= -(-lens // ps)[:, None]] = 0
+    if not quantize:
+        return q, (k, v), tables.astype(np.int32), lens
     kq, ks = jax_quantize_pages(jnp.asarray(k))
     vq, vs = jax_quantize_pages(jnp.asarray(v))
     return q, (kq, vq, ks, vs), tables.astype(np.int32), lens
@@ -204,10 +227,13 @@ def _span_case(rng, g, ps, lens):
 SPAN_LENS = [1, SPAN, SPAN + 1, 2 * SPAN, 2 * SPAN + 45, SPAN - 1]
 
 
+#: 16 and 32: span boundaries on page boundaries (a span across several
+#: pages); 48 and 256: span boundaries inside a page
+SPAN_PAGE_SIZES = [16, 32, 48, 256]
+
+
 @pytest.mark.parametrize("g", [1, 4])
-# 16 and 32: span boundaries on page boundaries (a span across several
-# pages); 48 and 256: span boundaries inside a page
-@pytest.mark.parametrize("ps", [16, 32, 48, 256])
+@pytest.mark.parametrize("ps", SPAN_PAGE_SIZES)
 def test_span_split_matches_jax_quant_kernel_and_oracle(g, ps):
     """The CUDA int8 kernel's algorithm, spans of ``SPAN`` positions each
     reduced alone then combined in span order, against the JAX Pallas
@@ -218,8 +244,8 @@ def test_span_split_matches_jax_quant_kernel_and_oracle(g, ps):
     qt, kqt = _port(q, np.asarray(kq))
     _, vqt = _port(q, np.asarray(vq))
     ours = _back(_span_split_combine(
-        qt, kqt, vqt, torch.from_numpy(np.array(ks)), torch.from_numpy(np.array(vs)),
-        torch.from_numpy(tables), torch.from_numpy(lens)), q)
+        qt, kqt, vqt, torch.from_numpy(lens), torch.from_numpy(tables),
+        (torch.from_numpy(np.array(ks)), torch.from_numpy(np.array(vs)))), q)
     args = (jnp.asarray(q), kq, vq, ks, vs, jnp.asarray(tables), jnp.asarray(lens))
     for want in (jax_quant_paged(*args, interpret=True), jax_quant_paged_ref(*args)):
         np.testing.assert_allclose(ours, np.asarray(want), atol=TOL, rtol=TOL)
@@ -244,7 +270,7 @@ def test_span_split_fresh_row_on_a_span_boundary(ps):
     # first row of span 1, last row of span 1, last row of span 0, none
     new_pos = torch.tensor([SPAN, 2 * SPAN - 1, SPAN - 1, SPAN], dtype=torch.int32)
     rows = (k_new, v_new, new_pos)
-    ours = _span_split_combine(qt, kqt, vqt, kst, vst, tab, ln, rows)
+    ours = _span_split_combine(qt, kqt, vqt, ln, tab, (kst, vst), rows)
     np.testing.assert_allclose(
         ours.numpy(), quant_paged_decode_attention_ref(qt, kqt, vqt, kst, vst, tab,
                                                        ln, rows).numpy(),
@@ -262,3 +288,52 @@ def test_span_split_fresh_row_on_a_span_boundary(ps):
             jnp.asarray(q[i:i + 1]), jnp.asarray(kdi), jnp.asarray(vdi),
             jnp.asarray(tables[i:i + 1]), jnp.asarray(lens[i:i + 1])))[0])
     np.testing.assert_allclose(_back(ours, q), np.stack(want), atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("ps", SPAN_PAGE_SIZES)
+def test_span_split_f32_matches_jax_kernels_and_oracles(g, ps):
+    """Kernels 2 and 3's algorithm (``csrc/split_decode.cuh``: spans of
+    the f32 kernels' ``SPAN`` positions, each reduced alone, then combined
+    in span order) over an f32 pool with aliased pages, read through the
+    tables, and over the same rows gathered into a contiguous cache: the
+    two forms give the same bits (the CUDA kernels differ only in a row's
+    address); the paged form against the Pallas ``paged_decode_attention``
+    in interpret mode and its oracle, the contiguous form against the
+    Pallas ``decode_attention`` in interpret mode and its oracle, f32
+    within 1e-5 (the same products summed in another order)."""
+    rng = np.random.default_rng(500 + 10 * g + ps)
+    q, (k, v), tables, lens = _span_case(rng, g, ps, SPAN_LENS, quantize=False)
+    qt, kt = _port(q, k)
+    _, vt = _port(q, v)
+    tab, ln = torch.from_numpy(tables), torch.from_numpy(lens)
+    paged = _span_split_combine(qt, kt, vt, ln, tab, span=F32_SPAN)
+    kc, vc = gather_pages(kt, tab), gather_pages(vt, tab)  # (B, nP * ps, K, d)
+    contiguous = _span_split_combine(qt, kc, vc, ln, span=F32_SPAN)
+    assert torch.equal(paged, contiguous)
+    ours = _back(paged, q)
+    qj, lj = jnp.asarray(q), jnp.asarray(lens)
+    args = (qj, jnp.asarray(k), jnp.asarray(v), jnp.asarray(tables), lj)
+    for want in (jax_paged(*args, interpret=True), jax_paged_ref(*args)):
+        np.testing.assert_allclose(ours, np.asarray(want), atol=TOL, rtol=TOL)
+    # the kernels' cache layout (B, K, S, d)
+    kj, vj = (jnp.asarray(t.transpose(1, 2).numpy()) for t in (kc, vc))
+    for want in (jax_decode(qj, kj, vj, lj, interpret=True),
+                 jax_decode_ref(qj, kj, vj, lj)):
+        np.testing.assert_allclose(ours, np.asarray(want), atol=TOL, rtol=TOL)
+
+
+def test_f32_decode_workspace_grows_and_keeps_its_counters():
+    """The f32 decode kernels' scratch: (B, K, ceil(S / SPAN), G) partials
+    of d + 2 floats and B * K arrival counters, one workspace per (device,
+    stream), grown to the largest call, its counters zero when allocated
+    (the kernels leave them zero), reused while big enough."""
+    q = torch.zeros((2, 1, 8, 16))  # B = 2, H = 8, d = 16
+    first = workspace(q, -7, 3 * F32_SPAN, 2)
+    assert first[0].numel() == 2 * 8 * 3 * 18 and first[0].dtype == torch.float32
+    assert first[1].numel() == 4 and not first[1].any()
+    assert all(a is b for a, b in zip(workspace(q, -7, 1, 2), first))
+    grown = workspace(torch.zeros((5, 1, 8, 16)), -7, 1, 4)
+    assert grown[0].numel() == first[0].numel()  # 5 * 8 * 1 * 18 fits
+    assert grown[1].numel() == 20 and not grown[1].any()
+    assert workspace(q, -8, 1, 1)[0] is not grown[0]
