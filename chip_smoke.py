@@ -14,11 +14,15 @@ full and a suffix prefill, each column of a 13-metric bootstrap chunk bit
 for bit against a call on it alone); it times the kernel, the plain
 version and a library yardstick where one exists, with CUDA events (the
 prefill kernel also by its device time in a profiler trace, and its
-wrapper's host time; the decode kernels 2, 3 and 4 and the SSD kernel by
-the device time of a whole call, whose device kernels are summed), and
-logs the registers, spills and shared memory of kernels 1, 2, 3, 4 and 8
-from the runtime, failing on any spill.  The decode kernel is also held
-and timed at the main path's own lengths (11..45).  Every task of phases
+wrapper's host time; every other kernel also by the device time of a
+whole call, whose device kernels are summed, and which fails unless the
+trace holds every device kernel the call launches: one per group of 8
+columns for the bootstrap partials), and logs
+the registers, spills and shared memory of all eight kernels from the
+runtime, failing on any spill.  The bootstrap kernels' bounds count the
+integer work of every Poisson draw (``DRAW_ALU_OPS`` on the ALU,
+``DRAW_INSTRUCTIONS`` issued).  The decode kernel
+is also held and timed at the main path's own lengths (11..45).  Every task of phases
 2-5 streams (``StreamingConfig(enabled=True)``) unless it says otherwise.
 Phase 2
 runs the contiguous main path through the user's entry point,
@@ -111,6 +115,53 @@ def require(cond: bool, msg: str) -> None:
         raise CheckFailed(msg)
 
 
+#: Poisson-bootstrap draw work: the least that any version of kernels 5 and
+#: 6 must do for one (example, replicate) draw.  The counter mixer is h = K
+#: ^ pos * C2, with the replicate's key K = boot * C1 ^ seed, then h ^= h >>
+#: 16, h *= C3, h ^= h >> 13, h *= C4, h ^= h >> 16, and the weight counts
+#: the thresholds T_k <= h >> 8 (that is h >= T_k << 8: no shift).  With K
+#: hoisted out of the row loop and pk = pos * C2 a running add, and since a
+#: shift distributes over xor, the first pair is K' ^ pk ^ (pk >> 16) with
+#: K' = K ^ (K >> 16) hoisted too: one shift and one 3-input xor.  A draw
+#: is then 1 add + 3 shifts + 3 xors + 2 multiplies + 7 compares = 16
+#: instructions; forming the count from the 7 compares is not counted, so
+#: the bound errs low.  The add and the shifts can issue on the FMA pipe
+#: beside the multiplies (IMAD.IADD; IMAD.HI.U32, x >> s = hi32(x * 2^(32 -
+#: s))); the 3 xors and the 7 compares run only on the integer ALU, at 64
+#: lanes a clock an SM on compute capability 9.0 (CUDA C++ Programming
+#: Guide, arithmetic instruction throughput).  Every instruction takes an
+#: issue slot: 4 schedulers x 32 lanes = 128 a clock an SM.
+DRAW_ALU_OPS = 10
+DRAW_INSTRUCTIONS = 16
+ALU_LANES_PER_SM = 64
+ISSUE_LANES_PER_SM = 128
+
+
+def sm_clocks_per_s(torch) -> float:
+    """SMs x the maximum SM clock that ``nvidia-smi`` reports, in Hz: the
+    operations a second of one lane in every SM."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    return torch.cuda.get_device_properties(0).multi_processor_count * mhz * 1e6
+
+
+def draw_bound(torch, draws: float, alu_extra: float, issue_extra: float,
+               flops: float, nbytes: float) -> tuple[float, str]:
+    """Bound (ms) of a bootstrap kernel: the largest of its ALU-only work
+    (``DRAW_ALU_OPS`` a draw plus ``alu_extra``) at 64 lanes a clock an SM,
+    all its instructions (``DRAW_INSTRUCTIONS`` a draw plus ``alu_extra``
+    and ``issue_extra``) at 128 issue lanes a clock an SM, its f32 FLOPs at
+    the f32 peak and its bytes at the memory rate."""
+    rate = sm_clocks_per_s(torch)
+    t_alu = (draws * DRAW_ALU_OPS + alu_extra) / (rate * ALU_LANES_PER_SM)
+    t_issue = ((draws * DRAW_INSTRUCTIONS + alu_extra + issue_extra)
+               / (rate * ISSUE_LANES_PER_SM))
+    t_ops = max(t_alu, t_issue) * 1e3
+    b_ms, b_by = bound(flops, PEAK_F32, nbytes)
+    return (t_ops, "operations") if t_ops > b_ms else (b_ms, b_by)
+
+
 def bound(flops: float, peak: float, nbytes: float) -> tuple[float, str]:
     """Least time (ms) the card could take: the larger of operations over
     the peak rate and bytes over the memory rate, and which one it is."""
@@ -188,8 +239,8 @@ def flash_cases(torch, fs):
             "shape": shape,
             "max_abs_err": err,
             "ms": time_ms(torch, lambda: flash_attention(q, k, v, q_offset=off)),
-            "device_ms": device_ms(
-                torch, lambda: flash_attention(q, k, v, q_offset=off)),
+            "device_ms": device_profile(
+                torch, lambda: flash_attention(q, k, v, q_offset=off), 1),
             "plain_ms": time_ms(
                 torch, lambda: flash_attention_ref(q, k, v, q_offset=off), iters=5),
             "library_ms": time_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask)),
@@ -260,23 +311,33 @@ def decode_cases(torch) -> list[dict]:
     return out
 
 
-def device_ms(torch, fn, calls: int = 10) -> float:
+def device_profile(torch, fn, kernels: int, calls: int = 10,
+                   tries: int = 3) -> float:
     """Device time (ms) of one call of ``fn``, every kernel it launches
     summed, from a ``torch.profiler`` trace of ``calls`` calls: the kernels
     alone, without the host time that CUDA events around a loop of short
-    calls also measure.  NaN where the profiler saw none."""
+    calls also measure.  ``kernels`` is the device kernels one call
+    launches.  A trace that holds another count is taken again, up to
+    ``tries`` times, and then fails: the profiler has dropped a kernel's
+    record, which reads the call short."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.time_range.elapsed_us() for e in prof.events()
-                if e.device_type == DeviceType.CUDA)
-    return total / 1e3 / calls if total else float("nan")
+    counts = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if len(spans) == kernels * calls:
+            return sum(spans) / 1e3 / calls
+        counts.append(len(spans))
+    raise CheckFailed(f"device profile: {counts} device records in {tries} traces "
+                      f"of {calls} calls, not {kernels * calls} each")
 
 
 def kernel_limits(lib_fn: str, names: dict[int, str]) -> None:
@@ -335,7 +396,8 @@ def decode_case(torch, g, lens, label: str) -> dict:
         "ms": time_ms(torch, lambda: decode_attention(q, kc, vc, lens)),
         "plain_ms": time_ms(torch, lambda: decode_attention_ref(q, kc, vc, lens)),
         "library_ms": time_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask)),
-        "device_ms": device_ms(torch, lambda: decode_attention(q, kc, vc, lens)),
+        "device_ms": device_profile(
+            torch, lambda: decode_attention(q, kc, vc, lens), 1),
         "bound_ms": b_ms,
         "bound_by": b_by,
     }
@@ -452,8 +514,8 @@ def paged_cases(torch, fs) -> list[dict]:
             "library_ms": None,
             "bound_ms": b_ms,
             "bound_by": b_by,
-            "device_ms": device_ms(
-                torch, lambda: paged_decode_attention(q, k, v, tables, lens)),
+            "device_ms": device_profile(
+                torch, lambda: paged_decode_attention(q, k, v, tables, lens), 1),
         }
         contiguous_ms = time_ms(torch, lambda: decode_attention(q, kc, vc, lens))
         qt = q.float().transpose(1, 2)
@@ -500,8 +562,9 @@ def paged_cases(torch, fs) -> list[dict]:
             "bound_ms": b_ms,
             "bound_by": b_by,
         }
-        entry["device_ms"] = device_ms(torch, lambda: quant_paged_decode_attention(
-            q, kq, vq, ks, vs, tables, lens, rows))
+        # two device kernels a call: the span split, then the combine
+        entry["device_ms"] = device_profile(torch, lambda: quant_paged_decode_attention(
+            q, kq, vq, ks, vs, tables, lens, rows), 2)
         plain_form_ms = time_ms(torch, lambda: quant_paged_decode_attention(
             q, kq, vq, ks, vs, tables, lens))
         out.append(entry)
@@ -539,7 +602,8 @@ def bootstrap_case(torch, n: int, m: int, n_boot: int, starts: tuple[int, ...],
         ref = bootstrap_partials_ref(x, seed, start, n_boot=n_boot)
         torch.cuda.synchronize()
         # identical weights, f32 sums of n terms in two fixed orders: 1e-4 of
-        # the value; one dropped 1,024-row tile moves every sum by ~1%
+        # the value; one dropped 64-row tile at n = 100,000 moves a sum by
+        # ~6e-4 of it, and the sum w gate below catches any dropped row
         errs += [rowwise(torch, a, r, 1e-4, 1e-6) for a, r in zip(got, ref)]
         require(bool(torch.equal(got[1], ref[1])),
                 f"bootstrap_partials n={n} start={start}: sum w differs")
@@ -555,7 +619,11 @@ def bootstrap_case(torch, n: int, m: int, n_boot: int, starts: tuple[int, ...],
              + "/".join(str(s) for s in starts))
     require(max(r for _, r in errs) <= 1.0, f"bootstrap_partials {shape}: {errs}")
     x, start = xs[0], starts[0]
-    b_ms, b_by = bound(3 * n * m * n_boot, PEAK_F32, 4 * (n * m + 2 * n_boot * m))
+    groups = -(-m // 8)
+    # n * n_boot draws, one NaN test per (example, metric), an FMA and an
+    # add (2 instructions, 3 FLOPs) per (draw, metric)
+    b_ms, b_by = draw_bound(torch, n * n_boot, n * m, 2 * n * m * n_boot,
+                            3 * n * m * n_boot, 4 * (n * m + 2 * n_boot * m))
     entry = {
         "name": "bootstrap_partials",
         "route": "cuda",
@@ -564,6 +632,10 @@ def bootstrap_case(torch, n: int, m: int, n_boot: int, starts: tuple[int, ...],
         "shape": shape,
         "max_abs_err": max(e for e, _ in errs),
         "ms": time_ms(torch, lambda: bootstrap_partials(x, seed, start, n_boot=n_boot)),
+        # one device kernel a call per group of 8 columns, gated
+        "device_ms": device_profile(
+            torch, lambda: bootstrap_partials(x, seed, start, n_boot=n_boot), groups),
+        "device_kernels": groups,
         "plain_ms": time_ms(
             torch, lambda: bootstrap_partials_ref(x, seed, start, n_boot=n_boot),
             iters=plain_iters, warmup=1),
@@ -572,7 +644,8 @@ def bootstrap_case(torch, n: int, m: int, n_boot: int, starts: tuple[int, ...],
         "bound_by": b_by,
     }
     log(f"bootstrap_partials {shape}: err {entry['max_abs_err']:.3g}, every column "
-        f"bit-equal alone, {-(-m // 8)} launch(es) a call; {entry['ms']:.4g} ms, "
+        f"bit-equal alone, {groups} launch(es) and device kernel(s) a call; "
+        f"{entry['ms']:.4g} ms (device {entry['device_ms']:.4g}), "
         f"plain {entry['plain_ms']:.4g} ms, bound {b_ms:.4g} ms ({b_by})")
     return entry
 
@@ -650,7 +723,9 @@ def ssd_cases(torch, fs) -> list[dict]:
             "bound_ms": b_ms,
             "bound_by": b_by,
         }
-        entry["device_ms"] = device_ms(torch, lambda: ssd(*args, chunk=SSM_CHUNK))
+        # three device kernels a call: chunk states, recurrence, outputs
+        entry["device_ms"] = device_profile(
+            torch, lambda: ssd(*args, chunk=SSM_CHUNK), 3)
         out.append(entry)
         n_diff = int((state != rstate).sum())
         log(f"ssd {shape}: y err {err_y:.3g} (ratio {ratio_y:.3g}), state err "
@@ -742,6 +817,7 @@ def bertscore_cases(torch) -> list[dict]:
             "shape": shape,
             "max_abs_err": max(e for e, _ in checks),
             "ms": time_ms(torch, lambda: bertscore_pr(*args)),
+            "device_ms": device_profile(torch, lambda: bertscore_pr(*args), 1),
             "plain_ms": time_ms(torch, lambda: bertscore_ref(*args), iters=5),
             # no one PyTorch call computes P and R; torch.bmm of the
             # normalised inputs is the product alone, without the masks and
@@ -753,12 +829,16 @@ def bertscore_cases(torch) -> list[dict]:
         }
         out.append(entry)
         log(f"bertscore_pr {shape}: err {entry['max_abs_err']:.3g} (ratio "
-            f"{ratio:.3g}), example 5 bit-equal alone; {entry['ms']:.4g} ms, "
+            f"{ratio:.3g}), example 5 bit-equal alone; {entry['ms']:.4g} ms "
+            f"(device {entry['device_ms']:.4g}), "
             f"plain {entry['plain_ms']:.4g} ms, bmm of the normalised inputs "
             f"alone (TF32 off; a lower bound, not the same function) "
             f"{entry['bmm_only_ms']:.4g} ms, bound {b_ms:.4g} ms ({b_by})")
         del args, got, want, cand, ref, cn, rn_t
         free_cuda(torch)
+    kernel_limits("repro_bertscore_kernel_info",
+                  {0: "bertscore_pr, 16-byte staging",
+                   1: "bertscore_pr, 4-byte staging (D % 4 != 0)"})
     return out
 
 
@@ -782,7 +862,9 @@ def bootstrap_means_cases(torch) -> list[dict]:
         err, ratio = rowwise(torch, got, ref, 2e-6, 1e-7)
         shape = f"n={n} n_boot={N_BOOT} seed=0"
         require(ratio <= 1.0, f"bootstrap_means {shape}: error/allowance {ratio:.3g}")
-        b_ms, b_by = bound(3 * n * N_BOOT, PEAK_F32, 4 * (n + N_BOOT))
+        # n * N_BOOT draws, an FMA and an add (2 instructions, 3 FLOPs) a draw
+        b_ms, b_by = draw_bound(torch, n * N_BOOT, 0, 2 * n * N_BOOT,
+                                3 * n * N_BOOT, 4 * (n + N_BOOT))
         entry = {
             "name": "bootstrap_means",
             "route": "cuda",
@@ -791,6 +873,9 @@ def bootstrap_means_cases(torch) -> list[dict]:
             "shape": shape,
             "max_abs_err": err,
             "ms": time_ms(torch, lambda: bootstrap_means(x, 0, n_boot=N_BOOT)),
+            # two device kernels a call: the tiles, then their sum
+            "device_ms": device_profile(
+                torch, lambda: bootstrap_means(x, 0, n_boot=N_BOOT), 2),
             "plain_ms": time_ms(torch, lambda: bootstrap_means_ref(x, N_BOOT, 0),
                                 iters=1 if n > 100_000 else 3, warmup=1),
             "library_ms": None,
@@ -799,13 +884,16 @@ def bootstrap_means_cases(torch) -> list[dict]:
         }
         out.append(entry)
         log(f"bootstrap_means {shape}: err {err:.3g} (ratio {ratio:.3g}) "
-            f"{entry['ms']:.4g} ms, plain {entry['plain_ms']:.4g} ms, "
-            f"bound {b_ms:.4g} ms ({b_by})")
+            f"{entry['ms']:.4g} ms (device {entry['device_ms']:.4g}), plain "
+            f"{entry['plain_ms']:.4g} ms, bound {b_ms:.4g} ms ({b_by}), "
+            f"{b_ms / entry['device_ms']:.0%} of it")
+    kernel_limits("repro_bootstrap_kernel_info",
+                  {m: f"bootstrap_partials, {m} column(s)" for m in range(1, 9)})
     return out
 
 
 def kernel_phase(torch, fs) -> list[dict]:
-    from repro_torch.core import StatisticsConfig
+    from repro_torch.core import StatisticsConfig, StreamingConfig
 
     seed = StatisticsConfig().seed
     return [
@@ -820,6 +908,10 @@ def kernel_phase(torch, fs) -> list[dict]:
                        plain_iters=3),
         # a chunk of a task with 13 metric configs: two column groups
         bootstrap_case(torch, CHUNK, 13, N_BOOT, (0, CHUNK), seed, plain_iters=20),
+        # the default streaming chunk (StreamingConfig.max_memory_rows) with
+        # phase 5's seven metrics
+        bootstrap_case(torch, StreamingConfig().max_memory_rows, len(METRICS),
+                       N_BOOT, (0,), seed, plain_iters=5),
         *ssd_cases(torch, fs),
         *bertscore_cases(torch),
         *bootstrap_means_cases(torch),

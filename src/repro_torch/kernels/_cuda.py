@@ -60,12 +60,14 @@ SIGNATURES = {
     "repro_quant_paged_kernel_info": (_I, _IP, _IP, _IP, _IP),
     "repro_quant_paged_span": (),
     "repro_bootstrap_partials": (
-        _P, _I, _I, _I, _I, _U, _U, _P, _P, _P, _P, _P,
+        _P, _I, _I, _I, _I, _U, _U, _P, _I64, _P, _I64, _P, _P, _P,
     ),
+    "repro_bootstrap_partials_geometry": (_IP, _IP, _IP, _IP),
     "repro_bootstrap_tile_rows": (),
-    "repro_bootstrap_tile_cols": (),
+    "repro_bootstrap_kernel_info": (_I, _IP, _IP, _IP, _IP),
     "repro_bootstrap_means": (_P, _I, _I, _U, _P, _P, _P, _P),
     "repro_bertscore_pr": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
+    "repro_bertscore_kernel_info": (_I, _IP, _IP, _IP, _IP),
     "repro_ssd_bf16": (
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I64P, _P,
         _I64, _P,

@@ -20,7 +20,11 @@ kernels 2 and 3 (one span-split design) are held at the span's edge
 lengths: a sequence alone against among 16, repeatable, independent of
 the cache length beyond the sequence's, kernel 3 bit-equal to kernel 2 at
 page sizes 8, 16 and 64, the span constant agreeing with the wrapper, and
-no spill.  Every case carries the ``gpu``
+no spill.  The bootstrap partials (kernel 6) are also held at the
+default streaming chunk of 1,024 rows with seven metrics and past 64
+tiles of 64 rows, and BERTScore (kernel 7) at width 1,024 with 512 tokens
+a side and at width 37 (its 4-byte staging); both repeat bit for bit and
+spill nowhere.  Every case carries the ``gpu``
 marker and skips where there is no CUDA device.  The file imports no JAX,
 so it runs on a machine with the card and no JAX:
 
@@ -140,7 +144,11 @@ def test_decode_kernel_refuses_a_cache_that_is_not_f32(cuda):
 @pytest.mark.parametrize(
     "n,m,start",
     [(1, 1, 0), (1000, 2, 5), (3000, 4, 2**32 - 1500), (2000, 13, 77),
-     (1500, 8, 3), (700, 9, 0)],
+     (1500, 8, 3), (700, 9, 0),
+     # the default streaming chunk with phase 5's seven metrics; a main-path
+     # chunk of 16 at its offset; past 64 tiles of 64 rows, where a row
+     # block takes tiles k, k + 64, ..., with the counter wrapping
+     (1024, 7, 0), (16, 2, 48), (10_000, 3, 2**32 - 5_000)],
 )
 def test_bootstrap_kernel_matches_plain_version(cuda, n, m, start):
     gen = torch.Generator(device=cuda).manual_seed(n)
@@ -337,12 +345,13 @@ def _bert_case(cuda, b, lc, lr, d, seed):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [64, 256])
-@pytest.mark.parametrize("lc,lr", [(64, 64), (64, 37), (5, 64)])
+@pytest.mark.parametrize("d", [64, 256, 1024, 37])
+@pytest.mark.parametrize("lc,lr", [(64, 64), (64, 37), (5, 64), (512, 512)])
 @pytest.mark.parametrize("b", [1, 16, 1024])
 def test_bertscore_kernel_matches_plain_version(cuda, b, lc, lr, d):
-    """P and R within 1e-5 of the value plus 1e-6 (rsqrt-normalised f32
-    FMA in one order against a normalised einsum); F1 is the epilogue on
+    """P and R within 1e-5 of the value plus 1e-6 (3xTF32 products, ~2^-21
+    of the value each, scaled by the rows' inverse norms, against a
+    normalised einsum); D = 37 takes the 4-byte staging; F1 is the epilogue on
     the kernel's P and R (ill-conditioned where p + r nears 0, so not held
     to the plain version's); the -1e30 sentinel and F1's -0.0 and ~2e9 at
     the edges, as the plain version gives."""
@@ -382,6 +391,36 @@ def test_bertscore_kernel_is_batch_invariant_and_takes_its_limits(cuda):
         bertscore_pr(cand.double(), ref, cm, rm)
     with pytest.raises(ValueError, match="disagree"):
         bertscore_pr(cand, ref[:, :, :8].contiguous(), cm, rm)
+
+
+@pytest.mark.gpu
+def test_bootstrap_and_bertscore_kernels_repeat_and_do_not_spill(cuda):
+    """Kernels 6 and 7: a second call gives the same bits (no atomics on
+    values; the arrival counters are left at zero), and no instantiation
+    spills to local memory (partials for 1..8 columns, BERTScore with 16-
+    and 4-byte staging)."""
+    import ctypes
+
+    from repro_torch.kernels import _cuda
+
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    for n, m in ((1024, 7), (16, 2), (10_000, 3)):
+        x = torch.rand((n, m), generator=gen, device=cuda)
+        x[::5, -1] = float("nan")
+        first = bootstrap_partials(x, 3, 2**32 - 100, n_boot=1000)
+        again = bootstrap_partials(x, 3, 2**32 - 100, n_boot=1000)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+    for d in (256, 37):
+        args = _bert_case(cuda, 64, 64, 37, d, 9)
+        first, again = bertscore_pr(*args), bertscore_pr(*args)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+    lib = _cuda.library()
+    for fn, whichs in (("repro_bootstrap_kernel_info", range(1, 9)),
+                       ("repro_bertscore_kernel_info", range(2))):
+        for which in whichs:
+            vals = [ctypes.c_int() for _ in range(4)]
+            assert getattr(lib, fn)(which, *(ctypes.byref(v) for v in vals)) == 0
+            assert vals[1].value == 0 and vals[3].value >= 1, (fn, which)
 
 
 @pytest.mark.gpu
