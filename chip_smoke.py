@@ -49,6 +49,19 @@ kept), and streaming under ``ci_method="analytical"``, which must launch no
 bootstrap partials; then the statistics API ``bootstrap_ci`` over a
 million scores at B = 1,000 through the bootstrap-means kernel, its means
 held against the plain version and its width against the t-interval's.
+Phase 6 runs the comparison path in one session holding full-width
+qwen3-4b and mamba2-2.7b: ``run_suite`` over both models x an in-memory
+task and a streaming one (``backend="device"``), serially and then with
+``parallel_jobs=2`` (every job's texts, scores, metrics, streaming state
+and comparisons equal to the serial run's); the significance matrix
+(every shared metric compared, p-values in [0, 1], the in-memory
+recommendations and tests equal to ``recommend_test`` and
+``compare_scores`` rerun on the CPU from the card's scores, the streaming
+test the paired bootstrap over kernel 6's replicates); the response cache
+(a second run with no engine call, ``CacheMiss`` under ``REPLAY``);
+``rescore_stages`` with BERTScore (no engine call, kernel 7 launched);
+single-flight over 64 rows of 16 prompts (16 engine calls, 48 coalesced);
+kernels 1, 2, 6, 7 and 8 must launch in the phase.
 
 Standard output: the card's name and power limit first, then log lines,
 then one ``{"kernels": [...]}`` line, and last the
@@ -59,6 +72,7 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -1601,6 +1615,369 @@ def mamba_phase(torch, fs) -> dict[str, int]:
     return launches
 
 
+# -- phase 6: the comparison path -------------------------------------------------
+
+#: phase 6's kernels: prefill and decode for qwen3-4b, the SSD scan for
+#: mamba2-2.7b, the bootstrap partials of the streaming task, BERTScore in
+#: the rescore
+SUITE_KERNELS = ("flash_attention", "decode_attention", "bootstrap_partials",
+                 "bertscore_pr", "ssd")
+SUITE_MODELS = ("qwen3-4b", "mamba2-2.7b")
+SUITE_METRICS = (("exact_match", "lexical"), ("token_f1", "lexical"),
+                 ("embedding_similarity", "semantic"))
+#: the single-flight gate: N_ROWS rows cycling over this many prompts
+DISTINCT = 16
+
+
+def zero_counts() -> None:
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict[str, int]:
+    return {name: fn.launches for name, fn in counters().items()}
+
+
+def same_result(torch, a, b) -> bool:
+    """Two runs of one job gave the same texts, scores, metrics and
+    streaming state, bit for bit."""
+    import numpy as np
+
+    if a.responses != b.responses or set(a.scores) != set(b.scores):
+        return False
+    if any(not np.array_equal(a.scores[k], b.scores[k]) for k in a.scores):
+        return False
+    if {k: (v.value, v.ci, v.n) for k, v in a.metrics.items()} != \
+            {k: (v.value, v.ci, v.n) for k, v in b.metrics.items()}:
+        return False
+    sa, sb = a.stream_stats, b.stream_stats
+    if (sa is None) != (sb is None):
+        return False
+    if sa is not None:
+        if {k: (c.n, c.total, c.total_sq) for k, c in sa.accs.items()} != \
+                {k: (c.n, c.total, c.total_sq) for k, c in sb.accs.items()}:
+            return False
+        if not (np.array_equal(sa.engine.sum_wx, sb.engine.sum_wx)
+                and np.array_equal(sa.engine.sum_w, sb.engine.sum_w)):
+            return False
+    return True
+
+
+class JobClock:
+    """Middleware: each task's (model, start, end) on the host clock, so a
+    parallel suite can show how long both engines' jobs ran at once."""
+
+    def __init__(self):
+        self.open: dict[int, float] = {}
+        self.spans: list[tuple[str, str, float, float]] = []
+
+    def on_task_start(self, task, rows, session) -> None:
+        import threading
+
+        self.open[threading.get_ident()] = time.perf_counter()
+
+    def on_stage_start(self, stage, art, session) -> None:
+        pass
+
+    def on_stage_end(self, stage, art, session) -> None:
+        pass
+
+    def on_chunk_end(self, chunk_index, state, session) -> None:
+        pass
+
+    def on_task_end(self, task, result, session) -> None:
+        import threading
+
+        t0 = self.open.pop(threading.get_ident())
+        self.spans.append((task.model.model_name, task.task_id, t0,
+                           time.perf_counter()))
+
+    def _union(self, model: str) -> list[tuple[float, float]]:
+        out: list[list[float]] = []
+        for s, e in sorted((s, e) for m, _, s, e in self.spans if m == model):
+            if out and s <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], e)
+            else:
+                out.append([s, e])
+        return [tuple(x) for x in out]
+
+    def overlap_s(self, a: str, b: str) -> float:
+        """Seconds during which some job of model ``a`` and some job of
+        model ``b`` were running."""
+        return sum(max(0.0, min(e1, e2) - max(s1, s2))
+                   for s1, e1 in self._union(a) for s2, e2 in self._union(b))
+
+
+def cmp_key(c) -> tuple:
+    return (c.test.test, c.test.statistic, c.test.p_value, c.diff, c.diff_ci,
+            c.effect.value, c.recommendation.test, c.n)
+
+
+def suite_gates(torch, suite, res) -> None:
+    """The significance matrix: a Comparison for every metric the models
+    share, p-values in [0, 1]; in memory the recommendation is
+    ``recommend_test``'s on the card's own score vectors, and
+    ``compare_scores`` rerun on the CPU from those scores gives the same
+    test, statistic, p-value and effect bit for bit (the interval of the
+    difference is the card's ``compute_ci``, logged beside the CPU's); in
+    streaming the test is the paired bootstrap over kernel 6's replicates."""
+    import numpy as np
+
+    from repro_torch.core import compare_scores
+    from repro_torch.stats.select import recommend_test
+
+    pair = tuple(SUITE_MODELS)
+    names = {m for m, _ in SUITE_METRICS}
+    for task_id in res.tasks:
+        cells = res.comparisons[task_id]
+        require(set(cells) == names, f"{task_id}: comparisons for {sorted(cells)}")
+        for metric, by_pair in cells.items():
+            c = by_pair[pair]
+            require(0.0 <= c.test.p_value <= 1.0 and math.isfinite(c.test.statistic),
+                    f"{task_id} {metric}: p {c.test.p_value}, statistic "
+                    f"{c.test.statistic}")
+            log(f"phase 6 {task_id} {c.summary()}")
+            if task_id.endswith("stream"):
+                eng = res.results[(pair[0], task_id)].stream_stats.engine
+                require(c.test.test == "paired_bootstrap"
+                        and c.test.detail["backend"] == "device"
+                        and eng.stream_id() == "device-kernel",
+                        f"{task_id} {metric}: {c.test.test} from "
+                        f"{c.test.detail} ({eng.stream_id()})")
+                continue
+            a, b = (res.results[(m, task_id)].scores[metric] for m in pair)
+            keep = ~(np.isnan(a) | np.isnan(b))
+            rec = recommend_test(a[keep], b[keep])
+            require((rec.test, rec.reason) == (c.recommendation.test,
+                                               c.recommendation.reason),
+                    f"{task_id} {metric}: recommended {c.recommendation} on the "
+                    f"card, {rec} from its scores")
+            st = suite._tasks[0][0].statistics
+            cpu = compare_scores(metric, a, b, confidence=st.confidence_level,
+                                 n_boot=st.bootstrap_iterations, seed=st.seed,
+                                 device="cpu")
+            require((cpu.test.test, cpu.test.statistic, cpu.test.p_value,
+                     cpu.effect.value, cpu.diff)
+                    == (c.test.test, c.test.statistic, c.test.p_value,
+                        c.effect.value, c.diff),
+                    f"{task_id} {metric}: the CPU's {cpu.test} / {cpu.effect} "
+                    f"against the card's {c.test} / {c.effect}")
+            log(f"phase 6 {task_id} {metric}: {c.test.test} p={c.test.p_value!r} "
+                f"equals the CPU's bit for bit; diff CI on the card "
+                f"{c.diff_ci!r}, on the CPU {cpu.diff_ci!r}")
+
+
+def suite_phase(torch) -> dict[str, int]:
+    """Phase 6: one session holding full-width qwen3-4b and mamba2-2.7b
+    (random bf16 weights from seed 0) on the card; ``run_suite`` over both
+    models x an in-memory task and a streaming task (chunks of 16,
+    ``backend="device"``, percentile) with two lexical metrics and the
+    cosine metric; the same suite with ``parallel_jobs=2`` against the
+    serial run; the response cache (a second run with no engine call, then
+    ``CacheMiss`` under ``REPLAY``); ``rescore_stages`` with BERTScore; and
+    single-flight over repeated prompts.  Returns the phase's launches."""
+    import tempfile
+    import threading
+
+    from repro_torch.core import (
+        CacheMiss,
+        CachePolicy,
+        EngineModelConfig,
+        EvalSession,
+        EvalSuite,
+        EvalTask,
+        InferenceConfig,
+        MetricConfig,
+        StatisticsConfig,
+        rescore_stages,
+    )
+    from repro_torch.data import iter_qa_examples
+
+    t_phase = time.perf_counter()
+    models = [EngineModelConfig(provider="torch_local", model_name=name,
+                                reduced=False, seed=0, max_tokens=MAX_TOKENS)
+              for name in SUITE_MODELS]
+    metrics = tuple(MetricConfig(m, type=t) for m, t in SUITE_METRICS)
+    mem = EvalTask("suite-mem", model=models[0], metrics=metrics,
+                   statistics=StatisticsConfig(bootstrap_iterations=N_BOOT))
+    stream = EvalTask(
+        "suite-stream", model=models[0], metrics=metrics,
+        statistics=StatisticsConfig(bootstrap_iterations=N_BOOT,
+                                    ci_method="percentile", backend="device"),
+    ).with_streaming(max_memory_rows=CHUNK)
+    rows = list(iter_qa_examples(N_ROWS, seed=0))
+    suite = (EvalSuite("phase-6").add_task(mem, rows)
+             .add_task(stream, lambda: iter_qa_examples(N_ROWS, seed=0))
+             .sweep_models(models))
+
+    # a thread other than the main one launches on the same stream, so the
+    # kernels' per-(device, stream) workspaces serve the batcher threads
+    main_stream = torch.cuda.current_stream().cuda_stream
+    seen: list[int] = []
+    t = threading.Thread(target=lambda: seen.append(torch.cuda.current_stream().cuda_stream))
+    t.start()
+    t.join()
+    require(seen == [main_stream], f"a new thread's stream {seen} is not the main "
+            f"thread's {main_stream}")
+
+    torch.cuda.reset_peak_memory_stats()
+    engine_kwargs = {"n_slots": N_SLOTS, "max_len": MAX_LEN}
+    clock = JobClock()
+    with EvalSession(device="cuda", engine_kwargs=engine_kwargs,
+                     middleware=[clock]) as session:
+        t0 = time.perf_counter()
+        for m in models:
+            session.engine_for(m, mem.inference)
+        torch.cuda.synchronize()
+        log(f"phase 6: both engines on the card in {time.perf_counter() - t0:.3f} s, "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+        zero_counts()
+        phase_launches = read_counts()
+
+        t0 = time.perf_counter()
+        serial = session.run_suite(suite)
+        torch.cuda.synchronize()
+        serial_s = time.perf_counter() - t0
+        launches = read_counts()
+        mem_serial_s = sum(e - s for _, task_id, s, e in clock.spans
+                           if task_id == mem.task_id)
+        log(f"phase 6 suite (2 models x 2 tasks, serial): wall {serial_s:.3f} s, "
+            f"launches {launches}, "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB peak allocated")
+        for name in ("flash_attention", "decode_attention", "bootstrap_partials", "ssd"):
+            require(launches[name] > 0, f"phase 6 suite: {name} was not launched")
+        for (model, task_id), r in serial.results.items():
+            require(r.failures == [] and r.engine_stats["calls"] == N_ROWS,
+                    f"{model} {task_id}: failures {r.failures[:3]}, "
+                    f"engine stats {r.engine_stats}")
+            for name, mv in r.metrics.items():
+                require(mv.n == N_ROWS and math.isfinite(mv.value),
+                        f"{model} {task_id} {name}: {mv}")
+            log(f"phase 6 {model} {task_id}: throughput {r.throughput_per_min:.1f} "
+                f"examples/min (infer {r.timing['infer_s']:.3f} s)")
+        t0 = time.perf_counter()
+        suite_gates(torch, suite, serial)
+        log(f"phase 6 significance gates: {time.perf_counter() - t0:.3f} s")
+
+        # in parallel: suite.jobs() groups the jobs by model, so with two
+        # workers a model's two tasks run together (their identical prompts
+        # share flights in its service); the in-memory task alone over both
+        # models, two workers, has both engines' batcher threads decoding at
+        # once
+        mem_suite = EvalSuite("phase-6-mem").add_task(mem, rows).sweep_models(models)
+        for label, run_suite, engines_at_once in (
+                ("suite, parallel_jobs=2", suite, False),
+                ("in-memory task over both models, parallel_jobs=2", mem_suite, True)):
+            before = read_counts()
+            clock.spans.clear()
+            t0 = time.perf_counter()
+            parallel = session.run_suite(run_suite, parallel_jobs=2)
+            torch.cuda.synchronize()
+            parallel_s = time.perf_counter() - t0
+            par_launches = {k: v - before[k] for k, v in read_counts().items()}
+            both = clock.overlap_s(*SUITE_MODELS)
+            log(f"phase 6 {label}: wall {parallel_s:.3f} s (serially: the suite "
+                f"{serial_s:.3f} s, its in-memory jobs {mem_serial_s:.3f} s); the "
+                f"two engines' jobs ran at once for {both:.3f} s; launches "
+                f"{par_launches}")
+            if engines_at_once:
+                require(both > 0.0, f"{label}: the two engines never ran at once")
+            t0 = time.perf_counter()
+            for key, q in parallel.results.items():
+                require(same_result(torch, serial.results[key], q),
+                        f"{key}: {label} differs from the serial suite")
+                log(f"phase 6 {key[0]} {key[1]} ({label}): throughput "
+                    f"{q.throughput_per_min:.1f} examples/min, engine calls "
+                    f"{q.engine_stats['calls']}, coalesced "
+                    f"{q.engine_stats['coalesced']}")
+            for task_id, cells in parallel.comparisons.items():
+                for metric, by_pair in cells.items():
+                    for p, c in by_pair.items():
+                        require(cmp_key(c) == cmp_key(serial.comparisons[task_id][metric][p]),
+                                f"{task_id} {metric}: {label} comparison differs")
+            log(f"phase 6 {label} == serial (texts, scores, metrics, streaming "
+                f"state, comparisons) checked in {time.perf_counter() - t0:.3f} s")
+
+        # the response cache: a second run replays every answer
+        with tempfile.TemporaryDirectory() as cache_dir:
+            cached = dataclasses.replace(
+                mem, task_id="suite-cache",
+                inference=InferenceConfig(cache_dir=cache_dir))
+            t0 = time.perf_counter()
+            first = session.run_task(rows, cached)
+            first_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            again = session.run_task(rows, cached)
+            again_s = time.perf_counter() - t0
+            require(first.engine_stats["calls"] == N_ROWS
+                    and first.cache_stats["writes"] == N_ROWS,
+                    f"cache: first run {first.engine_stats} {first.cache_stats}")
+            require(again.engine_stats["calls"] == 0
+                    and again.cache_stats["hits"] == N_ROWS
+                    and again.cache_stats["misses"] == 0,
+                    f"cache: second run {again.engine_stats} {again.cache_stats}")
+            require(same_result(torch, first, again)
+                    and first.responses == serial.results[(SUITE_MODELS[0], "suite-mem")].responses,
+                    "cache: the replayed run differs from the first")
+            replay = dataclasses.replace(cached, inference=InferenceConfig(
+                cache_dir=cache_dir, cache_policy=CachePolicy.REPLAY))
+            try:
+                session.run_task(rows + [{"question": "a prompt never cached?",
+                                          "reference": "none"}], replay)
+                raise CheckFailed("REPLAY with a new prompt did not raise CacheMiss")
+            except CacheMiss as e:
+                log(f"phase 6 cache: REPLAY of a new prompt raised CacheMiss ({e})")
+        log(f"phase 6 cache: first run {first_s:.3f} s ({N_ROWS} engine calls), "
+            f"replay {again_s:.3f} s (0 engine calls, {N_ROWS} hits)")
+
+        # rescoring: new metrics over the cached answers, no engine call
+        calls = session.accounting.engine_calls
+        before = read_counts()
+        rescored_task = mem.with_metrics(*metrics, MetricConfig("bertscore", type="semantic"))
+        t0 = time.perf_counter()
+        rescored = session.run_task(rows, rescored_task,
+                                    stages=rescore_stages(first.responses))
+        torch.cuda.synchronize()
+        rescore_s = time.perf_counter() - t0
+        bert = read_counts()["bertscore_pr"] - before["bertscore_pr"]
+        require(session.accounting.engine_calls == calls
+                and rescored.engine_stats["calls"] == 0,
+                f"rescore made {session.accounting.engine_calls - calls} engine calls")
+        require(bert > 0, "rescore: bertscore_pr was not launched")
+        for name, mv in first.metrics.items():
+            got = rescored.metrics[name]
+            require((got.value, got.ci) == (mv.value, mv.ci),
+                    f"rescore: {name} {got} against {mv}")
+        require(math.isfinite(rescored.metrics["bertscore"].value), "rescore: bertscore")
+        log(f"phase 6 rescore: {rescore_s:.3f} s, 0 engine calls, {bert} bertscore_pr "
+            f"launch(es), bertscore {rescored.metrics['bertscore']}")
+
+        # single-flight: 64 rows over 16 prompts
+        dups = [dict(rows[i % DISTINCT]) for i in range(N_ROWS)]
+        t0 = time.perf_counter()
+        flight = session.run_task(dups, dataclasses.replace(mem, task_id="suite-dups"))
+        flight_s = time.perf_counter() - t0
+        want = {"calls": DISTINCT, "total_cost": 0.0,
+                "coalesced": N_ROWS - DISTINCT, "pool": {}}
+        require(flight.engine_stats == want,
+                f"single-flight: {flight.engine_stats}, not {want}")
+        log(f"phase 6 single-flight: {N_ROWS} rows over {DISTINCT} prompts in "
+            f"{flight_s:.3f} s: {DISTINCT} engine calls, {N_ROWS - DISTINCT} coalesced")
+        serving = session.serving_stats()
+        log(f"phase 6 services: " + "; ".join(
+            f"{s['engine']} submitted {s['submitted']} dispatched {s['dispatched']} "
+            f"coalesced {s['coalesced']}" for s in serving))
+        log(f"phase 6 accounting: {session.accounting.as_dict()}")
+
+    phase_launches = read_counts()
+    log(f"phase 6 launches: {phase_launches}; "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB peak allocated")
+    for name in SUITE_KERNELS:
+        require(phase_launches[name] > 0, f"phase 6: {name} was not launched")
+    log(f"phase 6 took {time.perf_counter() - t_phase:.1f} s")
+    return phase_launches
+
+
 def main() -> int:
     import torch
 
@@ -1630,14 +2007,20 @@ def main() -> int:
     log(f"kernel library ready in {time.perf_counter() - t0:.1f} s")
     t_start = time.perf_counter()
 
+    def timed(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        free_cuda(torch)
+        log(f"{label} took {time.perf_counter() - t0:.1f} s")
+        return out
+
     try:
         fs = FewShot()
-        entries = kernel_phase(torch, fs)
-        contiguous, metrics = main_path_phase(torch)
-        free_cuda(torch)
-        paged = paged_phase(torch, fs)
-        free_cuda(torch)
-        mamba = mamba_phase(torch, fs)
+        entries = timed("phase 1", kernel_phase, torch, fs)
+        contiguous, metrics = timed("phases 2 and 5", main_path_phase, torch)
+        paged = timed("phase 3", paged_phase, torch, fs)
+        mamba = timed("phase 4", mamba_phase, torch, fs)
+        suite_phase(torch)
     except CheckFailed as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -1660,7 +2043,7 @@ def main() -> int:
                 print(f"chip_smoke: FAIL: {e['name']} {key} = {e[key]}",
                       file=sys.stderr)
                 return 1
-    log(f"phases 1-5 took {time.perf_counter() - t_start:.1f} s after the build")
+    log(f"phases 1-6 took {time.perf_counter() - t_start:.1f} s after the build")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

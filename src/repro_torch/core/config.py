@@ -1,10 +1,22 @@
 """Evaluation-task configuration: the parts of ``repro/core/config.py`` that
-the port's in-memory and streaming paths read."""
+the port's in-memory and streaming paths, its inference service, response
+cache and suites read.  A task serializes to JSON (``EvalTask.to_json``)."""
 
 from __future__ import annotations
 
 import dataclasses
+import enum
+import hashlib
+import json
 from typing import Any
+
+
+class CachePolicy(str, enum.Enum):
+    ENABLED = "enabled"      # lookup before inference, cache new responses
+    READ_ONLY = "read_only"  # lookup only
+    WRITE_ONLY = "write_only"  # cache warming: always infer, always cache
+    REPLAY = "replay"        # strict: error on cache miss (zero engine calls)
+    DISABLED = "disabled"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,8 +48,13 @@ class StatisticsConfig:
     confidence_level: float = 0.95
     bootstrap_iterations: int = 1000
     ci_method: str = "bca"            # percentile | bca | analytical
+    significance_threshold: float = 0.05
     seed: int = 0
-    backend: str = "device"           # the Poisson-bootstrap partials kernel
+    #: streaming replicate state: "numpy" = host Philox(seed, chunk_start)
+    #: weight blocks (the reference's default); "device" = the
+    #: bootstrap-partials kernel, one launch a chunk ("pallas" names the same
+    #: weight stream).  The two draw different weights.
+    backend: str = "numpy"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,10 +72,21 @@ class StreamingConfig:
 
 @dataclasses.dataclass(frozen=True)
 class InferenceConfig:
-    """How the local engine serves the task (the serving knobs of
-    ``repro/core/config.py:InferenceConfig``), with the reference's
-    defaults."""
+    """How the task's prompts reach the engine (the fields of
+    ``repro/core/config.py:InferenceConfig`` that the port reads), with the
+    reference's defaults."""
 
+    #: prompts per shard: the unit of per-shard cache and call accounting
+    batch_size: int = 16
+    cache_policy: CachePolicy = CachePolicy.ENABLED
+    #: "" = no response cache
+    cache_dir: str = ""
+    #: outstanding requests the service queue holds before submit blocks
+    service_queue_depth: int = 256
+    #: single-flight coalescing of identical in-flight cache keys
+    coalesce: bool = True
+    #: batch-formation window of a cold batcher loop
+    max_batch_wait_ms: float = 2.0
     #: at most this many prompts prefilled per batcher step (0 = unlimited)
     max_prefills_per_step: int = 0
     #: 0 = contiguous per-slot KV cache; > 0 = page pool with this many
@@ -87,6 +115,10 @@ class EvalTask:
     data: DataConfig = DataConfig()
     streaming: StreamingConfig = StreamingConfig()
 
+    def with_model(self, model: EngineModelConfig) -> "EvalTask":
+        """Rebind the task to another model (suite model sweeps)."""
+        return dataclasses.replace(self, model=model)
+
     def with_streaming(self, **kw: Any) -> "EvalTask":
         """Enable (or reconfigure) streaming execution; unspecified fields
         keep their current values."""
@@ -94,4 +126,35 @@ class EvalTask:
         return dataclasses.replace(
             self, streaming=dataclasses.replace(self.streaming, **kw)
         )
+
+    def with_metrics(self, *metrics: MetricConfig) -> "EvalTask":
+        """Rebind the metric set (cache-replay metric iteration)."""
+        return dataclasses.replace(self, metrics=tuple(metrics))
+
+    def to_json(self) -> str:
+        def default(o: Any):
+            if isinstance(o, enum.Enum):
+                return o.value
+            raise TypeError(type(o))
+
+        return json.dumps(dataclasses.asdict(self), default=default, sort_keys=True)
+
+    def fingerprint(self) -> str:
+        return hashlib.sha256(self.to_json().encode()).hexdigest()[:16]
+
+
+def cache_key(
+    prompt: str,
+    model_name: str,
+    provider: str,
+    temperature: float,
+    max_tokens: int,
+) -> str:
+    """Content-addressable key: SHA256(prompt||model||provider||T||max_tokens).
+    The provider is part of it, so the port's ``"torch_local"`` answers and
+    the JAX engine's never replay for each other."""
+    payload = "\x1f".join(
+        [prompt, model_name, provider, f"{temperature:.6g}", str(max_tokens)]
+    )
+    return hashlib.sha256(payload.encode()).hexdigest()
 

@@ -1,12 +1,16 @@
 """The port's local inference engine (counterpart of ``LocalJaxEngine`` in
 ``repro/core/engines.py``): serves a model through the continuous batcher
 on one device, with the reference's request/response types and its
-slot-streaming protocol."""
+slot-streaming protocol; and :class:`EngineRegistry`, one initialized
+engine per model and serving arguments."""
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import threading
 import time
+from typing import Any
 
 import torch
 
@@ -39,6 +43,7 @@ class InferenceResponse:
     input_tokens: int
     output_tokens: int
     latency_ms: float
+    cost_usd: float = 0.0
     error: str | None = None
 
 
@@ -59,7 +64,12 @@ class TorchLocalEngine:
     pressure preempts; ``kv_cache_dtype="int8"`` quantizes the pages.  Paging
     is for the attention families: a Mamba2 model raises ``ValueError`` at
     ``initialize``, as the reference's batcher does.
+
+    One lock serializes every use of the batcher, so the service's batcher
+    thread and a direct ``infer_batch`` caller may share the engine.
     """
+
+    supports_streaming = True
 
     def __init__(
         self,
@@ -94,31 +104,34 @@ class TorchLocalEngine:
         self.batcher: ContinuousBatcher | None = None
         self._tokenizer: HashTokenizer | None = None
         self._next_id = 0
+        self._lock = threading.RLock()
 
     def initialize(self) -> None:
-        if self.batcher is not None:
-            return
-        cfg = get_config(self.model_cfg.model_name)
-        if self.model_cfg.reduced:
-            cfg = cfg.reduced()
-        self._tokenizer = HashTokenizer(cfg.vocab_size)
-        params = self._params
-        if params is None:
-            params = init_params(cfg, self.model_cfg.seed, device=self.device)
-        elif params["embed"].device != self.device:
-            raise ValueError(
-                f"params are on {params['embed'].device}, the engine on {self.device}"
+        with self._lock:
+            if self.batcher is not None:
+                return
+            cfg = get_config(self.model_cfg.model_name)
+            if self.model_cfg.reduced:
+                cfg = cfg.reduced()
+            self._tokenizer = HashTokenizer(cfg.vocab_size)
+            params = self._params
+            if params is None:
+                params = init_params(cfg, self.model_cfg.seed, device=self.device)
+            elif params["embed"].device != self.device:
+                raise ValueError(
+                    f"params are on {params['embed'].device}, the engine on {self.device}"
+                )
+            self.batcher = ContinuousBatcher(
+                build_model(cfg), cfg, params,
+                n_slots=self.n_slots, max_len=self.max_len,
+                eos_id=self._tokenizer.eos_id,
+                max_prefills_per_step=self.max_prefills_per_step,
+                **self.paging,
             )
-        self.batcher = ContinuousBatcher(
-            build_model(cfg), cfg, params,
-            n_slots=self.n_slots, max_len=self.max_len,
-            eos_id=self._tokenizer.eos_id,
-            max_prefills_per_step=self.max_prefills_per_step,
-            **self.paging,
-        )
 
     def shutdown(self) -> None:
-        self.batcher = None
+        with self._lock:
+            self.batcher = None
 
     def _submit(self, request: InferenceRequest) -> int:
         steps_lib.check_sampling(request.temperature)
@@ -148,6 +161,12 @@ class TorchLocalEngine:
     def infer_batch(
         self, requests: list[InferenceRequest]
     ) -> list[InferenceResponse]:
+        with self._lock:
+            return self._infer_batch_locked(requests)
+
+    def _infer_batch_locked(
+        self, requests: list[InferenceRequest]
+    ) -> list[InferenceResponse]:
         t0 = time.monotonic()
         ids = {self._submit(r): i for i, r in enumerate(requests)}
         completions = self.batcher.run_to_completion()
@@ -171,24 +190,72 @@ class TorchLocalEngine:
     # -- slot streaming --------------------------------------------------------
 
     def stream_submit(self, request: InferenceRequest) -> int:
-        return self._submit(request)
+        with self._lock:
+            return self._submit(request)
 
     def stream_pump(self) -> list[tuple[int, InferenceResponse]]:
         """Advance decode by one step (admitting queued prompts into free
         slots first) and return the requests that finished."""
-        b = self.batcher
-        if b is None:
-            return []
-        if b.queue or b.slots_busy:
-            b.step()
-        return [(c.request_id, self._response(c)) for c in b.drain_completions()]
+        with self._lock:
+            b = self.batcher
+            if b is None:
+                return []
+            if b.queue or b.slots_busy:
+                b.step()
+            return [(c.request_id, self._response(c)) for c in b.drain_completions()]
 
     def stream_pending(self) -> bool:
-        b = self.batcher
-        return bool(b and (b.queue or b.slots_busy or b.completions))
+        with self._lock:
+            b = self.batcher
+            return bool(b and (b.queue or b.slots_busy or b.completions))
 
     def stream_cancel(self, rid: int) -> bool:
-        return bool(self.batcher) and self.batcher.cancel(rid)
+        with self._lock:
+            return bool(self.batcher) and self.batcher.cancel(rid)
 
     def serving_stats(self) -> dict:
-        return {} if self.batcher is None else self.batcher.stats.as_dict()
+        with self._lock:
+            return {} if self.batcher is None else self.batcher.stats.as_dict()
+
+
+def _kwargs_key(kw: dict) -> str:
+    """The registry's key for an engine's arguments: JSON of the plain
+    values, and the identity of any other (a ``params`` dict of tensors is
+    the same weights only if it is the same object)."""
+    def plain(v: Any) -> Any:
+        if v is None or isinstance(v, (bool, int, float, str)):
+            return v
+        if isinstance(v, torch.device):
+            return str(v)
+        return f"<id {id(v)}>"
+
+    return json.dumps({k: plain(v) for k, v in kw.items()}, sort_keys=True)
+
+
+class EngineRegistry:
+    """One initialized engine per (:class:`EngineModelConfig`, engine
+    arguments), the reference's ``EngineRegistry``: a session amortizes an
+    engine's set-up across every task it runs.  Lookups from concurrent
+    jobs initialize an engine once."""
+
+    def __init__(self) -> None:
+        self._engines: dict[tuple[EngineModelConfig, str], TorchLocalEngine] = {}
+        self._lock = threading.Lock()
+
+    def get(self, model: EngineModelConfig, **kw: Any) -> TorchLocalEngine:
+        key = (model, _kwargs_key(kw))
+        with self._lock:
+            engine = self._engines.get(key)
+            if engine is None:
+                engine = TorchLocalEngine(model, **kw)
+                engine.initialize()
+                self._engines[key] = engine
+        return engine
+
+    def shutdown(self) -> None:
+        for engine in self._engines.values():
+            engine.shutdown()
+        self._engines.clear()
+
+    def __len__(self) -> int:
+        return len(self._engines)

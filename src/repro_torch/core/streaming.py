@@ -1,10 +1,19 @@
 """Serial streaming evaluation (``StreamingPipeline.run`` of
 ``repro/core/streaming.py``, without the spill manifest and without
-concurrent chunks): prepare, infer and score one chunk at a time, fold its
-scores into mergeable accumulators and, for the bootstrap interval methods,
-the device bootstrap engine, and drop it, so peak per-example state is one
-chunk.  ``EvalSession.run_task`` takes this path for a task with
-``streaming.enabled``."""
+concurrent chunks): prepare, infer and score one chunk at a time through
+the same stages as the in-memory path (so the inference service and the
+response cache serve streaming too), fold its scores into mergeable
+accumulators and, for the bootstrap interval methods, the task's bootstrap
+engine, and drop it, so peak per-example state is one chunk.
+``EvalSession.run_task`` takes this path for a task with
+``streaming.enabled``.
+
+The result keeps up to ``MAX_FAILURE_SAMPLE`` failures with their indices
+into the whole source, and sums the chunks' engine and cache stats.  Its
+``timing`` holds the chunks' summed stage seconds, the seconds spent
+folding chunks into the accumulators and the bootstrap engine
+(``partials_s``), and the final interval step (``stats_s``, as in the
+reference)."""
 
 from __future__ import annotations
 
@@ -30,6 +39,9 @@ from repro_torch.stats.streaming import (
     streaming_ci,
 )
 
+#: failures kept in the result (a full per-example list defeats O(chunk) memory)
+MAX_FAILURE_SAMPLE = 100
+
 
 class StreamingPipeline:
     def __init__(self, *, chunk_size: int = 1024):
@@ -45,25 +57,28 @@ class StreamingPipeline:
         names = [name for name, _ in resolve_metrics(task.metrics)]
         accs = {m: MetricAccumulator() for m in names}
         # the analytical interval comes straight from the moments; only the
-        # bootstrap methods pay for replicate state (one partials launch per
-        # chunk), as in the reference
+        # bootstrap methods pay for replicate state, as in the reference
         use_boot = stats_cfg.ci_method in ("percentile", "bca")
         engine = make_bootstrap_engine(
             stats_cfg.backend, stats_cfg.bootstrap_iterations, stats_cfg.seed,
             tuple(names), device=session.device,
         ) if use_boot else None
+        failures: list[dict] = []
         timing: dict[str, float] = {}
-        n_failures = n_examples = n_chunks = 0
+        engine_stats = {"calls": 0, "total_cost": 0.0, "coalesced": 0, "pool": {}}
+        cache_stats: dict = {}
+        n_failures = n_examples = n_chunks = max_resident = 0
         start = 0
-        for chunk in iter_chunks(source, self.chunk_size):
+        for ci, chunk in enumerate(iter_chunks(source, self.chunk_size)):
             n_chunks += 1
             n_examples += len(chunk)
+            max_resident = max(max_resident, len(chunk))
             art = EvalArtifact(rows=chunk, task=task)
+            chunk_timing: dict[str, float] = {}
             for stage in stages:
                 t0 = time.monotonic()
                 art = stage.run(art, session)
-                key = f"{stage.name}_s"
-                timing[key] = timing.get(key, 0.0) + time.monotonic() - t0
+                chunk_timing[f"{stage.name}_s"] = time.monotonic() - t0
             t0 = time.monotonic()
             for m in names:
                 accs[m].update(art.scores[m])
@@ -71,22 +86,49 @@ class StreamingPipeline:
                 chunk_engine = engine.spawn()
                 chunk_engine.update(art.scores, start)
                 engine.merge(chunk_engine)
-            timing["stats_s"] = timing.get("stats_s", 0.0) + time.monotonic() - t0
-            n_failures += len(art.failures)
+            chunk_timing["partials_s"] = time.monotonic() - t0
+            for key, dt in chunk_timing.items():
+                timing[key] = timing.get(key, 0.0) + dt
+            chunk_failures = [{**f, "index": f["index"] + start} for f in art.failures]
+            state = {
+                "start": start,
+                "n_rows": len(chunk),
+                "failures": chunk_failures[:MAX_FAILURE_SAMPLE],
+                "n_failures": len(chunk_failures),
+                "engine_stats": art.engine_stats,
+                "cache_stats": art.cache_stats,
+                "timing": chunk_timing,
+            }
+            n_failures += len(chunk_failures)
+            _merge_failures(failures, chunk_failures)
+            _merge_engine_stats(engine_stats, art.engine_stats)
+            _merge_cache_stats(cache_stats, art.cache_stats)
+            for mw in session.middleware:
+                mw.on_chunk_end(ci, state, session)
             start += len(chunk)
             del art, chunk  # the chunk's per-example state dies here
 
+        t0 = time.monotonic()
         metrics = _finalize_metrics(names, accs, engine, task)
+        timing["stats_s"] = time.monotonic() - t0
+        if cache_stats:
+            h, mi = cache_stats.get("hits", 0), cache_stats.get("misses", 0)
+            cache_stats["hit_rate"] = h / (h + mi) if h + mi else 0.0
         return EvalResult(
             task_id=task.task_id,
             metrics=metrics,
-            engine_stats=session.engine_for(task.model, task.inference).serving_stats(),
+            scores={},       # per-example scores are never materialized
+            responses=[],    # raw responses were dropped per chunk
+            failures=failures[:MAX_FAILURE_SAMPLE],
+            cache_stats=cache_stats,
+            engine_stats=engine_stats,
             timing=timing,
             logs={
                 "streaming": {
                     "n_examples": n_examples,
                     "n_chunks": n_chunks,
                     "chunk_size": self.chunk_size,
+                    "max_resident_rows": max_resident,
                     "n_failures": n_failures,
                     "stats_backend": stats_cfg.backend if use_boot else "",
                     "stats_stream": engine.stream_id() if use_boot else None,
@@ -97,6 +139,30 @@ class StreamingPipeline:
                 n_examples=n_examples,
             ),
         )
+
+
+def _merge_failures(acc: list[dict], new: list[dict]) -> None:
+    room = MAX_FAILURE_SAMPLE - len(acc)
+    if room > 0:
+        acc.extend(new[:room])
+
+
+def _merge_engine_stats(total: dict, delta: dict) -> None:
+    total["calls"] += delta.get("calls") or 0
+    total["total_cost"] += delta.get("total_cost", 0.0)
+    total["coalesced"] = total.get("coalesced", 0) + (delta.get("coalesced") or 0)
+    for k, v in delta.get("pool", {}).items():
+        total["pool"][k] = total["pool"].get(k, 0) + v
+
+
+def _merge_cache_stats(total: dict, delta: dict) -> None:
+    for k, v in delta.items():
+        if not isinstance(v, (int, float)) or k == "hit_rate":
+            continue  # hit_rate is recomputed from the summed counters
+        if k in ("hits", "misses", "writes"):
+            total[k] = total.get(k, 0) + v
+        else:
+            total[k] = v  # entries/version stay absolute: latest wins
 
 
 def _finalize_metrics(

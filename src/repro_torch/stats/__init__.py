@@ -12,6 +12,7 @@ from repro_torch.stats.streaming import (
     BootstrapEngine,
     DeviceBootstrapEngine,
     MetricAccumulator,
+    NumpyBootstrapEngine,
     PoissonBootstrap,
     StreamingStats,
     make_bootstrap_engine,
@@ -23,6 +24,7 @@ __all__ = [
     "DeviceBootstrapEngine",
     "Interval",
     "MetricAccumulator",
+    "NumpyBootstrapEngine",
     "PoissonBootstrap",
     "StreamingStats",
     "bca_bootstrap",

@@ -1,8 +1,10 @@
-"""Distribution functions in float64 (the port's copy of what
-``repro/stats/special.py`` holds for the normal and Student-t quantiles):
-pure Python, no scipy.  The incomplete beta function uses the continued
-fraction of Numerical Recipes 6.4; the normal PPF is Acklam's rational
-approximation refined with one Halley step."""
+"""Distribution functions in float64 (the port's copy of
+``repro/stats/special.py``): pure Python, no scipy.  The incomplete
+beta/gamma functions use the continued-fraction / series forms of Numerical
+Recipes 6.2-6.4; the normal PPF is Acklam's rational approximation refined
+with one Halley step.  The significance tests read the tail functions
+(``norm_sf``, ``t_sf``, ``chi2_sf``, ``binom_test_two_sided``), the
+intervals the quantiles."""
 
 from __future__ import annotations
 
@@ -14,6 +16,10 @@ _FPMIN = 1e-300
 
 def norm_cdf(x: float) -> float:
     return 0.5 * (1.0 + math.erf(x / math.sqrt(2.0)))
+
+
+def norm_sf(x: float) -> float:
+    return 0.5 * math.erfc(x / math.sqrt(2.0))
 
 
 _ACKLAM_A = (-3.969683028665376e+01, 2.209460984245205e+02,
@@ -60,6 +66,9 @@ def norm_ppf(p: float) -> float:
     u = e * math.sqrt(2 * math.pi) * math.exp(x * x / 2.0)
     x = x - u / (1 + x * u / 2)
     return x
+
+
+# -- incomplete beta (NR betacf / betai) ---------------------------------------
 
 
 def _betacf(a: float, b: float, x: float) -> float:
@@ -112,11 +121,67 @@ def betainc(a: float, b: float, x: float) -> float:
     return 1.0 - bt * _betacf(b, a, 1.0 - x) / b
 
 
+# -- incomplete gamma (NR gser / gcf) --------------------------------------------
+
+
+def _gser(a: float, x: float) -> float:
+    ap = a
+    summ = 1.0 / a
+    delta = summ
+    for _ in range(500):
+        ap += 1.0
+        delta *= x / ap
+        summ += delta
+        if abs(delta) < abs(summ) * _EPS:
+            break
+    return summ * math.exp(-x + a * math.log(x) - math.lgamma(a))
+
+
+def _gcf(a: float, x: float) -> float:
+    b = x + 1.0 - a
+    c = 1.0 / _FPMIN
+    d = 1.0 / b
+    h = d
+    for i in range(1, 500):
+        an = -i * (i - a)
+        b += 2.0
+        d = an * d + b
+        if abs(d) < _FPMIN:
+            d = _FPMIN
+        c = b + an / c
+        if abs(c) < _FPMIN:
+            c = _FPMIN
+        d = 1.0 / d
+        delta = d * c
+        h *= delta
+        if abs(delta - 1.0) < _EPS:
+            break
+    return math.exp(-x + a * math.log(x) - math.lgamma(a)) * h
+
+
+def gammainc(a: float, x: float) -> float:
+    """Regularized lower incomplete gamma P(a, x)."""
+    if x < 0 or a <= 0:
+        raise ValueError((a, x))
+    if x == 0:
+        return 0.0
+    if x < a + 1.0:
+        return _gser(a, x)
+    return 1.0 - _gcf(a, x)
+
+
+# -- distributions ------------------------------------------------------------------
+
+
 def t_cdf(x: float, df: float) -> float:
     if df <= 0:
         raise ValueError("df must be positive")
     ib = betainc(df / 2.0, 0.5, df / (df + x * x))
     return 1.0 - 0.5 * ib if x >= 0 else 0.5 * ib
+
+
+def t_sf(x: float, df: float) -> float:
+    return 1.0 - t_cdf(x, df)
 
 
 def t_ppf(p: float, df: float, *, tol: float = 1e-12) -> float:
@@ -132,3 +197,24 @@ def t_ppf(p: float, df: float, *, tol: float = 1e-12) -> float:
         if hi - lo < tol * max(1.0, abs(mid)):
             break
     return 0.5 * (lo + hi)
+
+
+def chi2_sf(x: float, df: float) -> float:
+    if x < 0:
+        return 1.0
+    return 1.0 - gammainc(df / 2.0, x / 2.0)
+
+
+def binom_pmf(k: int, n: int, p: float) -> float:
+    return math.comb(n, k) * p**k * (1 - p) ** (n - k)
+
+
+def binom_test_two_sided(k: int, n: int, p: float = 0.5) -> float:
+    """Exact two-sided binomial test (sum of outcomes as or less likely)."""
+    pk = binom_pmf(k, n, p)
+    total = sum(
+        binom_pmf(i, n, p)
+        for i in range(n + 1)
+        if binom_pmf(i, n, p) <= pk * (1 + 1e-12)
+    )
+    return min(1.0, total)

@@ -6,17 +6,23 @@
   analytical intervals.
 * :class:`PoissonBootstrap` — B replicate ``(sum w*x, sum w)`` pairs under
   Poisson(1) resampling weights, and their percentile interval.
-* :class:`DeviceBootstrapEngine` (``backend="device"``) — the replicate
-  state of every metric of a task, fed one chunk at a time by the
-  bootstrap-partials kernel on the card (its plain version on the CPU).
-  Weights are keyed by ``(seed, absolute example position, replicate)``, so
-  partials are independent of chunk order, and the kernel's weight stream
-  is bit-identical to the JAX package's.
+* The bootstrap engines (``StatisticsConfig.backend``) hold the replicate
+  state of every metric of a task, fed one chunk at a time:
 
-The kernel and its plain version share the weights but sum in different
-orders, so an engine records which one ran (``stream_id``) and refuses to
-merge state from the other, as the JAX engine's ``resolve_partials_mode``
-makes it refuse.
+  - :class:`NumpyBootstrapEngine` (``"numpy"``, the default, as in the
+    reference): host ``Philox(seed, chunk_start)`` weight blocks, one
+    (B, chunk) draw masked per metric — the reference's engine bit for bit;
+  - :class:`DeviceBootstrapEngine` (``"device"``; ``"pallas"`` is the
+    reference's name for the same weight stream): the bootstrap-partials
+    kernel on the card (its plain version on the CPU), weights keyed by
+    ``(seed, absolute example position, replicate)``, one launch a chunk
+    for every metric.
+
+The two engines draw different weight streams, and the kernel and its plain
+version share the weights but sum in different orders, so an engine
+records which stream it holds (``stream_id``) and refuses to merge state
+from another; :meth:`StreamingStats.comparable_with` refuses to pair two
+runs' replicates across streams for the same reason.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels.bootstrap.ops import bootstrap_partials, partials_path
 from repro_torch.stats.bootstrap import Interval, wilson_interval
 from repro_torch.stats.special import t_ppf
@@ -110,7 +117,7 @@ class BootstrapEngine:
 
     def spawn(self) -> "BootstrapEngine":
         """A zero-state engine with this one's configuration."""
-        raise NotImplementedError
+        return type(self)(self.n_boot, self.seed, self.metrics)
 
     def merge(self, other: "BootstrapEngine") -> "BootstrapEngine":
         ours = (self.stream_id(), self.n_boot, self.seed, self.metrics)
@@ -128,6 +135,27 @@ class BootstrapEngine:
         boot.sum_wx = self.sum_wx[:, j].copy()
         boot.sum_w = self.sum_w[:, j].copy()
         return boot
+
+
+class NumpyBootstrapEngine(BootstrapEngine):
+    """Host backend: ``Philox(seed, chunk_start)`` weight blocks.  Every
+    metric uses the same key, so the (B, chunk) block is drawn once and
+    masked per metric, as the reference's engine does."""
+
+    backend = "numpy"
+
+    def update(self, scores: dict[str, np.ndarray], start: int) -> None:
+        chunk = np.asarray(scores[self.metrics[0]], np.float64).size
+        if chunk == 0:
+            return
+        rng = np.random.Generator(np.random.Philox(key=[self.seed, start]))
+        w = rng.poisson(1.0, (self.n_boot, chunk)).astype(np.float64)
+        for j, m in enumerate(self.metrics):
+            x = np.asarray(scores[m], np.float64)
+            valid = ~np.isnan(x)
+            wm = w * valid[None, :]
+            self.sum_wx[:, j] += wm @ np.where(valid, x, 0.0)
+            self.sum_w[:, j] += wm.sum(axis=1)
 
 
 class DeviceBootstrapEngine(BootstrapEngine):
@@ -168,19 +196,35 @@ class DeviceBootstrapEngine(BootstrapEngine):
         self.sum_w += sw.cpu().numpy().astype(np.float64)
 
 
+#: backend name -> engine; "pallas" is the reference's name for the weight
+#: stream that the device engine draws
+_ENGINES = {
+    "numpy": NumpyBootstrapEngine,
+    "device": DeviceBootstrapEngine,
+    "pallas": DeviceBootstrapEngine,
+}
+
+
 def make_bootstrap_engine(
     backend: str,
     n_boot: int,
     seed: int,
     metrics: tuple[str, ...],
     *,
-    device: torch.device,
+    device: torch.device | str | None = None,
 ) -> BootstrapEngine:
-    if backend != DeviceBootstrapEngine.backend:
+    """``device`` is where the device engine launches (the session's; the
+    card when None); the numpy engine runs on the host whatever it is."""
+    if backend not in _ENGINES:
         raise ValueError(
-            f"unknown statistics backend {backend!r}; the port has 'device'"
+            f"unknown statistics backend {backend!r}; "
+            f"available: {sorted(_ENGINES)}"
         )
-    return DeviceBootstrapEngine(n_boot, seed, metrics, device=device)
+    if _ENGINES[backend] is DeviceBootstrapEngine:
+        return DeviceBootstrapEngine(
+            n_boot, seed, metrics, device=resolve_device(device)
+        )
+    return NumpyBootstrapEngine(n_boot, seed, metrics)
 
 
 @dataclasses.dataclass
@@ -193,6 +237,33 @@ class StreamingStats:
     engine: BootstrapEngine | None
     chunk_size: int
     n_examples: int
+
+    def comparable_with(self, other: "StreamingStats") -> str | None:
+        """None when paired replicate deltas are valid (the same weight
+        stream, B, seed and chunk layout), else the reason they are not."""
+        if self.engine is None or other.engine is None:
+            return (
+                "no bootstrap replicate state (analytical ci_method); "
+                "use a bootstrap ci_method to enable paired comparisons"
+            )
+        a, b = self.engine, other.engine
+        if (a.stream_id(), a.n_boot, a.seed) != (
+            b.stream_id(), b.n_boot, b.seed
+        ):
+            return (
+                f"bootstrap streams differ: "
+                f"({a.stream_id()}, B={a.n_boot}, seed={a.seed}) vs "
+                f"({b.stream_id()}, B={b.n_boot}, seed={b.seed})"
+            )
+        if (self.chunk_size, self.n_examples) != (
+            other.chunk_size, other.n_examples
+        ):
+            return (
+                f"chunk layouts differ: "
+                f"(chunk={self.chunk_size}, n={self.n_examples}) vs "
+                f"(chunk={other.chunk_size}, n={other.n_examples})"
+            )
+        return None
 
 
 def streaming_ci(

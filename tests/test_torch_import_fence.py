@@ -49,7 +49,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "repro_torch.kernels.bertscore.ref",
                    "repro_torch.kernels.bootstrap.ops",
                    "repro_torch.metrics.semantic", "repro_torch.metrics.registry",
-                   "repro_torch.stats.special", "repro_torch.stats.bootstrap"):
+                   "repro_torch.stats.special", "repro_torch.stats.bootstrap",
+                   "repro_torch.stats.significance", "repro_torch.stats.effect",
+                   "repro_torch.stats.select", "repro_torch.storage.deltalite",
+                   "repro_torch.core.cache", "repro_torch.core.service",
+                   "repro_torch.core.compare", "repro_torch.core.suite"):
         assert module in out["imported"]
 
 

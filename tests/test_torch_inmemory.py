@@ -354,7 +354,8 @@ def test_thirteen_metric_configs_stream_as_the_reference(monkeypatch, port_param
         THIRTEEN, JaxStats(bootstrap_iterations=200, ci_method="percentile",
                            backend="pallas"), JaxStreaming(**stream)))
     pres = _run_port(monkeypatch, port_params, _port_task(
-        THIRTEEN, StatisticsConfig(bootstrap_iterations=200, ci_method="percentile"),
+        THIRTEEN, StatisticsConfig(bootstrap_iterations=200, ci_method="percentile",
+                                   backend="device"),
         StreamingConfig(**stream)))
     assert len(pres.stream_stats.engine.metrics) == 13
     assert list(pres.metrics) == list(jres.metrics)

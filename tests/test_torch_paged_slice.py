@@ -128,10 +128,13 @@ def _run_port(monkeypatch, params):
     kw = {"n_slots": N_SLOTS, "max_len": MAX_LEN, "params": params}
     with EvalSession(device="cpu", engine_kwargs=kw) as s:
         result = s.run_task(iter_qa_examples(N_ROWS, seed=0), task)
-        # the session serves the task's paging knobs, and refuses others
-        with pytest.raises(ValueError):
-            s.engine_for(task.model, InferenceConfig(kv_page_size=8))
-    return result, texts
+        (stats,) = s.serving_stats()
+        # the session serves the task's paging knobs; other knobs get an
+        # engine of their own
+        engine = s.engine_for(task.model, task.inference)
+        other = s.engine_for(task.model, InferenceConfig(kv_page_size=8))
+        assert other is not engine and other.paging["page_size"] == 8
+    return result, texts, stats["batcher"]
 
 
 @pytest.fixture(scope="module")
@@ -145,14 +148,14 @@ def test_paged_f32_slice_equals_jax(monkeypatch, jax_params):
     params = params_from_jax(jax_params, get_config("qwen3-4b").reduced(),
                              device="cpu", dtype=torch.float32)
     jres, jtexts, jstats = _run_jax(monkeypatch)
-    pres, ptexts = _run_port(monkeypatch, params)
+    pres, ptexts, pstats = _run_port(monkeypatch, params)
     assert len(ptexts) == N_ROWS and ptexts == jtexts
     for name in ("exact_match", "token_f1"):
         j, p = jres.metrics[name], pres.metrics[name]
         assert (p.value, p.n, p.n_unscored) == (j.value, j.n, j.n_unscored)
         # identical weights, f32 partials summed in another order
         np.testing.assert_allclose(p.ci, j.ci, atol=1e-5, rtol=0)
-    st = pres.engine_stats
+    st = pstats
     assert st["prefix_pages_hit"] > 0 and st["prefix_tokens_saved"] > 0
     for key in ("prefix_pages_hit", "prefix_tokens_saved", "preemptions",
                 "kv_bytes_per_token", "pool_pages", "admissions"):

@@ -119,7 +119,9 @@ def test_unported_methods_and_backends_raise():
     with pytest.raises(ValueError, match="needs a PoissonBootstrap"):
         streaming_ci(acc, None, method="bca")
     with pytest.raises(ValueError, match="backend"):
-        make_bootstrap_engine("numpy", 16, 0, ("m",), device=torch.device("cpu"))
+        make_bootstrap_engine("bogus", 16, 0, ("m",), device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="backend"):
+        jax_engine("bogus", 16, 0, ("m",))
 
 
 # -- streaming_ci's methods ------------------------------------------------------
