@@ -61,7 +61,28 @@ test the paired bootstrap over kernel 6's replicates); the response cache
 (a second run with no engine call, ``CacheMiss`` under ``REPLAY``);
 ``rescore_stages`` with BERTScore (no engine call, kernel 7 launched);
 single-flight over 64 rows of 16 prompts (16 engine calls, 48 coalesced);
-kernels 1, 2, 6, 7 and 8 must launch in the phase.
+kernels 1, 2, 6, 7 and 8 must launch in the phase.  Phase 7, the harness
+around inference, runs in phase 2's session on its qwen3-4b engine (no new
+weights), over 32 rows (two chunks): (a) phase 2's task on the lock-step
+path (``use_service=False``, two workers, two shards a chunk) in memory
+and streaming, bit for bit the service path's texts, scores, metrics and
+streaming state on the same rows, with its engine calls and cache counts,
+and the worker pool's counts filled; (b) the RAG task
+(``rag_examples(32)``, ``llm_judge``, the five RAG metrics,
+``exact_match``) with the task's own engine as judge, the judge's launches
+of kernels 1 and 2 counted apart from the task's: every random-weight
+judge answer is unparseable and logged, each judge metric is the
+reference's empty result (NaN, method ``"none"``, ``n`` 0) in memory and
+streaming (``backend="device"``, kernel 6 giving the NaN columns zero
+weight), the other RAG metrics equal their host recomputation from the
+card's texts; (c) the same task judged by the simulated API engine: the
+card's answers equal (b)'s, no judge prompt reaches the card, and every
+score and unparseable row equals the simulated judge rerun on the host;
+(d) phase 2's task in memory at ``temperature=0.7`` in two fresh engines:
+equal texts, unlike the greedy ones, and one decode step's sampled tokens
+equal to the host's argmax of the step's logits / T plus the CPU's
+threefry Gumbel noise under the same key, near ties (top two within 1e-5
+relative) counted and exempt.
 
 Standard output: the card's name and power limit first, then log lines,
 then one ``{"kernels": [...]}`` line, and last the
@@ -73,6 +94,7 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import subprocess
@@ -991,10 +1013,10 @@ def unit_range(name: str, mv) -> None:
 
 
 def timed_run_task(torch, session, task, kernels: tuple[str, ...], label: str,
-                   check_metric=unit_range):
-    """``run_task`` over the phase's rows with every launch count set to 0
-    just before and read just after; each of ``kernels`` must have
-    launched, and every metric pass ``check_metric(name, value)``.
+                   check_metric=unit_range, n_rows: int = N_ROWS):
+    """``run_task`` over the phase's ``n_rows`` QA rows with every launch
+    count set to 0 just before and read just after; each of ``kernels``
+    must have launched, and every metric pass ``check_metric(name, value)``.
     Returns (launches, serving stats, wall seconds, result)."""
     from repro_torch.data import iter_qa_examples
 
@@ -1005,7 +1027,7 @@ def timed_run_task(torch, session, task, kernels: tuple[str, ...], label: str,
     for fn in counters().values():
         fn.launches = 0
     t0 = time.perf_counter()
-    result = session.run_task(iter_qa_examples(N_ROWS, seed=0), task)
+    result = session.run_task(iter_qa_examples(n_rows, seed=0), task)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters().items()}
@@ -1019,21 +1041,21 @@ def timed_run_task(torch, session, task, kernels: tuple[str, ...], label: str,
     prefill_ms = run["prefill_s"] * 1e3 / run["admissions"]
     step_ms = run["decode_s"] * 1e3 / run["steps"]
     generated = run["tokens_generated"] + run["admissions"]  # + first tokens
-    log(f"{label}: run_task wall {wall:.3f} s for {N_ROWS} examples; "
+    log(f"{label}: run_task wall {wall:.3f} s for {n_rows} examples; "
         f"{run['admissions']} prefills, {prefill_ms:.2f} ms each; "
         f"{run['steps']} decode steps, {step_ms:.2f} ms each (batch {N_SLOTS}); "
         f"{run['tokens_generated']} decoded tokens, "
         f"{run['tokens_generated'] / run['decode_s']:.1f} tokens/s in decode, "
         f"{generated / wall:.1f} generated tokens/s end to end")
     if task.streaming.enabled:
-        require(result.logs["streaming"]["n_examples"] == N_ROWS, "examples lost")
+        require(result.logs["streaming"]["n_examples"] == n_rows, "examples lost")
     else:
-        require(len(result.responses) == N_ROWS
-                and all(v.shape == (N_ROWS,) for v in result.scores.values()),
+        require(len(result.responses) == n_rows
+                and all(v.shape == (n_rows,) for v in result.scores.values()),
                 "in memory: responses or per-example scores lost")
     for name, mv in result.metrics.items():
         log(f"{label} metric {name}: {mv} ({mv.ci_method})")
-        require(mv.n == N_ROWS, f"{name}: scored {mv.n} of {N_ROWS}")
+        require(mv.n == n_rows, f"{name}: scored {mv.n} of {n_rows}")
         check_metric(name, mv)
     return launches, st, wall, result
 
@@ -1229,6 +1251,7 @@ def main_path_phase(torch) -> tuple[dict[str, int], dict[str, int]]:
                            lambda: b.model.prefill(b.params, toks, b.cache, 0),
                            kernel="flash")
         metrics = metrics_phase(torch, session, task)
+        harness_phase(torch, session, task)
     return launches, metrics
 
 
@@ -1978,6 +2001,364 @@ def suite_phase(torch) -> dict[str, int]:
     return phase_launches
 
 
+#: phase 7: its rows (two chunks: the lock-step path keeps two prompts in
+#: flight where the service keeps 16, and a judged row costs four prompts,
+#: so phase 7 takes half of phase 2's rows to keep the whole script within
+#: half of its 20-minute budget); the lock-step path's workers and prompts
+#: a shard (two shards a chunk, so both workers are busy streaming too); the RAG
+#: task's metrics (name, type) and those of them that a judge grades; the
+#: sampling temperature; the relative gap under which a sampled slot's top
+#: two scores count as a tie
+PHASE7_ROWS = 32
+LOCKSTEP_WORKERS, LOCKSTEP_SHARD = 2, 8
+RAG_METRICS = (("llm_judge", "llm_judge"), ("faithfulness", "rag"),
+               ("context_relevance", "rag"), ("answer_relevance", "rag"),
+               ("context_precision", "rag"), ("context_recall", "rag"),
+               ("exact_match", "lexical"))
+JUDGED = ("llm_judge", "faithfulness", "context_relevance")
+TEMPERATURE = 0.7
+NEAR_TIE = 1e-5
+#: full-width qwen3-4b layers: one prefill-kernel launch a layer a prompt,
+#: one decode-kernel launch a layer a decode step
+QWEN_LAYERS = 36
+
+
+class StageLaunches:
+    """Middleware: each stage's kernel launches in an in-memory run, so the
+    task's prompts (the infer stage) and a judge's (the metrics stage) are
+    counted apart."""
+
+    def __init__(self):
+        self.by_stage: dict[str, dict[str, int]] = {}
+        self._start: dict[str, int] = {}
+
+    def on_task_start(self, task, rows, session) -> None:
+        self.by_stage = {}
+
+    def on_stage_start(self, stage, art, session) -> None:
+        import torch
+
+        torch.cuda.synchronize()
+        self._start = read_counts()
+
+    def on_stage_end(self, stage, art, session) -> None:
+        import torch
+
+        torch.cuda.synchronize()
+        now = read_counts()
+        self.by_stage[stage.name] = {k: now[k] - self._start[k] for k in now}
+
+    def on_chunk_end(self, chunk_index, state, session) -> None:
+        pass
+
+    def on_task_end(self, task, result, session) -> None:
+        pass
+
+
+def counted_run(torch, session, rows, task, label: str):
+    """``run_task`` with every launch count set to 0 just before and read
+    just after; logs the wall, the engine calls and the launches.  Returns
+    (result, launches)."""
+    zero_counts()
+    t0 = time.perf_counter()
+    result = session.run_task(rows, task)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    log(f"{label}: run_task wall {wall:.3f} s, {result.engine_stats['calls']} "
+        f"engine calls, launches {launches}")
+    return result, launches
+
+
+def nan_metric(mv) -> bool:
+    """The reference's result for a metric no example could score."""
+    return (math.isnan(mv.value) and all(math.isnan(x) for x in mv.ci)
+            and mv.ci_method == "none" and mv.n == 0 and mv.n_unscored == PHASE7_ROWS)
+
+
+def lockstep_gates(torch, session, task):
+    """Phase 7 (a): phase 2's task on the lock-step path
+    (``use_service=False``, two workers calling the engine one prompt at a
+    time) in memory and streaming, against the service path on the same
+    rows (in memory, a fresh response cache each).  Returns the service
+    run's in-memory result."""
+    import tempfile
+
+    from repro_torch.core import InferenceConfig, StreamingConfig
+
+    kernels = ("flash_attention", "decode_attention")
+    run = functools.partial(timed_run_task, torch, session, n_rows=PHASE7_ROWS)
+    lock = InferenceConfig(use_service=False, n_workers=LOCKSTEP_WORKERS,
+                           batch_size=LOCKSTEP_SHARD)
+    with tempfile.TemporaryDirectory() as tmp:
+        # the same shards on both paths: a shard's cache writes are one
+        # table version
+        mem = dataclasses.replace(task, streaming=StreamingConfig(),
+                                  inference=InferenceConfig(cache_dir=f"{tmp}/service",
+                                                            batch_size=LOCKSTEP_SHARD))
+        lock_mem = dataclasses.replace(mem, inference=dataclasses.replace(
+            lock, cache_dir=f"{tmp}/lockstep"))
+        *_, svc = run(mem, kernels, "phase 7 (a) service path in memory")
+        *_, lm = run(lock_mem, kernels, "phase 7 (a) lock-step path in memory")
+    kernels += ("bootstrap_partials",)
+    *_, ss = run(task, kernels, "phase 7 (a) service path streaming")
+    *_, ls = run(dataclasses.replace(task, inference=lock), kernels,
+                 "phase 7 (a) lock-step path streaming")
+
+    def calls(r):
+        return {k: v for k, v in r.engine_stats.items() if k != "pool"}
+
+    # a shard is ``batch_size`` prompts of the rows in memory, or of a chunk
+    bs = lock.batch_size
+    shards = {"in memory": -(-PHASE7_ROWS // bs),
+              "streaming": PHASE7_ROWS // CHUNK * -(-CHUNK // bs)}
+    for label, got, want in (("in memory", lm, svc), ("streaming", ls, ss)):
+        require(same_result(torch, got, want),
+                f"lock-step {label}: texts, scores, metrics or streaming state "
+                f"differ from the service path's")
+        require(calls(got) == calls(want) and got.cache_stats == want.cache_stats,
+                f"lock-step {label}: engine stats {got.engine_stats} cache "
+                f"{got.cache_stats}, the service's {want.engine_stats} {want.cache_stats}")
+        pool = got.engine_stats["pool"]
+        require(pool.get("shards") == shards[label] and pool["failures"] == 0,
+                f"lock-step {label}: pool stats {pool}")
+        require(want.engine_stats["pool"] == {}, "the service path filled pool stats")
+    require(lm.cache_stats["misses"] == lm.cache_stats["writes"] == PHASE7_ROWS,
+            f"lock-step in memory: cache {lm.cache_stats}")
+    log(f"phase 7 (a): the lock-step path equals the service path bit for bit in "
+        f"memory and streaming; engine stats {calls(lm)}, cache {lm.cache_stats}, "
+        f"pool {lm.engine_stats['pool']} / {ls.engine_stats['pool']}")
+    return svc
+
+
+def rag_task(base_task):
+    from repro_torch.core import MetricConfig, StatisticsConfig, StreamingConfig
+
+    return dataclasses.replace(
+        base_task, task_id="rag-qwen3-4b", streaming=StreamingConfig(),
+        metrics=tuple(MetricConfig(m, type=t) for m, t in RAG_METRICS),
+        statistics=StatisticsConfig(bootstrap_iterations=N_BOOT, backend="device"))
+
+
+def host_rag_scores(rows, texts) -> dict:
+    """The non-judge metrics recomputed on the host from the card's texts."""
+    from repro_torch.metrics import batch_lexical, rag
+
+    qs = [r["question"] for r in rows]
+    refs = [r["reference"] for r in rows]
+    ctxs = [r["contexts"] for r in rows]
+    return {
+        "answer_relevance": rag.answer_relevance(qs, texts),
+        "context_precision": rag.context_precision(ctxs, refs),
+        "context_recall": rag.context_recall(ctxs, refs),
+        "exact_match": batch_lexical("exact_match", texts, refs),
+    }
+
+
+def scored_range(name: str, mv) -> None:
+    """A scored RAG metric: every example counted, the interval brackets the
+    value (with phase 5's 1e-5 slack for the f32 replicate means) and lies
+    in the metric's range: [-1, 1] for the cosine, the 1-5 scale for the
+    judge's grade, [0, 1] otherwise."""
+    lo, hi = mv.ci
+    slack = 1e-5 * abs(mv.value)
+    require(mv.n + mv.n_unscored == PHASE7_ROWS and lo - slack <= mv.value <= hi + slack,
+            f"{name}: bad interval {mv}: ({lo!r}, {hi!r})")
+    floor, ceil = {"answer_relevance": (-1.0, 1.0), "llm_judge": (1.0, 5.0)}.get(
+        name, (0.0, 1.0))
+    require(floor <= lo and hi <= ceil, f"{name}: outside [{floor}, {ceil}]: {mv}")
+
+
+def judge_gates(torch, session, task):
+    """Phase 7 (b): the RAG task on phase 2's engine, which is also the
+    judge (the session has none), in memory and streaming
+    (``backend="device"``).  Random weights never answer ``Score: n``, so
+    every judge metric is the reference's empty result.  Returns the
+    in-memory result and its stages' launches."""
+    import numpy as np
+
+    from repro_torch.data import rag_examples
+
+    rows = rag_examples(PHASE7_ROWS)
+    hot = rag_task(task)
+    stages = StageLaunches()
+    session.middleware.append(stages)
+    try:
+        res, _ = counted_run(torch, session, rows, hot,
+                                "phase 7 (b) task engine as judge, in memory")
+    finally:
+        session.middleware.remove(stages)
+    by_stage = stages.by_stage
+    log(f"phase 7 (b) launches of the task's prompts {by_stage['infer']}, of the "
+        f"judge's {by_stage['metrics']}")
+    for part in ("infer", "metrics"):
+        for k in ("flash_attention", "decode_attention"):
+            require(by_stage[part][k] > 0, f"(b): no {k} launch in the {part} stage")
+    require(len(res.logs["judge_unparseable"]) == PHASE7_ROWS,
+            f"(b): {len(res.logs['judge_unparseable'])} unparseable judge answers "
+            f"logged for {PHASE7_ROWS} rows")
+    for name in JUDGED:
+        require(np.isnan(res.scores[name]).all() and nan_metric(res.metrics[name]),
+                f"(b): {name} is {res.metrics[name]}, not the empty result")
+    for name, want in host_rag_scores(rows, res.responses).items():
+        require(np.array_equal(res.scores[name], want),
+                f"(b): {name} differs from the host's recomputation")
+        scored_range(name, res.metrics[name])
+
+    stream, launches = counted_run(
+        torch, session, rows, hot.with_streaming(max_memory_rows=CHUNK),
+        "phase 7 (b) task engine as judge, streaming (device backend)")
+    require(launches["bootstrap_partials"] == PHASE7_ROWS // CHUNK,
+            f"(b) streaming: {launches['bootstrap_partials']} bootstrap_partials "
+            f"launches, not one a chunk")
+    engine = stream.stream_stats.engine
+    require(engine.stream_id() == "device-kernel", f"(b): {engine.stream_id()}")
+    for name in JUDGED:
+        require(nan_metric(stream.metrics[name])
+                and not engine.view(name).sum_w.any(),
+                f"(b) streaming: {name} is {stream.metrics[name]}, its replicate "
+                f"weights sum to {engine.view(name).sum_w.max()}")
+    for name in host_rag_scores(rows, res.responses):
+        scored_range(name, stream.metrics[name])
+    log("phase 7 (b): every judge answer unparseable; the judge metrics are the "
+        "empty result in memory and streaming (kernel 6 gave them zero weight); "
+        "the other RAG metrics equal the host's recomputation")
+    return res, by_stage
+
+
+def simulated_judge_gates(torch, params, task, task_res, task_launches):
+    """Phase 7 (c): the RAG task on a fresh engine over phase 2's weights,
+    graded by the simulated API judge: the card answers, the host judges."""
+    import numpy as np
+
+    from repro_torch.core import EngineModelConfig, EvalSession, SimulatedAPIEngine
+    from repro_torch.data import rag_examples
+    from repro_torch.metrics import MetricContext, resolve_metrics
+
+    rows = rag_examples(PHASE7_ROWS)
+    judge_model = EngineModelConfig(provider="openai", model_name="gpt-4o-mini")
+    stages = StageLaunches()
+    kw = {"n_slots": N_SLOTS, "max_len": MAX_LEN, "params": params}
+    with EvalSession(device="cuda", judge_engine=SimulatedAPIEngine(judge_model),
+                     engine_kwargs=kw, middleware=[stages]) as s:
+        res, launches = counted_run(torch, s, rows, rag_task(task),
+                                       "phase 7 (c) simulated judge")
+        steps = s.engine_for(task.model, task.inference).serving_stats()["steps"]
+    require(res.responses == task_res.responses,
+            "(c): the card's answers differ from (b)'s")
+    require(not any(stages.by_stage["metrics"].values()),
+            f"(c): the judge stage launched kernels {stages.by_stage['metrics']}")
+    b = task_launches
+    require(launches["flash_attention"] == b["flash_attention"] == PHASE7_ROWS * QWEN_LAYERS,
+            f"(c): {launches['flash_attention']} prefill launches, (b)'s task "
+            f"{b['flash_attention']}")
+    require(launches["decode_attention"] == steps * QWEN_LAYERS,
+            f"(c): {launches['decode_attention']} decode launches for {steps} steps")
+    log(f"phase 7 (c): launches {launches} against (b)'s task part {b} "
+        f"(equal: {launches == b}); {steps} decode steps")
+    ctx = MetricContext(judge_engine=SimulatedAPIEngine(judge_model),
+                        device=torch.device("cpu"))
+    for name, scorer in resolve_metrics(rag_task(task).metrics):
+        want = np.asarray(scorer(rows, res.responses, ctx), np.float64)
+        require(np.array_equal(res.scores[name], want, equal_nan=True),
+                f"(c): {name} differs from the host's simulated judge")
+    require(res.logs == ctx.logs, "(c): unparseable rows differ from the host's")
+    grades = res.scores["llm_judge"][~np.isnan(res.scores["llm_judge"])]
+    require(grades.size and ((grades >= 1) & (grades <= 5)).all(),
+            f"(c): judge grades {grades}")
+    for name, _ in RAG_METRICS:
+        scored_range(name, res.metrics[name])
+    log(f"phase 7 (c): {grades.size} of {PHASE7_ROWS} grades parsed in [1, 5], "
+        f"{len(res.logs['judge_unparseable'])} unparseable; every score equals the "
+        f"host's simulated judge over the card's texts; llm_judge "
+        f"{res.metrics['llm_judge']}")
+
+
+def sampling_gates(torch, params, task, greedy):
+    """Phase 7 (d): phase 2's task in memory at ``TEMPERATURE`` twice, each
+    in a fresh engine over phase 2's weights (the sampling key starts anew):
+    equal texts, unlike the greedy run's; one decode step's sampled tokens
+    against the host's argmax of the step's logits / T plus the CPU's
+    threefry Gumbel noise under the same key."""
+    import repro_torch.serve.steps as steps
+    from repro_torch.core import EvalSession, InferenceConfig, StreamingConfig
+    from repro_torch.data import iter_qa_examples
+    from repro_torch.stats import threefry
+
+    hot = dataclasses.replace(
+        task, task_id="qa-qwen3-4b-sampled", streaming=StreamingConfig(),
+        model=dataclasses.replace(task.model, temperature=TEMPERATURE),
+        # a fresh service: every prompt is queued before the first step, so
+        # both runs decode on one schedule
+        inference=InferenceConfig(max_batch_wait_ms=100.0))
+    real = steps.temperature_sample
+    logged: list = []
+    calls = [0]
+
+    def logging_sample(logits, vocab_size, temperature, key):
+        # the fifth decode step of the first run, with every slot busy
+        out = real(logits, vocab_size, temperature, key)
+        calls[0] += 1
+        if calls[0] == 5:
+            logged.append((logits.float().cpu(), key.cpu(), out.cpu(), vocab_size))
+        return out
+
+    texts = []
+    kw = {"n_slots": N_SLOTS, "max_len": MAX_LEN, "params": params}
+    for turn in range(2):
+        steps.temperature_sample = logging_sample if turn == 0 else real
+        try:
+            with EvalSession(device="cuda", engine_kwargs=kw) as s:
+                res, launches = counted_run(
+                    torch, s, iter_qa_examples(PHASE7_ROWS, seed=0), hot,
+                    f"phase 7 (d) temperature {TEMPERATURE}, run {turn + 1}")
+        finally:
+            steps.temperature_sample = real
+        for k in ("flash_attention", "decode_attention"):
+            require(launches[k] > 0, f"(d): {k} was not launched")
+        texts.append(res.responses)
+    require(texts[0] == texts[1], "(d): two fresh engines sampled different texts")
+    require(texts[0] != greedy.responses, "(d): the sampled texts are the greedy ones")
+    changed = sum(a != b for a, b in zip(texts[0], greedy.responses))
+
+    logits, key, sampled, vocab = logged[0]
+    t = torch.tensor(TEMPERATURE, dtype=torch.float32)
+    pad = torch.arange(logits.shape[-1]) >= vocab
+    scores = threefry.gumbel(key, tuple(logits.shape)) + logits.masked_fill(
+        pad, float("-inf")) / t
+    host = scores.argmax(-1)
+    top2 = scores.topk(2, dim=-1).values
+    near = (top2[:, 0] - top2[:, 1]).abs() <= NEAR_TIE * top2[:, 0].abs()
+    bad = (host != sampled) & ~near
+    require(not bad.any(), f"(d): slots {bad.nonzero().flatten().tolist()} sampled "
+            f"{sampled[bad].tolist()}, the host's argmax {host[bad].tolist()}")
+    log(f"phase 7 (d): two fresh engines sampled equal texts at T={TEMPERATURE}, "
+        f"{changed} of {PHASE7_ROWS} unlike the greedy run's; the logged decode step's "
+        f"{sampled.numel()} sampled tokens equal the host's argmax of logits / T + "
+        f"threefry Gumbel noise ({int(near.sum())} near ties exempt, "
+        f"{int((host == sampled).sum())} equal)")
+
+
+def harness_phase(torch, session, task) -> dict[str, dict[str, int]]:
+    """Phase 7, the harness around inference, in phase 2's session on its
+    full-width qwen3-4b engine (no new weights): (a) the lock-step path,
+    (b) the task's own engine as judge of the RAG task, (c) a simulated
+    judge beside the card's answers, (d) temperature sampling."""
+    t0 = time.perf_counter()
+    greedy = lockstep_gates(torch, session, task)
+    t_a = time.perf_counter()
+    res_b, by_stage = judge_gates(torch, session, task)
+    t_b = time.perf_counter()
+    params = session.engine_for(task.model, task.inference).batcher.params
+    simulated_judge_gates(torch, params, task, res_b, by_stage["infer"])
+    t_c = time.perf_counter()
+    sampling_gates(torch, params, task, greedy)
+    t_d = time.perf_counter()
+    log(f"phase 7 walls: (a) {t_a - t0:.1f} s, (b) {t_b - t_a:.1f} s, "
+        f"(c) {t_c - t_b:.1f} s, (d) {t_d - t_c:.1f} s; {t_d - t0:.1f} s in all")
+    return by_stage
+
+
 def main() -> int:
     import torch
 
@@ -2017,7 +2398,7 @@ def main() -> int:
     try:
         fs = FewShot()
         entries = timed("phase 1", kernel_phase, torch, fs)
-        contiguous, metrics = timed("phases 2 and 5", main_path_phase, torch)
+        contiguous, metrics = timed("phases 2, 5 and 7", main_path_phase, torch)
         paged = timed("phase 3", paged_phase, torch, fs)
         mamba = timed("phase 4", mamba_phase, torch, fs)
         suite_phase(torch)
@@ -2043,7 +2424,7 @@ def main() -> int:
                 print(f"chip_smoke: FAIL: {e['name']} {key} = {e[key]}",
                       file=sys.stderr)
                 return 1
-    log(f"phases 1-6 took {time.perf_counter() - t_start:.1f} s after the build")
+    log(f"phases 1-7 took {time.perf_counter() - t_start:.1f} s after the build")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

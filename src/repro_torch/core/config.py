@@ -1,6 +1,7 @@
 """Evaluation-task configuration: the parts of ``repro/core/config.py`` that
-the port's in-memory and streaming paths, its inference service, response
-cache and suites read.  A task serializes to JSON (``EvalTask.to_json``)."""
+the port's in-memory and streaming paths, its inference service and
+lock-step path, response cache and suites read.  A task serializes to JSON
+(``EvalTask.to_json``)."""
 
 from __future__ import annotations
 
@@ -23,7 +24,8 @@ class CachePolicy(str, enum.Enum):
 class EngineModelConfig:
     """Which model answers the prompts.  The port's local engine has its
     own provider name, so a response cache keyed by provider never hands
-    JAX-engine answers to the port or back."""
+    JAX-engine answers to the port or back; any other provider (``openai``,
+    ``anthropic``, ``google``) is the simulated API engine."""
 
     provider: str = "torch_local"
     model_name: str = "qwen3-4b"
@@ -38,9 +40,13 @@ class MetricConfig:
     name: str                         # registry key, e.g. "exact_match"
     type: str = "lexical"             # lexical | semantic | llm_judge | rag
     #: keyword arguments bound to the scorer, e.g. {"max_len": 32} for
-    #: bertscore or {"normalized": False} for exact_match and contains
-    #: left out of the hash (a dict has none), so a task stays hashable
-    params: dict = dataclasses.field(default_factory=dict, hash=False)
+    #: bertscore, {"normalized": False} for exact_match and contains, or
+    #: {"rubric": ..., "scale": n} for llm_judge
+    params: dict = dataclasses.field(default_factory=dict)
+
+    def __hash__(self) -> int:
+        # a dict has no hash: hash its JSON, as the reference does
+        return hash((self.name, self.type, json.dumps(self.params, sort_keys=True)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,9 +84,28 @@ class InferenceConfig:
 
     #: prompts per shard: the unit of per-shard cache and call accounting
     batch_size: int = 16
+    #: lock-step worker threads (and their rate-limit split); through the
+    #: service, the least number of dispatcher threads of an API engine
+    n_workers: int = 4
+    #: global requests and tokens a minute, split over the workers
+    rate_limit_rpm: float = 10_000.0
+    rate_limit_tpm: float = 2_000_000.0
+    #: re-grant the global rate budget to the workers by demand each window
+    adaptive_rate: bool = False
     cache_policy: CachePolicy = CachePolicy.ENABLED
     #: "" = no response cache
     cache_dir: str = ""
+    #: retries of a recoverable engine error, with exponential backoff
+    #: from ``retry_delay`` seconds (slept only with a wall-clock session)
+    max_retries: int = 3
+    retry_delay: float = 1.0
+    #: lock-step path: re-issue a shard slower than ``straggler_factor`` x
+    #: the median finished shard
+    speculative_reissue: bool = False
+    straggler_factor: float = 3.0
+    #: False = the lock-step path: shards on the session's worker pool, one
+    #: engine call a prompt, rate limits acquired by the workers
+    use_service: bool = True
     #: outstanding requests the service queue holds before submit blocks
     service_queue_depth: int = 256
     #: single-flight coalescing of identical in-flight cache keys

@@ -1,16 +1,28 @@
-"""The port's local inference engine (counterpart of ``LocalJaxEngine`` in
-``repro/core/engines.py``): serves a model through the continuous batcher
-on one device, with the reference's request/response types and its
-slot-streaming protocol; and :class:`EngineRegistry`, one initialized
-engine per model and serving arguments."""
+"""The port's inference engines (``repro/core/engines.py``):
+
+* :class:`TorchLocalEngine` (counterpart of ``LocalJaxEngine``) serves a
+  model through the continuous batcher on one device, with the reference's
+  request/response types and its slot-streaming protocol;
+* :class:`SimulatedAPIEngine`, the reference's deterministic stand-in for
+  the OpenAI / Anthropic / Google providers: a latency model, the price
+  book and responses that are a pure function of (prompt, model), with
+  recoverable failures injected on demand (``fail_every``);
+* :func:`retry_with_backoff` and the recoverable-error taxonomy the
+  lock-step path and the inference service retry on;
+* :func:`create_engine` and :class:`EngineRegistry`, one initialized engine
+  per model and engine arguments."""
 
 from __future__ import annotations
 
+import abc
 import dataclasses
+import hashlib
 import json
+import math
+import re
 import threading
 import time
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
@@ -19,7 +31,6 @@ from repro_torch.core.config import EngineModelConfig
 from repro_torch.data.tokenizer import HashTokenizer
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model, init_params
-from repro_torch.serve import steps as steps_lib
 from repro_torch.serve.scheduler import (
     Completion,
     ContinuousBatcher,
@@ -27,6 +38,7 @@ from repro_torch.serve.scheduler import (
     check_kv_cache,
 )
 
+#: the provider name of the port's local engine
 PROVIDER = "torch_local"
 
 
@@ -47,14 +59,188 @@ class InferenceResponse:
     error: str | None = None
 
 
-class TorchLocalEngine:
+class RecoverableEngineError(RuntimeError):
+    """A transient engine failure worth retrying, the exception form of the
+    429/5xx error strings of :data:`RECOVERABLE_ERROR_CODES`.  The retry
+    paths back off and re-attempt on this type only; any other exception
+    fails the request at once with its own traceback."""
+
+
+# -- price book (USD per million input / output tokens) ----------------------
+
+PRICE_BOOK: dict[tuple[str, str], tuple[float, float]] = {
+    ("openai", "gpt-4o"): (2.50, 15.00),
+    ("openai", "gpt-4o-mini"): (0.15, 0.60),
+    ("openai", "gpt-4-turbo"): (10.00, 30.00),
+    ("openai", "gpt-3.5-turbo"): (0.50, 1.50),
+    ("anthropic", "claude-3-5-sonnet"): (3.00, 15.00),
+    ("anthropic", "claude-3-opus"): (15.00, 75.00),
+    ("anthropic", "claude-3-sonnet"): (3.00, 15.00),
+    ("anthropic", "claude-3-haiku"): (0.25, 1.25),
+    ("google", "gemini-1.5-pro"): (1.25, 5.00),
+    ("google", "gemini-1.5-flash"): (0.075, 0.30),
+    ("google", "gemini-1.0-pro"): (0.50, 1.50),
+}
+
+
+def api_cost(provider: str, model: str, in_tok: int, out_tok: int) -> float:
+    pin, pout = PRICE_BOOK.get((provider, model), (0.0, 0.0))
+    return (in_tok * pin + out_tok * pout) / 1e6
+
+
+#: simulated answer quality per model tier (drives model comparisons)
+_MODEL_QUALITY: dict[str, float] = {
+    "gpt-4o": 0.95, "gpt-4-turbo": 0.93, "gpt-4o-mini": 0.78,
+    "gpt-3.5-turbo": 0.70, "claude-3-5-sonnet": 0.95, "claude-3-opus": 0.94,
+    "claude-3-sonnet": 0.88, "claude-3-haiku": 0.75, "gemini-1.5-pro": 0.92,
+    "gemini-1.5-flash": 0.80, "gemini-1.0-pro": 0.72,
+}
+
+
+class InferenceEngine(abc.ABC):
+    """What the stages and the service need of an engine.  Slot engines
+    (``supports_streaming``) also speak the slot-streaming protocol and are
+    served by one batcher thread; the others are served by a pool of
+    dispatcher threads, one ``infer`` a request."""
+
+    supports_streaming: bool = False
+
+    @abc.abstractmethod
+    def initialize(self) -> None: ...
+
+    @abc.abstractmethod
+    def infer_batch(
+        self, requests: list[InferenceRequest]
+    ) -> list[InferenceResponse]: ...
+
+    @abc.abstractmethod
+    def shutdown(self) -> None: ...
+
+    def infer(self, request: InferenceRequest) -> InferenceResponse:
+        return self.infer_batch([request])[0]
+
+    def serving_stats(self) -> dict:
+        """Batcher counters of a slot engine; ``{}`` otherwise."""
+        return {}
+
+
+# -- simulated API engine -------------------------------------------------------
+
+
+def simulated_answer(prompt: str, max_tokens: int, model_name: str) -> str:
+    """Deterministic response text, a pure function of (prompt, model).
+    A ``[Judge]`` prompt gets a parseable verdict (``Score: n`` on the
+    prompt's 1-n scale, lower for ``flub`` fillers in the graded response,
+    or ``Winner: A|B``), except for a rare malformed one; any other prompt
+    gets an echo of its salient words, each replaced by a ``flub`` filler
+    with the model tier's error rate, and a hash suffix."""
+    h = hashlib.sha256(prompt.encode()).hexdigest()
+    hv = int(h[:8], 16)
+    if prompt.startswith("[Judge]"):
+        if hv % 797 == 0:
+            return "I cannot assess this response."
+        if "Winner:" in prompt or "Response A:" in prompt:
+            return f"Winner: {'A' if hv % 2 == 0 else 'B'} — clearer answer."
+        scale = 5
+        m = re.search(r"1-(\d+) scale", prompt)
+        if m:
+            scale = int(m.group(1))
+        m2 = re.search(r"Response: (.*)", prompt, re.DOTALL)
+        resp = m2.group(1) if m2 else ""
+        flubs = resp.count("flub")
+        score = max(1, min(scale, scale - flubs + (hv % 2)))
+        return f"Score: {score}. Concise and mostly accurate."
+    words = prompt.split()
+    quality = _MODEL_QUALITY.get(model_name, 0.8)
+    salient = [w for w in words if len(w) > 3][: max(3, max_tokens // 4)]
+    kept = []
+    for i, w in enumerate(salient):
+        wh = int(hashlib.sha256(f"{w}{i}{h[:4]}".encode()).hexdigest()[:4], 16)
+        if (wh % 1000) / 1000.0 < quality:
+            kept.append(w)
+        else:
+            kept.append(f"flub{wh % 97}")
+    return " ".join(kept + [f"ans_{h[:8]}"])
+
+
+class SimulatedAPIEngine(InferenceEngine):
+    """Deterministic provider stand-in: latency = base + per-token x output
+    tokens + a jitter from the prompt hash, cost from :data:`PRICE_BOOK`,
+    text from :func:`simulated_answer`.  ``wall_clock=False`` accounts the
+    latency without sleeping; ``fail_every=n`` answers every n-th call with
+    a recoverable ``rate_limited_429`` error."""
+
+    def __init__(
+        self,
+        model: EngineModelConfig,
+        *,
+        base_latency_ms: float = 250.0,
+        per_token_ms: float = 0.6,
+        wall_clock: bool = False,
+        fail_every: int = 0,
+    ):
+        self.model = model
+        self.base_latency_ms = base_latency_ms
+        self.per_token_ms = per_token_ms
+        self.wall_clock = wall_clock
+        self.fail_every = fail_every
+        self.calls = 0
+        self.total_cost = 0.0
+        self.initialized = False
+        # dispatcher threads share one engine: counters update under a lock
+        self._counter_lock = threading.Lock()
+
+    def initialize(self) -> None:
+        self.initialized = True
+
+    def shutdown(self) -> None:
+        self.initialized = False
+
+    @staticmethod
+    def _count_tokens(text: str) -> int:
+        return max(1, len(text.split()))
+
+    def infer(self, request: InferenceRequest) -> InferenceResponse:
+        with self._counter_lock:
+            self.calls += 1
+            call_no = self.calls
+        if self.fail_every and call_no % self.fail_every == 0:
+            return InferenceResponse(
+                text="", input_tokens=0, output_tokens=0,
+                latency_ms=self.base_latency_ms, error="rate_limited_429",
+            )
+        text = simulated_answer(request.prompt, request.max_tokens, self.model.model_name)
+        in_tok = self._count_tokens(request.prompt)
+        out_tok = min(self._count_tokens(text), request.max_tokens)
+        jitter = int(hashlib.sha256(request.prompt.encode()).hexdigest()[:4], 16)
+        latency = self.base_latency_ms + self.per_token_ms * out_tok + jitter % 50
+        if self.wall_clock:
+            time.sleep(latency / 1000.0)
+        cost = api_cost(self.model.provider, self.model.model_name, in_tok, out_tok)
+        with self._counter_lock:
+            self.total_cost += cost
+        return InferenceResponse(
+            text=text, input_tokens=in_tok, output_tokens=out_tok,
+            latency_ms=latency, cost_usd=cost,
+        )
+
+    def infer_batch(self, requests: list[InferenceRequest]) -> list[InferenceResponse]:
+        return [self.infer(r) for r in requests]
+
+
+# -- local engine -----------------------------------------------------------------
+
+
+class TorchLocalEngine(InferenceEngine):
     """Serve an architecture of the port through :class:`ContinuousBatcher`.
 
     ``infer_batch`` submits a batch and drains the batcher; the streaming
     protocol (``stream_submit`` / ``stream_pump`` / ``stream_pending`` /
     ``stream_cancel``) admits prompts into decode slots as slots free.
     Greedy decode is batch-composition independent, so both give the same
-    tokens for a prompt.  ``params`` may carry bridged weights
+    tokens for a prompt.  At ``model.temperature`` > 0 every decode step
+    samples under the batcher's key (a request's own ``temperature`` is not
+    read, as in the reference), so tokens depend on the schedule.  ``params`` may carry bridged weights
     (:func:`repro_torch.models.params_from_jax`); otherwise they are made on
     the device from ``model.seed``.
 
@@ -66,7 +252,11 @@ class TorchLocalEngine:
     ``initialize``, as the reference's batcher does.
 
     One lock serializes every use of the batcher, so the service's batcher
-    thread and a direct ``infer_batch`` caller may share the engine.
+    thread and direct ``infer`` / ``infer_batch`` callers (lock-step
+    workers, a judge) may share the engine.  A direct caller holds the lock
+    for one batcher step at a time, not for its whole drain: concurrent
+    callers' prompts decode in the same steps instead of queueing behind
+    each other, and every caller takes only its own completions.
     """
 
     supports_streaming = True
@@ -88,7 +278,6 @@ class TorchLocalEngine:
     ):
         if model.provider != PROVIDER:
             raise ValueError(f"provider must be {PROVIDER!r}, got {model.provider!r}")
-        steps_lib.check_sampling(model.temperature)
         check_kv_cache(kv_page_size, kv_cache_dtype)
         self.model_cfg = model
         self.n_slots = n_slots
@@ -105,6 +294,10 @@ class TorchLocalEngine:
         self._tokenizer: HashTokenizer | None = None
         self._next_id = 0
         self._lock = threading.RLock()
+        #: stream ids of direct callers' requests still decoding, and the
+        #: completions of theirs that a step has produced
+        self._direct: set[int] = set()
+        self._direct_done: dict[int, Completion] = {}
 
     def initialize(self) -> None:
         with self._lock:
@@ -126,6 +319,7 @@ class TorchLocalEngine:
                 n_slots=self.n_slots, max_len=self.max_len,
                 eos_id=self._tokenizer.eos_id,
                 max_prefills_per_step=self.max_prefills_per_step,
+                temperature=self.model_cfg.temperature,
                 **self.paging,
             )
 
@@ -134,7 +328,6 @@ class TorchLocalEngine:
             self.batcher = None
 
     def _submit(self, request: InferenceRequest) -> int:
-        steps_lib.check_sampling(request.temperature)
         self.initialize()
         rid = self._next_id
         self._next_id += 1
@@ -158,26 +351,46 @@ class TorchLocalEngine:
             latency_ms=c.latency_s * 1000.0,
         )
 
+    def _take_direct(self) -> None:
+        """Move the finished requests of direct callers out of the batcher's
+        completions (caller holds the lock), so that ``stream_pump`` never
+        hands them to the service."""
+        b = self.batcher
+        if not self._direct or not b.completions:
+            return
+        keep = []
+        for c in b.completions:
+            if c.request_id in self._direct:
+                self._direct.discard(c.request_id)
+                self._direct_done[c.request_id] = c
+            else:
+                keep.append(c)
+        b.completions = keep
+
     def infer_batch(
         self, requests: list[InferenceRequest]
     ) -> list[InferenceResponse]:
-        with self._lock:
-            return self._infer_batch_locked(requests)
-
-    def _infer_batch_locked(
-        self, requests: list[InferenceRequest]
-    ) -> list[InferenceResponse]:
         t0 = time.monotonic()
-        ids = {self._submit(r): i for i, r in enumerate(requests)}
-        completions = self.batcher.run_to_completion()
-        # streaming requests the drain carried along stay for stream_pump
-        self.batcher.completions = [
-            c for c in completions if c.request_id not in ids
-        ]
+        with self._lock:
+            ids = {self._submit(r): i for i, r in enumerate(requests)}
+            self._direct.update(ids)
         out: list[InferenceResponse | None] = [None] * len(requests)
-        for c in completions:
-            if c.request_id in ids:
-                out[ids[c.request_id]] = self._response(c)
+        waiting = set(ids)
+        while waiting:
+            with self._lock:
+                b = self.batcher
+                self._take_direct()
+                for rid in [r for r in waiting if r in self._direct_done]:
+                    out[ids[rid]] = self._response(self._direct_done.pop(rid))
+                    waiting.discard(rid)
+                if waiting and not (b.queue or b.slots_busy):
+                    self._direct.difference_update(waiting)
+                    break  # nothing left to step: the requests are lost
+                if waiting:
+                    b.step()
+            # let a waiting caller in between steps: a thread that takes the
+            # lock straight back would keep others' prompts out of the batch
+            time.sleep(0)
         dt_ms = (time.monotonic() - t0) * 1000.0
         return [
             r if r is not None else InferenceResponse(
@@ -202,6 +415,7 @@ class TorchLocalEngine:
                 return []
             if b.queue or b.slots_busy:
                 b.step()
+            self._take_direct()
             return [(c.request_id, self._response(c)) for c in b.drain_completions()]
 
     def stream_pending(self) -> bool:
@@ -232,6 +446,17 @@ def _kwargs_key(kw: dict) -> str:
     return json.dumps({k: plain(v) for k, v in kw.items()}, sort_keys=True)
 
 
+def create_engine(model: EngineModelConfig, **kw: Any) -> InferenceEngine:
+    """The engine for ``model.provider``: the port's local engine for
+    ``"torch_local"``, the simulated API engine for any other provider, as
+    in the reference.  The reference's slot simulator is not ported."""
+    if model.provider == PROVIDER:
+        return TorchLocalEngine(model, **kw)
+    if model.provider == "slotsim":
+        raise NotImplementedError("the simulated slot engine is not ported")
+    return SimulatedAPIEngine(model, **kw)
+
+
 class EngineRegistry:
     """One initialized engine per (:class:`EngineModelConfig`, engine
     arguments), the reference's ``EngineRegistry``: a session amortizes an
@@ -239,15 +464,15 @@ class EngineRegistry:
     jobs initialize an engine once."""
 
     def __init__(self) -> None:
-        self._engines: dict[tuple[EngineModelConfig, str], TorchLocalEngine] = {}
+        self._engines: dict[tuple[EngineModelConfig, str], InferenceEngine] = {}
         self._lock = threading.Lock()
 
-    def get(self, model: EngineModelConfig, **kw: Any) -> TorchLocalEngine:
+    def get(self, model: EngineModelConfig, **kw: Any) -> InferenceEngine:
         key = (model, _kwargs_key(kw))
         with self._lock:
             engine = self._engines.get(key)
             if engine is None:
-                engine = TorchLocalEngine(model, **kw)
+                engine = create_engine(model, **kw)
                 engine.initialize()
                 self._engines[key] = engine
         return engine
@@ -259,3 +484,43 @@ class EngineRegistry:
 
     def __len__(self) -> int:
         return len(self._engines)
+
+
+#: provider error codes worth retrying (429 and the 5xx family)
+RECOVERABLE_ERROR_CODES = ("429", "500", "502", "503")
+
+
+def is_recoverable(error: str | None) -> bool:
+    return error is not None and any(
+        code in error for code in RECOVERABLE_ERROR_CODES
+    )
+
+
+def retry_with_backoff(
+    fn: Callable[[], InferenceResponse],
+    *,
+    max_retries: int = 3,
+    base_delay: float = 1.0,
+    sleep: Callable[[float], None] = time.sleep,
+) -> InferenceResponse | None:
+    """Call ``fn`` until it answers without a recoverable error, at most
+    ``max_retries`` times more, sleeping ``base_delay * 2**attempt`` between
+    attempts.  A :class:`RecoverableEngineError` is retried the same way and
+    re-raised once the retries are spent; any other exception propagates at
+    once.  Returns the last response (its error kept) when every attempt
+    failed recoverably."""
+    last: InferenceResponse | None = None
+    for attempt in range(max_retries + 1):
+        try:
+            resp = fn()
+        except RecoverableEngineError:
+            if attempt >= max_retries:
+                raise
+            sleep(base_delay * math.pow(2.0, attempt))
+            continue
+        if resp.error is None or not is_recoverable(resp.error):
+            return resp
+        last = resp
+        if attempt < max_retries:
+            sleep(base_delay * math.pow(2.0, attempt))
+    return last

@@ -9,6 +9,10 @@ long-lived owner of the evaluation resources on one device:
   task, chunk and suite job using that engine;
 * **response caches**: one :class:`~repro_torch.core.cache.ResponseCache`
   per ``(cache_dir, policy)`` (``cache_for``);
+* **rate limiters and worker pools**: one per inference configuration
+  (``limiter_for``, ``pool_for``), shared by the tasks that use it;
+* **a judge engine** for the judge metrics (``judge_engine``; without one
+  a judge metric grades with the task's own engine);
 * **accounting**: the session's totals across every task
   (:class:`SessionAccounting`).
 
@@ -16,8 +20,10 @@ long-lived owner of the evaluation resources on one device:
 ``streaming.enabled``; pass ``stages=`` to swap stages (for instance
 ``rescore_stages(texts)``).  ``run_suite`` runs an
 :class:`~repro_torch.core.suite.EvalSuite` and builds the pairwise
-significance matrix.  Replicas, rate limiters and worker pools of the
-reference are not part of the port yet.
+significance matrix.  Rate limits sleep only with
+``wall_clock_rate_limit=True`` (``sleep``); otherwise limiters and retry
+backoffs keep accounts without waiting.  Replicas, deadlines, hedging and
+restarts of the reference are not part of the port yet.
 """
 
 from __future__ import annotations
@@ -31,7 +37,8 @@ import torch
 
 from repro_torch.core.cache import ResponseCache
 from repro_torch.core.config import CachePolicy, EngineModelConfig, EvalTask, InferenceConfig
-from repro_torch.core.engines import EngineRegistry, TorchLocalEngine
+from repro_torch.core.engines import PROVIDER, EngineRegistry, InferenceEngine
+from repro_torch.core.ratelimit import AdaptiveLimiter, TokenBucket
 from repro_torch.core.service import InferenceService
 from repro_torch.core.stages import (
     CostBudgetMiddleware,
@@ -44,6 +51,7 @@ from repro_torch.core.stages import (
 from repro_torch.core.streaming import StreamingPipeline
 from repro_torch.core.suite import EvalSuite, SuiteResult, build_comparisons
 from repro_torch.device import resolve_device
+from repro_torch.ft.workers import WorkerPool
 
 
 def serving_kwargs(inf: InferenceConfig) -> dict:
@@ -88,22 +96,27 @@ class SessionAccounting:
 
 class EvalSession:
     """Runs on the card unless ``device="cpu"`` is passed.
-    ``engine_kwargs`` go to every :class:`TorchLocalEngine` the session
-    builds (``n_slots``, ``max_len``, ``page_pool``, ``params``, ...); a
-    task's :class:`InferenceConfig` adds its serving knobs, which an
-    argument of ``engine_kwargs`` overrides.  ``params`` are one model's
-    weights, so they suit a session that serves one model; otherwise each
-    engine makes its weights from its model's seed."""
+    ``engine_kwargs`` go to every engine the session builds (for the local
+    engine ``n_slots``, ``max_len``, ``page_pool``, ``params``, ...); a
+    local engine also gets the session's device and a task's serving knobs
+    from its :class:`InferenceConfig`, which an argument of
+    ``engine_kwargs`` overrides.  ``params`` are one model's weights, so
+    they suit a session that serves one model; otherwise each engine makes
+    its weights from its model's seed."""
 
     def __init__(
         self,
         *,
         device: torch.device | str | None = None,
+        judge_engine: InferenceEngine | None = None,
+        wall_clock_rate_limit: bool = False,
         engine_kwargs: dict | None = None,
         middleware: Iterable[Middleware] = (),
         cost_budget_usd: float | None = None,
     ):
         self.device = resolve_device(device)
+        self.judge_engine = judge_engine
+        self.wall_clock = wall_clock_rate_limit
         self._engine_kwargs = dict(engine_kwargs or {})
         self.middleware: list[Middleware] = list(middleware)
         if cost_budget_usd is not None:
@@ -112,30 +125,40 @@ class EvalSession:
         self.accounting = SessionAccounting()
         self._caches: dict[tuple[str, CachePolicy], ResponseCache] = {}
         self._services: dict[int, InferenceService] = {}
+        self._limiters: dict[tuple, Any] = {}
+        self._pools: dict[tuple, WorkerPool] = {}
         # get-or-create is atomic: concurrent jobs asking for the same
-        # cache or service share one instance
+        # cache, service, limiter or pool share one instance
         self._res_lock = threading.Lock()
         self._closed = False
 
     # -- shared resources ------------------------------------------------------
 
-    def _engine_args(self, inf: InferenceConfig) -> dict:
+    @property
+    def sleep(self):
+        """What rate limiters and retry backoffs wait with: ``time.sleep``
+        with ``wall_clock_rate_limit``, else a sleep that does nothing."""
+        return time.sleep if self.wall_clock else (lambda s: None)
+
+    def _engine_args(self, model: EngineModelConfig, inf: InferenceConfig) -> dict:
+        if model.provider != PROVIDER:
+            return dict(self._engine_kwargs)
         return {"device": self.device, **serving_kwargs(inf), **self._engine_kwargs}
 
     def engine_for(
         self, model: EngineModelConfig, inf: InferenceConfig = InferenceConfig()
-    ) -> TorchLocalEngine:
+    ) -> InferenceEngine:
         """The engine for ``model`` under ``inf``'s serving knobs, built and
         initialized on first use."""
         self._check_open()
-        return self.engines.get(model, **self._engine_args(inf))
+        return self.engines.get(model, **self._engine_args(model, inf))
 
     def service_for(
         self, model: EngineModelConfig, inf: InferenceConfig
     ) -> InferenceService:
         """The shared service of :meth:`engine_for`'s engine; its queue
-        depth, coalescing default and batch window come from the first
-        inference config that touches the engine."""
+        depth, coalescing default, batch window and least dispatcher count
+        come from the first inference config that touches the engine."""
         engine = self.engine_for(model, inf)
         with self._res_lock:
             key = id(engine)
@@ -146,6 +169,8 @@ class EvalSession:
                     queue_depth=inf.service_queue_depth,
                     coalesce=inf.coalesce,
                     max_batch_wait_ms=inf.max_batch_wait_ms,
+                    n_dispatchers=inf.n_workers,
+                    sleep=self.sleep,
                     name=f"{model.provider}:{model.model_name}",
                 )
                 self._services[key] = svc
@@ -168,6 +193,43 @@ class EvalSession:
                 cache = ResponseCache(inf.cache_dir, inf.cache_policy)
                 self._caches[key] = cache
         return cache
+
+    def limiter_for(self, inf: InferenceConfig):
+        """The rate limiter of ``inf``: an :class:`AdaptiveLimiter` with
+        ``adaptive_rate``, else one :class:`TokenBucket` a worker."""
+        key = (inf.adaptive_rate, inf.rate_limit_rpm, inf.rate_limit_tpm,
+               inf.n_workers)
+        with self._res_lock:
+            limiter = self._limiters.get(key)
+            if limiter is None:
+                if inf.adaptive_rate:
+                    limiter = AdaptiveLimiter(
+                        inf.rate_limit_rpm, inf.rate_limit_tpm, inf.n_workers,
+                        sleep=self.sleep,
+                    )
+                else:
+                    limiter = [
+                        TokenBucket(inf.rate_limit_rpm, inf.rate_limit_tpm,
+                                    inf.n_workers, sleep=self.sleep)
+                        for _ in range(inf.n_workers)
+                    ]
+                self._limiters[key] = limiter
+        return limiter
+
+    def pool_for(self, inf: InferenceConfig) -> WorkerPool:
+        """The lock-step path's worker pool of ``inf``."""
+        straggler = inf.straggler_factor if inf.speculative_reissue else 0.0
+        key = (inf.n_workers, inf.max_retries, straggler)
+        with self._res_lock:
+            pool = self._pools.get(key)
+            if pool is None:
+                pool = WorkerPool(
+                    n_workers=inf.n_workers,
+                    max_retries=inf.max_retries,
+                    straggler_factor=straggler,
+                )
+                self._pools[key] = pool
+        return pool
 
     # -- pipeline execution -----------------------------------------------------
 

@@ -2,13 +2,18 @@
 ``run(artifact, session) -> artifact`` over one :class:`EvalArtifact`.  The
 in-memory pipeline (:func:`default_stages`) is prepare -> infer -> score ->
 aggregate over the whole task; the streaming pipeline runs the first three
-per chunk and aggregates from mergeable state instead.  The cache-replay
-loop re-scores earlier responses by swapping :class:`InferStage` for
-:class:`StaticResponsesStage` (:func:`rescore_stages`, no engine calls).
+per chunk and aggregates from mergeable state instead.  :class:`InferStage`
+goes through the session's inference service, or, with
+``InferenceConfig(use_service=False)``, takes the lock-step path
+(:class:`LockStepInferStage`: shards on the session's worker pool, one
+engine call a prompt).  The cache-replay loop re-scores earlier responses
+by swapping :class:`InferStage` for :class:`StaticResponsesStage`
+(:func:`rescore_stages`, no engine calls).
 
 :class:`Middleware` objects observe the pipeline (``on_task_start``,
 ``on_stage_start``, ``on_stage_end``, ``on_chunk_end``, ``on_task_end``):
-progress reporting, and the session cost-budget abort."""
+progress reporting, experiment tracking, and the session cost-budget
+abort."""
 
 from __future__ import annotations
 
@@ -21,10 +26,17 @@ import numpy as np
 
 from repro_torch.core.cache import CacheEntry
 from repro_torch.core.config import CachePolicy, EvalTask, cache_key
-from repro_torch.core.engines import InferenceRequest, InferenceResponse
+from repro_torch.core.engines import (
+    InferenceRequest,
+    InferenceResponse,
+    retry_with_backoff,
+)
+from repro_torch.core.ratelimit import AdaptiveLimiter
 from repro_torch.data.templates import render
+from repro_torch.ft.workers import PoolStats
 from repro_torch.metrics.registry import (
     BINARY_METRICS,
+    JUDGE_METRICS,
     MetricContext,
     resolve_metrics,
 )
@@ -60,7 +72,8 @@ class EvalResult:
     #: this task's cache traffic (hits, misses, writes, hit_rate) and the
     #: cache's entries and version; {} without a cache
     cache_stats: dict
-    #: this task's engine calls, cost and coalesced submissions
+    #: this task's engine calls, cost, coalesced submissions and, on the
+    #: lock-step path, its worker pool's counts (``pool``)
     engine_stats: dict
     timing: dict
     logs: dict
@@ -134,7 +147,9 @@ class PrepareStage:
 @dataclasses.dataclass
 class _ShardStats:
     """One shard's own traffic, counted where it happens, so a task's stats
-    stay exact while other tasks share the engine, cache and service."""
+    stay exact while other tasks share the engine, cache and service.  On
+    the lock-step path the result sums the winning attempt of each shard,
+    while the session's accounting takes every attempt's calls and cost."""
 
     calls: int = 0
     cost: float = 0.0
@@ -153,9 +168,11 @@ def _sum_shard_stats(parts) -> _ShardStats:
     return totals
 
 
-def _publish_infer_stats(art: EvalArtifact, cache, totals: _ShardStats) -> None:
+def _publish_infer_stats(
+    art: EvalArtifact, cache, totals: _ShardStats, pool: dict
+) -> None:
     """``art.cache_stats`` and ``art.engine_stats`` from the summed shard
-    stats, as the reference assembles them."""
+    stats, as the reference assembles them for both inference paths."""
     if cache is not None:
         stats = cache.stats()  # entries/version stay session-absolute
         h, m = totals.hits, totals.misses
@@ -170,8 +187,154 @@ def _publish_infer_stats(art: EvalArtifact, cache, totals: _ShardStats) -> None:
         "calls": totals.calls,
         "total_cost": totals.cost,
         "coalesced": totals.coalesced,
-        "pool": {},
+        "pool": pool,
     }
+
+
+def _cache_entry(key: str, task: EvalTask, prompt: str,
+                 resp: InferenceResponse) -> CacheEntry:
+    return CacheEntry(
+        prompt_hash=key,
+        model_name=task.model.model_name,
+        provider=task.model.provider,
+        prompt_text=prompt,
+        response_text=resp.text,
+        input_tokens=resp.input_tokens,
+        output_tokens=resp.output_tokens,
+        latency_ms=resp.latency_ms,
+        created_at=time.time(),
+    )
+
+
+def _cached_response(hit: CacheEntry) -> InferenceResponse:
+    return InferenceResponse(
+        text=hit.response_text,
+        input_tokens=hit.input_tokens or 0,
+        output_tokens=hit.output_tokens or 0,
+        latency_ms=0.0,
+    )
+
+
+class LockStepInferStage:
+    """The reference's lock-step path (``use_service=False``): the shards
+    run on the session's worker pool; a worker looks up each prompt of its
+    shard in the cache, then for each miss acquires its rate limit and
+    calls ``engine.infer`` through :func:`retry_with_backoff`.  Shards
+    that raise are retried by the pool, and with ``speculative_reissue`` a
+    straggling shard is re-issued.  ``engine_stats["pool"]`` holds the
+    pool's counts for this task."""
+
+    name = "infer"
+
+    def run(self, art: EvalArtifact, session: Any) -> EvalArtifact:
+        task = art.task
+        inf = task.inference
+        model = task.model
+        prompts = art.prompts
+        engine = session.engine_for(model, inf)
+        cache = session.cache_for(inf)
+        limiter = session.limiter_for(inf)
+        pool = session.pool_for(inf)
+        sleep = session.sleep
+
+        count_lookups = cache is not None and cache.policy not in (
+            CachePolicy.DISABLED, CachePolicy.WRITE_ONLY,
+        )
+        shards = [
+            list(range(i, min(i + inf.batch_size, len(prompts))))
+            for i in range(0, len(prompts), inf.batch_size)
+        ]
+
+        def key_of(i: int) -> str:
+            return cache_key(prompts[i], model.model_name, model.provider,
+                             model.temperature, model.max_tokens)
+
+        def run_shard(shard_idx: int, idxs: list[int], worker: int):
+            st = _ShardStats()
+            try:
+                return do_shard(idxs, worker, st), st
+            finally:
+                # every attempt's spend reaches the session, speculative
+                # losers and failed attempts included: those calls happened
+                acct = session.accounting
+                with acct.lock:
+                    acct.engine_calls += st.calls
+                    acct.cost_usd += st.cost
+
+        def do_shard(idxs: list[int], worker: int, st: _ShardStats):
+            out: list[tuple[int, InferenceResponse, bool]] = []
+            to_infer: list[int] = []
+            for i in idxs:
+                if cache is not None:
+                    hit = cache.lookup(key_of(i))
+                    if hit is not None:
+                        st.hits += 1
+                        out.append((i, _cached_response(hit), True))
+                        continue
+                    if count_lookups:
+                        st.misses += 1
+                to_infer.append(i)
+            w = worker % inf.n_workers
+            new_entries: list[CacheEntry] = []
+            for i in to_infer:
+                est_tokens = len(prompts[i].split()) + model.max_tokens
+                if isinstance(limiter, AdaptiveLimiter):
+                    limiter.acquire(w, est_tokens)
+                else:
+                    limiter[w].acquire(est_tokens)
+                req = InferenceRequest(prompts[i], model.max_tokens, model.temperature)
+
+                def call(req=req) -> InferenceResponse:
+                    st.calls += 1
+                    return engine.infer(req)
+
+                resp = retry_with_backoff(
+                    call, max_retries=inf.max_retries,
+                    base_delay=inf.retry_delay, sleep=sleep,
+                )
+                st.cost += resp.cost_usd
+                out.append((i, resp, False))
+                if cache is not None and resp.error is None:
+                    new_entries.append(_cache_entry(key_of(i), task, prompts[i], resp))
+            if new_entries:
+                st.writes += cache.put(new_entries)
+            return out
+
+        responses: list[InferenceResponse | None] = [None] * len(prompts)
+        failures: list[dict] = []
+        n_cached = 0
+        in_tok = out_tok = 0
+        pool_stats = PoolStats()
+        shard_results = pool.map_shards(run_shard, shards, stats_out=pool_stats)
+        for sr in shard_results:
+            rows, _st = sr.value
+            for i, resp, cached in rows:
+                responses[i] = resp
+                if resp.error is not None:
+                    failures.append({"index": i, "error": resp.error})
+                elif cached:
+                    n_cached += 1
+                else:
+                    in_tok += resp.input_tokens
+                    out_tok += resp.output_tokens
+
+        art.responses = responses
+        art.texts = [
+            r.text if r is not None and r.error is None else "" for r in responses
+        ]
+        art.failures = failures
+        _publish_infer_stats(
+            art, cache, _sum_shard_stats(sr.value[1] for sr in shard_results),
+            dataclasses.asdict(pool_stats),
+        )
+        acct = session.accounting
+        with acct.lock:
+            acct.input_tokens += in_tok
+            acct.output_tokens += out_tok
+            if cache is not None:
+                acct.cache_hits += n_cached
+                acct.cache_misses += len(prompts) - n_cached
+        return art
 
 
 class InferStage:
@@ -185,17 +348,30 @@ class InferStage:
     primary submitter.  A repeated key within the stage reuses the first
     occurrence's ticket (stage-local single-flight, deterministic whatever
     the dispatch timing) and counts as coalesced; the service's own flight
-    table covers concurrent stages."""
+    table covers concurrent stages.  Each submission carries the task's
+    rate limiter and retry budget, which the service applies at dispatch.
+
+    With ``use_service=False`` the stage takes the lock-step path
+    (:class:`LockStepInferStage`)."""
 
     name = "infer"
 
+    def __init__(self) -> None:
+        self._lockstep = LockStepInferStage()
+
     def run(self, art: EvalArtifact, session: Any) -> EvalArtifact:
+        if not art.task.inference.use_service:
+            return self._lockstep.run(art, session)
+        return self._run_service(art, session)
+
+    def _run_service(self, art: EvalArtifact, session: Any) -> EvalArtifact:
         task = art.task
         inf = task.inference
         model = task.model
         prompts = art.prompts
         service = session.service_for(model, inf)
         cache = session.cache_for(inf)
+        limiter = session.limiter_for(inf)
 
         count_lookups = cache is not None and cache.policy not in (
             CachePolicy.DISABLED, CachePolicy.WRITE_ONLY,
@@ -215,7 +391,7 @@ class InferStage:
         in_tok = out_tok = 0
         local: dict[str, Any] = {}
 
-        service.attach()
+        service.attach(inf.n_workers)
         try:
             # submit: cache lookups counted per shard; misses go straight
             # to the service
@@ -233,12 +409,7 @@ class InferStage:
                         if hit is not None:
                             st.hits += 1
                             n_cached += 1
-                            responses[i] = InferenceResponse(
-                                text=hit.response_text,
-                                input_tokens=hit.input_tokens or 0,
-                                output_tokens=hit.output_tokens or 0,
-                                latency_ms=0.0,
-                            )
+                            responses[i] = _cached_response(hit)
                             continue
                         if count_lookups:
                             st.misses += 1
@@ -250,6 +421,10 @@ class InferStage:
                         InferenceRequest(prompts[i], model.max_tokens, model.temperature),
                         key=key,
                         coalesce=inf.coalesce,
+                        limiter=limiter,
+                        est_tokens=len(prompts[i].split()) + model.max_tokens,
+                        max_retries=inf.max_retries,
+                        retry_delay=inf.retry_delay,
                     )
                     local[key] = ticket
                     pending.append((i, key, ticket, True))
@@ -274,23 +449,11 @@ class InferStage:
                         in_tok += resp.input_tokens
                         out_tok += resp.output_tokens
                         if cache is not None:
-                            new_entries.append(
-                                CacheEntry(
-                                    prompt_hash=key,
-                                    model_name=model.model_name,
-                                    provider=model.provider,
-                                    prompt_text=prompts[i],
-                                    response_text=resp.text,
-                                    input_tokens=resp.input_tokens,
-                                    output_tokens=resp.output_tokens,
-                                    latency_ms=resp.latency_ms,
-                                    created_at=time.time(),
-                                )
-                            )
+                            new_entries.append(_cache_entry(key, task, prompts[i], resp))
                 if new_entries:
                     st.writes += cache.put(new_entries)
         finally:
-            service.detach()
+            service.detach(inf.n_workers)
             # the spend of flights that resolved but were never gathered
             # (a REPLAY miss or a failed gather aborted the stage) still
             # reaches the session accounting: those engine calls happened
@@ -315,7 +478,7 @@ class InferStage:
             r.text if r is not None and r.error is None else "" for r in responses
         ]
         art.failures = failures
-        _publish_infer_stats(art, cache, _sum_shard_stats(st for st, _ in plans))
+        _publish_infer_stats(art, cache, _sum_shard_stats(st for st, _ in plans), {})
         with acct.lock:
             acct.input_tokens += in_tok
             acct.output_tokens += out_tok
@@ -346,13 +509,39 @@ class StaticResponsesStage:
 
 
 class ScoreStage:
+    """Per-example scoring of every metric of the task.  A judge metric
+    (``llm_judge``, ``faithfulness``, ``context_relevance``, or any of type
+    ``"llm_judge"``) grades with the session's judge engine, or, where the
+    session has none, with the task's own engine, as the reference does;
+    the judge's unparseable answers are logged in ``art.logs``.  Metric
+    resolution is kept per metric tuple, since a streaming run re-enters
+    the stage once a chunk."""
+
     name = "metrics"
 
+    def __init__(self) -> None:
+        self._resolved: dict[tuple, list] = {}
+
+    def _metrics_for(self, task: EvalTask) -> list:
+        resolved = self._resolved.get(task.metrics)
+        if resolved is None:
+            resolved = resolve_metrics(task.metrics)
+            self._resolved[task.metrics] = resolved
+        return resolved
+
     def run(self, art: EvalArtifact, session: Any) -> EvalArtifact:
-        ctx = MetricContext(device=session.device)
+        task = art.task
+        judge = session.judge_engine
+        if judge is None and any(
+            m.type == "llm_judge" or m.name in JUDGE_METRICS for m in task.metrics
+        ):
+            # only a judge metric sets up the task's engine here: a
+            # lexical-only rescore stays engine-free
+            judge = session.engine_for(task.model, task.inference)
+        ctx = MetricContext(judge_engine=judge, logs=art.logs, device=session.device)
         art.scores = {
             name: np.asarray(scorer(art.rows, art.texts, ctx), np.float64)
-            for name, scorer in resolve_metrics(art.task.metrics)
+            for name, scorer in self._metrics_for(task)
         }
         return art
 
@@ -478,3 +667,16 @@ class ProgressMiddleware(Middleware):
     def on_task_end(self, task, result, session) -> None:
         vals = ", ".join(f"{n}={mv.value:.3f}" for n, mv in result.metrics.items())
         print(f"[{task.task_id}] done: {vals}", file=self.stream)
+
+
+class TrackingMiddleware(Middleware):
+    """Log every finished task to a
+    :class:`~repro_torch.core.tracking.RunTracker`."""
+
+    def __init__(self, tracker, **tags: str):
+        self.tracker = tracker
+        self.tags = tags
+        self.run_ids: list[str] = []
+
+    def on_task_end(self, task, result, session) -> None:
+        self.run_ids.append(self.tracker.log_run(task, result, **self.tags))

@@ -1,3 +1,9 @@
+from repro_torch.metrics.judge import (
+    JudgeOutcome,
+    extract_score,
+    pairwise_judge,
+    pointwise_judge,
+)
 from repro_torch.metrics.lexical import (
     batch_lexical,
     bleu,
@@ -7,9 +13,18 @@ from repro_torch.metrics.lexical import (
     rouge_l,
     token_f1,
 )
+from repro_torch.metrics.rag import (
+    answer_relevance,
+    context_precision,
+    context_recall,
+    context_relevance,
+    faithfulness,
+)
 from repro_torch.metrics.registry import (
     BINARY_METRICS,
+    JUDGE_METRICS,
     MetricContext,
+    available_metrics,
     get_metric,
     resolve_metrics,
 )
@@ -22,15 +37,26 @@ from repro_torch.metrics.semantic import (
 __all__ = [
     "BINARY_METRICS",
     "HashEmbedder",
+    "JUDGE_METRICS",
+    "JudgeOutcome",
     "MetricContext",
+    "answer_relevance",
+    "available_metrics",
     "batch_lexical",
     "bertscore_f1",
     "bleu",
     "contains",
+    "context_precision",
+    "context_recall",
+    "context_relevance",
     "embedding_similarity",
     "exact_match",
+    "extract_score",
+    "faithfulness",
     "get_metric",
     "normalize",
+    "pairwise_judge",
+    "pointwise_judge",
     "resolve_metrics",
     "rouge_l",
     "token_f1",

@@ -1,20 +1,21 @@
-"""Metric resolution: ``MetricConfig`` -> batch scorer
-``fn(rows, responses, ctx) -> np.ndarray`` of per-example scores (NaN =
-unscorable), with the config's ``params`` bound as the reference's
-``get_metric`` binds them.  ``ctx`` carries the device the semantic
-metrics run on; they use the default hash embedder.  The port resolves
-the lexical and semantic metrics; the judge and RAG metrics raise before
-any inference runs, as unknown metrics do."""
+"""Metric resolution (``repro/metrics/registry.py``): ``MetricConfig`` ->
+batch scorer ``fn(rows, responses, ctx) -> np.ndarray`` of per-example
+scores (NaN = unscorable, left out of the aggregate and counted), with the
+config's ``params`` bound as the reference's ``get_metric`` binds them.
+``ctx`` carries what scorers share: the judge engine, the embedder (the
+default hash embedder when None), the logs the judge's unparseable answers
+go to, and the device BERTScore runs on."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import TYPE_CHECKING, Callable, Sequence
+from typing import TYPE_CHECKING, Any, Callable, Sequence
 
 import numpy as np
 import torch
 
-from repro_torch.metrics import lexical, semantic
+from repro_torch.metrics import lexical, rag, semantic
+from repro_torch.metrics.judge import pointwise_judge
 
 if TYPE_CHECKING:  # core imports this module; keep the import one-way
     from repro_torch.core.config import MetricConfig
@@ -22,17 +23,36 @@ if TYPE_CHECKING:  # core imports this module; keep the import one-way
 
 @dataclasses.dataclass
 class MetricContext:
-    #: where the semantic metrics' kernels run (None: the card)
+    judge_engine: Any = None
+    embedder: semantic.HashEmbedder | None = None
+    logs: dict = dataclasses.field(default_factory=dict)
+    #: where BERTScore's kernel runs (None: the card)
     device: torch.device | None = None
 
 
 Scorer = Callable[[list[dict], list[str], MetricContext], np.ndarray]
 #: metrics whose scores are 0/1 (their analytical interval is Wilson's)
 BINARY_METRICS = {"exact_match", "contains"}
+#: metrics that grade with ``ctx.judge_engine`` (the score stage sets one up)
+JUDGE_METRICS = {"llm_judge", "faithfulness", "context_relevance"}
 
 
 def _refs(rows: list[dict]) -> list[str]:
     return [str(r.get("reference", "")) for r in rows]
+
+
+def _questions(rows: list[dict]) -> list[str]:
+    return [str(r.get("question", "")) for r in rows]
+
+
+def _contexts(rows: list[dict]) -> list[list[str]]:
+    return [list(r.get("contexts", [])) for r in rows]
+
+
+def _judge_of(ctx: MetricContext, metric: str):
+    if ctx.judge_engine is None:
+        raise ValueError(f"{metric} needs a judge engine")
+    return ctx.judge_engine
 
 
 def _lexical(name: str) -> Scorer:
@@ -43,24 +63,65 @@ def _lexical(name: str) -> Scorer:
 
 
 def _embed_sim(rows, responses, ctx, **kw):
-    return semantic.embedding_similarity(responses, _refs(rows))
+    return semantic.embedding_similarity(responses, _refs(rows), ctx.embedder)
 
 
 def _bertscore(rows, responses, ctx, **kw):
-    return semantic.bertscore_f1(responses, _refs(rows), device=ctx.device, **kw)
+    return semantic.bertscore_f1(
+        responses, _refs(rows), embedder=ctx.embedder, device=ctx.device, **kw
+    )
+
+
+def _llm_judge(rows, responses, ctx, *, rubric: str = "helpfulness", scale: int = 5):
+    outcome = pointwise_judge(
+        _judge_of(ctx, "llm_judge"), _questions(rows), responses,
+        rubric=rubric, scale=scale,
+    )
+    ctx.logs.setdefault("judge_unparseable", []).extend(outcome.unparseable)
+    return outcome.scores
+
+
+def _faithfulness(rows, responses, ctx, **kw):
+    return rag.faithfulness(
+        _judge_of(ctx, "faithfulness"), responses, _contexts(rows), **kw
+    )
+
+
+def _context_relevance(rows, responses, ctx, **kw):
+    return rag.context_relevance(
+        _judge_of(ctx, "context_relevance"), _questions(rows), _contexts(rows), **kw
+    )
+
+
+def _answer_relevance(rows, responses, ctx, **kw):
+    return rag.answer_relevance(_questions(rows), responses, ctx.embedder)
+
+
+def _context_precision(rows, responses, ctx, **kw):
+    return rag.context_precision(_contexts(rows), _refs(rows), **kw)
+
+
+def _context_recall(rows, responses, ctx, **kw):
+    return rag.context_recall(_contexts(rows), _refs(rows))
 
 
 _REGISTRY: dict[str, Scorer] = {
     **{name: _lexical(name) for name in lexical.SCALAR},
     "embedding_similarity": _embed_sim,
     "bertscore": _bertscore,
+    "llm_judge": _llm_judge,
+    "faithfulness": _faithfulness,
+    "context_relevance": _context_relevance,
+    "answer_relevance": _answer_relevance,
+    "context_precision": _context_precision,
+    "context_recall": _context_recall,
 }
 
 
 def get_metric(cfg: "MetricConfig") -> Scorer:
     if cfg.name not in _REGISTRY:
         raise KeyError(
-            f"metric {cfg.name!r} is not ported; available: {sorted(_REGISTRY)}"
+            f"unknown metric {cfg.name!r}; available: {sorted(_REGISTRY)}"
         )
     base = _REGISTRY[cfg.name]
     if cfg.params:
@@ -72,3 +133,7 @@ def resolve_metrics(cfgs: Sequence["MetricConfig"]) -> list[tuple[str, Scorer]]:
     """Resolve a task's metric configs to bound scorers; unknown ones raise
     before any inference runs."""
     return [(cfg.name, get_metric(cfg)) for cfg in cfgs]
+
+
+def available_metrics() -> list[str]:
+    return sorted(_REGISTRY)

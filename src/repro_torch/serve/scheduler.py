@@ -7,9 +7,14 @@ A fixed pool of ``n_slots`` decode slots steps in lock-step.  Each step:
 1. slots whose last token finished them (EOS or ``max_new_tokens``) emit
    their completion and free up (reap),
 2. free slots are refilled from the queue, each prompt prefilled at its
-   exact length straight into its slot's cache rows (refill),
+   exact length straight into its slot's cache rows (refill); its first
+   token is greedy,
 3. slots whose first token already finished them are reaped again,
-4. one decode step advances every slot.
+4. one decode step advances every slot: greedy, or at ``temperature`` > 0
+   sampled under a threefry key that starts at the reference's
+   ``jax.random.key(0)`` and is split once per decode step, as the
+   reference's batcher does.  Sampled tokens therefore depend on the step
+   a token is decoded in, and so on the schedule.
 
 Decode always runs the full ``n_slots`` batch, as the reference does, free
 slots included: every row of the projection GEMMs then has one fixed shape
@@ -45,6 +50,7 @@ import torch
 from repro_torch.configs import ModelConfig
 from repro_torch.models import PageTables
 from repro_torch.serve import steps as steps_lib
+from repro_torch.stats import threefry
 from repro_torch.serve.paged_cache import (
     PagedCacheManager,
     PagePoolExhausted,
@@ -151,8 +157,9 @@ def paged_page_bytes(cfg: ModelConfig, page_size: int, kv_cache_dtype: str) -> i
 
 
 class ContinuousBatcher:
-    """Slot-multiplexed greedy decode loop around the model's prefill and
-    decode step, on the device that holds ``params``."""
+    """Slot-multiplexed decode loop (greedy, or sampled at ``temperature``
+    > 0) around the model's prefill and decode step, on the device that
+    holds ``params``."""
 
     def __init__(
         self,
@@ -169,6 +176,7 @@ class ContinuousBatcher:
         page_pool: int = 0,
         page_pool_bytes: int = 0,
         kv_cache_dtype: str = "bf16",
+        temperature: float = 0.0,
     ):
         check_kv_cache(page_size, kv_cache_dtype)
         if page_size and cfg.family not in PAGEABLE_FAMILIES:
@@ -183,6 +191,9 @@ class ContinuousBatcher:
         #: instead of stalling every decode step behind it
         self.max_prefills_per_step = max_prefills_per_step
         self.device = params["embed"].device
+        self.temperature = temperature
+        #: the decode steps' sampling key (used only at temperature > 0)
+        self.key = threefry.key(0, device=self.device)
         self.stats = BatcherStats(n_slots=n_slots)
         #: 0 = contiguous per-slot cache; > 0 = page pool of this page size
         self.page_size = page_size
@@ -415,7 +426,14 @@ class ContinuousBatcher:
         logits = self.model.decode_step(
             self.params, tokens, self.cache, positions, pages
         )
-        nxt = steps_lib.greedy_sample(logits, self.cfg.vocab_size).cpu().numpy()
+        if self.temperature > 0:
+            self.key, sub = threefry.split(self.key, 2).unbind(0)
+            nxt = steps_lib.temperature_sample(
+                logits, self.cfg.vocab_size, self.temperature, sub
+            )
+        else:
+            nxt = steps_lib.greedy_sample(logits, self.cfg.vocab_size)
+        nxt = nxt.cpu().numpy()
         self.stats.decode_s += time.perf_counter() - t0
         for slot in active:
             self.slot_tokens[slot].append(int(nxt[slot]))

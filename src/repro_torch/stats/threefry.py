@@ -1,9 +1,10 @@
-"""The Threefry-2x32 counter PRNG with the key split and ``randint`` of
-``jax.random`` (JAX 0.9.0: ``jax._src.prng`` and ``jax._src.random``,
-default implementation ``threefry2x32`` with ``jax_threefry_partitionable``
-on and 64-bit mode off), in integer torch ops.  The port's in-memory
-bootstrap draws its resample indices here, so they are the reference's
-integers bit for bit, on whatever device the session runs.
+"""The Threefry-2x32 counter PRNG with the key split, ``randint``,
+``uniform`` and ``gumbel`` of ``jax.random`` (JAX 0.9.0: ``jax._src.prng``
+and ``jax._src.random``, default implementation ``threefry2x32`` with
+``jax_threefry_partitionable`` on and 64-bit mode off), in integer torch
+ops.  The port's in-memory bootstrap draws its resample indices here, and
+its temperature sampling its Gumbel noise, so both are the reference's bits
+on whatever device the session runs.
 
 A key is an int64 tensor of shape (..., 2) holding two uint32 words.  torch
 has no full uint32 arithmetic, so every uint32 value lives in an int64
@@ -13,6 +14,8 @@ its mask.
 """
 
 from __future__ import annotations
+
+import struct
 
 import torch
 
@@ -91,3 +94,89 @@ def randint(key: torch.Tensor, n: int, minval: int, maxval: int) -> torch.Tensor
     offset = ((hi % span) * mult) & _M
     offset = ((offset + lo % span) & _M) % span
     return minval + offset
+
+
+
+
+def _f32(v: float) -> float:
+    """``v`` rounded to the nearest f32, as XLA holds its constants."""
+    return struct.unpack("f", struct.pack("f", v))[0]
+
+
+#: f32 constants of XLA's CPU logarithm (the Cephes polynomial; see ``log32``)
+_F32_TINY = _f32(1.1754943508222875e-38)
+_SQRT_HALF = _f32(0.707106781186547524)
+_LOG_P = tuple(_f32(v) for v in (
+    7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
+    1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
+    3.3333331174e-1))
+_LOG_Q1, _LOG_Q2 = _f32(-2.12194440e-4), _f32(0.693359375)
+
+
+def uniform(key: torch.Tensor, shape: tuple[int, ...], minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)`` for one
+    key: the top 23 bits of each word fill the mantissa of a float in [1, 2),
+    less 1, scaled into the range (one fused multiply-add, as XLA does it)
+    and clamped below at ``minval``."""
+    n = 1
+    for d in shape:
+        n *= d
+    bits = random_bits(key, n).reshape(shape)
+    mant = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    floats = mant.view(torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    # XLA fuses the scale and the shift into one multiply-add
+    return torch.maximum(lo, _fma32(floats, (hi - lo).double(), lo))
+
+
+def _fma32(a: torch.Tensor, b, c) -> torch.Tensor:
+    """f32 ``a * b + c`` with one rounding, as a fused multiply-add gives
+    it.  The product is exact in f64 and two-sum recovers the f64 sum's
+    rounding error exactly; rounding that sum to f32 is then wrong only
+    where it lands on an f32 tie with a non-zero error, and there the sum
+    is moved one f64 ulp toward the exact value first."""
+    p = a.double() * b
+    c = torch.as_tensor(c, dtype=torch.float64, device=a.device)
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    r = s.float()
+    r64 = r.double()
+    inf = torch.full_like(r, float("inf"))
+    neighbour = torch.nextafter(r, torch.where(s > r64, inf, -inf)).double()
+    tie = (s != r64) & (2 * s == r64 + neighbour) & (err != 0)
+    toward = torch.where(err > 0, inf, -inf).double()
+    return torch.where(tie, torch.nextafter(s, toward), s).float()
+
+
+def log32(x: torch.Tensor) -> torch.Tensor:
+    """Natural log of positive normal f32 values, bit for bit as XLA's CPU
+    backend computes it: the Cephes degree-8 polynomial over the mantissa
+    folded into [sqrt(1/2), sqrt(2)), with fused multiply-adds where XLA
+    fuses them.  ``torch.log`` differs from it by an ulp in ~1 value of 7.
+    """
+    x = x.float()
+    bits = x.view(torch.int32)
+    e = ((bits >> 23) - 0x7F).float() + 1.0
+    m = ((bits & ~0x7F800000) | 0x3F000000).view(torch.float32)
+    small = m < _SQRT_HALF
+    e = e - small.float()
+    m = (m - 1.0) + torch.where(small, m, torch.zeros_like(m))
+    m2 = m * m
+    m3 = m2 * m
+    p = _LOG_P
+    y = _fma32(_fma32(m, p[0], p[1]), m, p[2])
+    y1 = _fma32(_fma32(m, p[3], p[4]), m, p[5])
+    y2 = _fma32(_fma32(m, p[6], p[7]), m, p[8])
+    y = _fma32(_fma32(y, m3, y1), m3, y2)
+    y = _fma32(y, m3, e * _LOG_Q1)
+    return ((m - m2 * 0.5) + y) + e * _LOG_Q2
+
+
+def gumbel(key: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape, float32)`` in its default ``"low"``
+    mode: ``-log(-log(u))`` of ``uniform`` draws in [tiny, 1)."""
+    u = uniform(key, shape, minval=_F32_TINY, maxval=1.0)
+    return -log32(-log32(u))

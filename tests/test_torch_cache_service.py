@@ -206,7 +206,7 @@ def test_bad_request_fails_only_its_ticket_and_a_crash_reaches_every_ticket():
     with pytest.raises(RuntimeError, match="dispatch failed"):
         svc.submit(InferenceRequest("later"))
     svc.close()
-    assert not svc._thread.is_alive()
+    assert not any(t.is_alive() for t in svc._threads)
 
 
 def test_close_serves_queued_work_then_joins():
@@ -215,7 +215,7 @@ def test_close_serves_queued_work_then_joins():
     tickets = [svc.submit(InferenceRequest(str(i)), key=str(i)) for i in range(20)]
     svc.close()
     assert [t.result(0.0).text for t in tickets] == [str(i) for i in range(20)]
-    assert not svc._thread.is_alive()
+    assert not any(t.is_alive() for t in svc._threads)
     with pytest.raises(RuntimeError, match="closed"):
         svc.submit(InferenceRequest("late"))
 

@@ -53,7 +53,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "repro_torch.stats.significance", "repro_torch.stats.effect",
                    "repro_torch.stats.select", "repro_torch.storage.deltalite",
                    "repro_torch.core.cache", "repro_torch.core.service",
-                   "repro_torch.core.compare", "repro_torch.core.suite"):
+                   "repro_torch.core.compare", "repro_torch.core.suite",
+                   "repro_torch.core.ratelimit", "repro_torch.core.tracking",
+                   "repro_torch.core.runner", "repro_torch.ft.workers",
+                   "repro_torch.metrics.judge", "repro_torch.metrics.rag"):
         assert module in out["imported"]
 
 

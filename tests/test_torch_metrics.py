@@ -2,8 +2,9 @@
 against the JAX package's on the same strings: the hash embedder bit for
 bit, the five lexical metrics exactly, ``embedding_similarity`` and
 ``bertscore_f1`` (on the CPU, through the kernel's plain version) within
-1e-6; and the registry: params binding, the binary set, and the metrics
-not ported yet refused before any scoring."""
+1e-6; and the registry: params binding and hashing, the binary set,
+every reference metric resolving and an unknown one refused before any
+scoring."""
 
 import numpy as np
 import pytest
@@ -13,6 +14,7 @@ import repro.core  # noqa: F401  (before repro.metrics: circular import)
 from repro.data import iter_qa_examples as jax_rows
 from repro.metrics import lexical as jax_lexical
 from repro.metrics import semantic as jax_semantic
+from repro.core.config import MetricConfig as JaxMetricConfig
 from repro.metrics.registry import BINARY_METRICS as JAX_BINARY
 from repro_torch.core import EvalTask, MetricConfig
 from repro_torch.core.stages import EvalArtifact, ScoreStage
@@ -154,8 +156,11 @@ def test_params_are_bound_and_reach_the_scorer():
     np.testing.assert_array_equal(
         raw(rows, preds, ctx),
         jax_lexical.batch_lexical("exact_match", preds, refs, normalized=False))
-    # params stay out of the hash, so a task holding such configs hashes
+    # params enter the hash as their JSON, as the reference's do, so a task
+    # holding such configs hashes and configs differing in params differ
     assert hash(MetricConfig("bertscore", params={"max_len": 3})) == hash(
+        JaxMetricConfig("bertscore", params={"max_len": 3}))
+    assert hash(MetricConfig("bertscore", params={"max_len": 3})) != hash(
         MetricConfig("bertscore", params={"max_len": 4}))
     hash(EvalTask("t", metrics=(MetricConfig("contains",
                                              params={"normalized": False}),)))
@@ -165,8 +170,15 @@ def test_params_are_bound_and_reach_the_scorer():
     "name", ["llm_judge", "faithfulness", "context_relevance", "answer_relevance",
              "context_precision", "context_recall", "no_such_metric"])
 def test_unported_metrics_raise_at_resolution(name):
-    with pytest.raises(KeyError, match="not ported"):
-        resolve_metrics([MetricConfig("exact_match"), MetricConfig(name)])
+    """Every metric of the reference's registry resolves now, the judge and
+    RAG ones included; a name the registry does not know still raises
+    before any inference runs."""
+    cfgs = [MetricConfig("exact_match"), MetricConfig(name)]
+    if name == "no_such_metric":
+        with pytest.raises(KeyError, match="unknown metric"):
+            resolve_metrics(cfgs)
+    else:
+        assert [n for n, _ in resolve_metrics(cfgs)] == ["exact_match", name]
 
 
 def test_score_stage_scores_each_chunk_on_the_session_device(monkeypatch):
@@ -183,6 +195,7 @@ def test_score_stage_scores_each_chunk_on_the_session_device(monkeypatch):
 
     class _Session:
         device = torch.device("cpu")
+        judge_engine = None
 
     task = EvalTask("t", metrics=(MetricConfig("contains"),
                                   MetricConfig("bertscore", type="semantic")))

@@ -183,13 +183,19 @@ def test_engine_truncates_prompt_and_clamps_new_tokens():
 
 
 def test_engine_refuses_sampling_and_foreign_providers():
-    with pytest.raises(NotImplementedError):
-        TorchLocalEngine(EngineModelConfig(temperature=0.7), device="cpu")
+    """Temperature sampling is ported (``tests/test_torch_temperature.py``):
+    an engine at ``temperature`` > 0 builds and its batcher samples, and a
+    request's own temperature is not read, as in the reference's engine.
+    A provider other than the port's is still refused."""
+    hot = TorchLocalEngine(EngineModelConfig(temperature=0.7), device="cpu")
+    hot.initialize()
+    assert hot.batcher.temperature == 0.7
     with pytest.raises(ValueError):
         TorchLocalEngine(EngineModelConfig(provider="local"), device="cpu")
     eng = _engine()
-    with pytest.raises(NotImplementedError):
-        eng.infer_batch([InferenceRequest("hi", temperature=1.0)])
+    (resp,) = eng.infer_batch([InferenceRequest("hi", temperature=1.0)])
+    (greedy,) = eng.infer_batch([InferenceRequest("hi")])
+    assert resp.error is None and resp.text == greedy.text
 
 
 def test_engine_cancel_drops_a_queued_request():
