@@ -65,9 +65,9 @@ kernels 1, 2, 6, 7 and 8 must launch in the phase.  Phase 7, the harness
 around inference, runs in phase 2's session on its qwen3-4b engine (no new
 weights), over 32 rows (two chunks): (a) phase 2's task on the lock-step
 path (``use_service=False``, two workers, two shards a chunk) in memory
-and streaming, bit for bit the service path's texts, scores, metrics and
-streaming state on the same rows, with its engine calls and cache counts,
-and the worker pool's counts filled; (b) the RAG task
+and streaming over 16 rows (one chunk), bit for bit the service path's
+texts, scores, metrics and streaming state on the same rows, with its
+engine calls and cache counts, and the worker pool's counts filled; (b) the RAG task
 (``rag_examples(32)``, ``llm_judge``, the five RAG metrics,
 ``exact_match``) with the task's own engine as judge, the judge's launches
 of kernels 1 and 2 counted apart from the task's: every random-weight
@@ -82,7 +82,27 @@ score and unparseable row equals the simulated judge rerun on the host;
 equal texts, unlike the greedy ones, and one decode step's sampled tokens
 equal to the host's argmax of the step's logits / T plus the CPU's
 threefry Gumbel noise under the same key, near ties (top two within 1e-5
-relative) counted and exempt.
+relative) counted and exempt.  Phase 8, streaming at scale, runs at the
+end of phase 6's session (every prompt already encoded, no new weights),
+chunks of 16, ``backend="device"``: (a) qwen3-4b over 48 rows spilled to
+a manifest, uninterrupted, then crashed by ``ChunkCrashMiddleware`` after
+chunk 1 and resumed in the same session (only chunk 2's 16 prompts reach
+the engine, 16 x 36 launches of kernel 1 and one of kernel 6; metrics and
+streaming state bit for bit the uninterrupted run's), then resumed again
+(no engine call, no launch); (b) the same rows with
+``max_inflight_chunks=2`` (texts' digests, metrics, streaming state and
+engine stats bit for bit (a)'s, at most 32 rows resident); (c) 64 rows
+stopped by ``with_stopping(max_examples=32, min_examples=16)`` after
+chunk 1 and replayed with no engine call, and a width rule on
+``exact_match`` (0 on every answer, so its half-width depends on n
+alone) whose target, computed on the host with the port's
+``sequential_ci``, fires after chunk 2 of 4; (d) ``run_adaptive_suite``
+over qwen3-4b and mamba2-2.7b with ``BudgetConfig(total_examples=96,
+min_examples=16, round_examples=16)``: every round after the seed round
+runs only new chunks, the budget holds, kernel 8 launches in the Mamba2
+arm, the verdicts equal ``sequential_compare`` rerun on the host, and a
+replay over the same spill dirs makes no engine call and gives the same
+payload.
 
 Standard output: the card's name and power limit first, then log lines,
 then one ``{"kernels": [...]}`` line, and last the
@@ -362,6 +382,7 @@ def device_profile(torch, fn, kernels: int, calls: int = 10,
     fn()
     torch.cuda.synchronize()
     counts = []
+    PROFILE_TRACES["profiles"] += 1
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
@@ -372,8 +393,17 @@ def device_profile(torch, fn, kernels: int, calls: int = 10,
         if len(spans) == kernels * calls:
             return sum(spans) / 1e3 / calls
         counts.append(len(spans))
+        PROFILE_TRACES["retakes"] += 1
+        log(f"device profile: a trace of {calls} calls held {len(spans)} device "
+            f"records, not {kernels * calls}; taken again "
+            f"({PROFILE_TRACES['retakes']} retake(s) so far)")
     raise CheckFailed(f"device profile: {counts} device records in {tries} traces "
                       f"of {calls} calls, not {kernels * calls} each")
+
+
+#: device profiles taken, and traces taken again because they were short of
+#: a device record (logged at the end of phase 1)
+PROFILE_TRACES = {"profiles": 0, "retakes": 0}
 
 
 def kernel_limits(lib_fn: str, names: dict[int, str]) -> None:
@@ -932,7 +962,7 @@ def kernel_phase(torch, fs) -> list[dict]:
     from repro_torch.core import StatisticsConfig, StreamingConfig
 
     seed = StatisticsConfig().seed
-    return [
+    entries = [
         *flash_cases(torch, fs),
         *decode_cases(torch),
         *paged_cases(torch, fs),
@@ -952,6 +982,9 @@ def kernel_phase(torch, fs) -> list[dict]:
         *bertscore_cases(torch),
         *bootstrap_means_cases(torch),
     ]
+    log(f"phase 1 device profiles: {PROFILE_TRACES['profiles']} taken, "
+        f"{PROFILE_TRACES['retakes']} trace(s) taken again for a missing record")
+    return entries
 
 
 # -- phase 2: the contiguous main path ---------------------------------------------
@@ -1790,7 +1823,7 @@ def suite_gates(torch, suite, res) -> None:
                 f"{c.diff_ci!r}, on the CPU {cpu.diff_ci!r}")
 
 
-def suite_phase(torch) -> dict[str, int]:
+def suite_phase(torch) -> tuple[dict[str, int], dict[str, dict[str, int]]]:
     """Phase 6: one session holding full-width qwen3-4b and mamba2-2.7b
     (random bf16 weights from seed 0) on the card; ``run_suite`` over both
     models x an in-memory task and a streaming task (chunks of 16,
@@ -1798,7 +1831,8 @@ def suite_phase(torch) -> dict[str, int]:
     cosine metric; the same suite with ``parallel_jobs=2`` against the
     serial run; the response cache (a second run with no engine call, then
     ``CacheMiss`` under ``REPLAY``); ``rescore_stages`` with BERTScore; and
-    single-flight over repeated prompts.  Returns the phase's launches."""
+    single-flight over repeated prompts; then phase 8 in the same session.
+    Returns phase 6's launches and phase 8's."""
     import tempfile
     import threading
 
@@ -1991,14 +2025,17 @@ def suite_phase(torch) -> dict[str, int]:
             f"{s['engine']} submitted {s['submitted']} dispatched {s['dispatched']} "
             f"coalesced {s['coalesced']}" for s in serving))
         log(f"phase 6 accounting: {session.accounting.as_dict()}")
+        phase_launches = read_counts()
+        log(f"phase 6 launches: {phase_launches}; "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB peak allocated")
+        for name in SUITE_KERNELS:
+            require(phase_launches[name] > 0, f"phase 6: {name} was not launched")
+        log(f"phase 6 took {time.perf_counter() - t_phase:.1f} s")
 
-    phase_launches = read_counts()
-    log(f"phase 6 launches: {phase_launches}; "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB peak allocated")
-    for name in SUITE_KERNELS:
-        require(phase_launches[name] > 0, f"phase 6: {name} was not launched")
-    log(f"phase 6 took {time.perf_counter() - t_phase:.1f} s")
-    return phase_launches
+        t0 = time.perf_counter()
+        streaming = streaming_phase(torch, session, models, metrics)
+        log(f"phase 8 took {time.perf_counter() - t0:.1f} s")
+    return phase_launches, streaming
 
 
 #: phase 7: its rows (two chunks: the lock-step path keeps two prompts in
@@ -2011,6 +2048,9 @@ def suite_phase(torch) -> dict[str, int]:
 #: two scores count as a tie
 PHASE7_ROWS = 32
 LOCKSTEP_WORKERS, LOCKSTEP_SHARD = 2, 8
+#: phase 7 (a)'s rows on both paths: one chunk of two shards (a lock-step
+#: run of 32 rows took ~40 s, which pushed the whole script past 600 s)
+LOCKSTEP_ROWS = CHUNK
 RAG_METRICS = (("llm_judge", "llm_judge"), ("faithfulness", "rag"),
                ("context_relevance", "rag"), ("answer_relevance", "rag"),
                ("context_precision", "rag"), ("context_recall", "rag"),
@@ -2079,21 +2119,26 @@ def nan_metric(mv) -> bool:
 def lockstep_gates(torch, session, task):
     """Phase 7 (a): phase 2's task on the lock-step path
     (``use_service=False``, two workers calling the engine one prompt at a
-    time) in memory and streaming, against the service path on the same
-    rows (in memory, a fresh response cache each).  Returns the service
-    run's in-memory result."""
+    time) in memory and streaming over ``LOCKSTEP_ROWS``, against the
+    service path on the same rows (in memory, a fresh response cache
+    each).  Returns the service path's in-memory result over the phase's
+    ``PHASE7_ROWS``, the greedy texts (d) compares with."""
     import tempfile
 
     from repro_torch.core import InferenceConfig, StreamingConfig
 
     kernels = ("flash_attention", "decode_attention")
-    run = functools.partial(timed_run_task, torch, session, n_rows=PHASE7_ROWS)
+    run = functools.partial(timed_run_task, torch, session, n_rows=LOCKSTEP_ROWS)
     lock = InferenceConfig(use_service=False, n_workers=LOCKSTEP_WORKERS,
                            batch_size=LOCKSTEP_SHARD)
+    greedy_task = dataclasses.replace(task, streaming=StreamingConfig())
+    *_, greedy = timed_run_task(torch, session, greedy_task, kernels,
+                                "phase 7 (a) service path in memory, the phase's rows",
+                                n_rows=PHASE7_ROWS)
     with tempfile.TemporaryDirectory() as tmp:
         # the same shards on both paths: a shard's cache writes are one
         # table version
-        mem = dataclasses.replace(task, streaming=StreamingConfig(),
+        mem = dataclasses.replace(greedy_task,
                                   inference=InferenceConfig(cache_dir=f"{tmp}/service",
                                                             batch_size=LOCKSTEP_SHARD))
         lock_mem = dataclasses.replace(mem, inference=dataclasses.replace(
@@ -2110,8 +2155,8 @@ def lockstep_gates(torch, session, task):
 
     # a shard is ``batch_size`` prompts of the rows in memory, or of a chunk
     bs = lock.batch_size
-    shards = {"in memory": -(-PHASE7_ROWS // bs),
-              "streaming": PHASE7_ROWS // CHUNK * -(-CHUNK // bs)}
+    shards = {"in memory": -(-LOCKSTEP_ROWS // bs),
+              "streaming": LOCKSTEP_ROWS // CHUNK * -(-CHUNK // bs)}
     for label, got, want in (("in memory", lm, svc), ("streaming", ls, ss)):
         require(same_result(torch, got, want),
                 f"lock-step {label}: texts, scores, metrics or streaming state "
@@ -2123,12 +2168,14 @@ def lockstep_gates(torch, session, task):
         require(pool.get("shards") == shards[label] and pool["failures"] == 0,
                 f"lock-step {label}: pool stats {pool}")
         require(want.engine_stats["pool"] == {}, "the service path filled pool stats")
-    require(lm.cache_stats["misses"] == lm.cache_stats["writes"] == PHASE7_ROWS,
+    require(lm.cache_stats["misses"] == lm.cache_stats["writes"] == LOCKSTEP_ROWS,
             f"lock-step in memory: cache {lm.cache_stats}")
+    require(svc.responses == greedy.responses[:LOCKSTEP_ROWS],
+            "the service path's texts depend on the rows run beside them")
     log(f"phase 7 (a): the lock-step path equals the service path bit for bit in "
         f"memory and streaming; engine stats {calls(lm)}, cache {lm.cache_stats}, "
         f"pool {lm.engine_stats['pool']} / {ls.engine_stats['pool']}")
-    return svc
+    return greedy
 
 
 def rag_task(base_task):
@@ -2359,6 +2406,354 @@ def harness_phase(torch, session, task) -> dict[str, dict[str, int]]:
     return by_stage
 
 
+# -- phase 8: streaming at scale -------------------------------------------------
+
+#: phase 8's sources: (a) and (b) three chunks, (c) four; (d) draws from
+#: phase 6's N_ROWS; the budget of (d) in scored examples, its seed round
+#: and its round size
+STREAM_ROWS, STOP_ROWS = 3 * CHUNK, 4 * CHUNK
+BUDGET_TOTAL, BUDGET_MIN, BUDGET_ROUND = 6 * CHUNK, CHUNK, CHUNK
+#: kernel 6 launches a live chunk: one per group of 8 metric columns
+PARTIALS_PER_CHUNK = -(-len(SUITE_METRICS) // 8)
+STREAM_KERNELS = ("flash_attention", "decode_attention", "bootstrap_partials")
+
+
+class TextDigests:
+    """Context manager: a digest of each chunk's texts, keyed by a digest of
+    its rows, as the score stage sees them (a streaming result drops its
+    texts).  Chunk workers of a concurrent run record from their threads."""
+
+    def __enter__(self):
+        import hashlib
+
+        from repro_torch.core.stages import ScoreStage
+
+        self.digests: dict[str, str] = {}
+        self._cls, self._run = ScoreStage, ScoreStage.run
+        digests, orig = self.digests, self._run
+
+        def run(stage, art, session):
+            rows = hashlib.sha256(json.dumps(art.rows, sort_keys=True).encode())
+            digests[rows.hexdigest()] = hashlib.sha256(
+                "\x1f".join(art.texts).encode()).hexdigest()
+            return orig(stage, art, session)
+
+        ScoreStage.run = run
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._cls.run = self._run
+
+
+class RunLog:
+    """Middleware: each finished task's model, resumed and total chunks and
+    the engine calls it made (the rounds of an adaptive suite; a result's
+    ``engine_stats`` also counts the calls of its resumed chunks)."""
+
+    def __init__(self):
+        self.runs: list[tuple[str, int, int, int]] = []
+        self._calls = 0
+
+    def on_task_start(self, task, rows, session) -> None:
+        self._calls = session.accounting.engine_calls
+
+    def on_stage_start(self, stage, art, session) -> None:
+        pass
+
+    def on_stage_end(self, stage, art, session) -> None:
+        pass
+
+    def on_chunk_end(self, chunk_index, state, session) -> None:
+        pass
+
+    def on_task_end(self, task, result, session) -> None:
+        st = result.logs["streaming"]
+        self.runs.append((task.model.model_name, st["n_resumed_chunks"],
+                          st["n_chunks"], session.accounting.engine_calls - self._calls))
+
+
+def stream_run(torch, session, task, n_rows: int, label: str, crash=None):
+    """``run_task`` over ``n_rows`` QA rows with every launch count set to
+    0 just before and read just after; with ``crash`` (a
+    ``ChunkCrashMiddleware``) the run must die of its ``SimulatedCrash``.
+    Logs the wall, the engine calls and the launches; returns (result or
+    None, launches, engine calls)."""
+    from repro_torch.data import iter_qa_examples
+    from repro_torch.ft import SimulatedCrash
+
+    calls = session.accounting.engine_calls
+    zero_counts()
+    t0 = time.perf_counter()
+    result = None
+    if crash is None:
+        result = session.run_task(iter_qa_examples(n_rows, seed=0), task)
+    else:
+        session.middleware.append(crash)
+        try:
+            session.run_task(iter_qa_examples(n_rows, seed=0), task)
+            raise CheckFailed(f"phase 8 {label}: the injected crash did not fire")
+        except SimulatedCrash as e:
+            log(f"phase 8 {label}: {e}")
+        finally:
+            session.middleware.remove(crash)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    calls = session.accounting.engine_calls - calls
+    shown = {k: v for k, v in launches.items() if v}
+    extra = ""
+    if result is not None:
+        st = {k: v for k, v in result.logs["streaming"].items() if k != "spill_dir"}
+        extra = f"; streaming {st}"
+        if "adaptive" in result.logs:
+            extra += f"; adaptive {result.logs['adaptive']}"
+    log(f"phase 8 {label}: wall {wall:.3f} s, {calls} engine calls, launches "
+        f"{shown}{extra}")
+    return result, launches, calls
+
+
+def launched(launches: dict[str, int], label: str, **want: int) -> None:
+    """Each named kernel launched exactly that many times."""
+    got = {k: launches[k] for k in want}
+    require(got == want, f"phase 8 {label}: launches {got}, not {want}")
+
+
+def resume_phase(torch, session, task, tmp: str):
+    """Phase 8 (a): spill, crash and resume on qwen3-4b.  Returns the
+    uninterrupted run, its texts' digests and the resumed run's launches."""
+    from repro_torch.ft import ChunkCrashMiddleware, Fault
+
+    per_prompt = QWEN_LAYERS  # one prefill launch of kernel 1 a layer
+    with TextDigests() as ref_texts:
+        ref, launches, calls = stream_run(
+            torch, session, task.with_streaming(spill_dir=f"{tmp}/ref"),
+            STREAM_ROWS, "(a) uninterrupted")
+    require(calls == STREAM_ROWS and len(ref_texts.digests) == STREAM_ROWS // CHUNK,
+            f"(a) uninterrupted: {calls} engine calls, {len(ref_texts.digests)} chunks")
+    launched(launches, "(a) uninterrupted", flash_attention=STREAM_ROWS * per_prompt,
+             bootstrap_partials=STREAM_ROWS // CHUNK * PARTIALS_PER_CHUNK)
+    require(ref.stream_stats.engine.stream_id() == "device-kernel",
+            f"(a): stream {ref.stream_stats.engine.stream_id()}")
+
+    spilled = task.with_streaming(spill_dir=f"{tmp}/crash")
+    crash = ChunkCrashMiddleware([Fault(shard=1, attempt=1)])
+    _, launches, calls = stream_run(torch, session, spilled, STREAM_ROWS,
+                                    "(a) crash after chunk 1", crash=crash)
+    require(calls == 2 * CHUNK and crash.injected == [(1, 1, "raise")],
+            f"(a) crash: {calls} engine calls, injected {crash.injected}")
+
+    with TextDigests() as texts:
+        res, resumed, calls = stream_run(torch, session, spilled, STREAM_ROWS,
+                                         "(a) resumed")
+    st = res.logs["streaming"]
+    require(st["n_resumed_chunks"] == 2 and st["n_chunks"] == 3 and calls == CHUNK,
+            f"(a) resumed: {st['n_resumed_chunks']} resumed chunks, {calls} engine calls")
+    launched(resumed, "(a) resumed", flash_attention=CHUNK * per_prompt,
+             bootstrap_partials=PARTIALS_PER_CHUNK)
+    require(resumed["decode_attention"] > 0, "(a) resumed: decode_attention not launched")
+    require(same_result(torch, res, ref) and res.engine_stats == ref.engine_stats,
+            "(a) resumed: metrics, streaming state or engine stats differ from the "
+            "uninterrupted run")
+    require(len(texts.digests) == 1
+            and texts.digests.items() <= ref_texts.digests.items(),
+            "(a) resumed: chunk 2's texts differ from the uninterrupted run's")
+
+    again, launches, calls = stream_run(torch, session, spilled, STREAM_ROWS,
+                                        "(a) resume of the finished run")
+    require(calls == 0 and again.logs["streaming"]["n_resumed_chunks"] == 3,
+            f"(a) again: {calls} engine calls")
+    launched(launches, "(a) again", flash_attention=0, decode_attention=0,
+             bootstrap_partials=0)
+    require(same_result(torch, again, ref), "(a) again: result differs")
+    log("phase 8 (a): the resumed run ran chunk 2 alone and equals the "
+        "uninterrupted run bit for bit; a second resume launched nothing")
+    return ref, ref_texts.digests, resumed
+
+
+def concurrent_phase(torch, session, task, ref, ref_texts) -> None:
+    """Phase 8 (b): two chunks in flight through one batcher."""
+    conc = task.with_streaming(concurrency=2)
+    with TextDigests() as texts:
+        res, launches, calls = stream_run(torch, session, conc, STREAM_ROWS,
+                                          "(b) max_inflight_chunks=2")
+    st = res.logs["streaming"]
+    launched(launches, "(b)", flash_attention=STREAM_ROWS * QWEN_LAYERS,
+             bootstrap_partials=STREAM_ROWS // CHUNK * PARTIALS_PER_CHUNK)
+    require(same_result(torch, res, ref) and texts.digests == ref_texts,
+            "(b): metrics, streaming state or texts differ from (a)'s uninterrupted run")
+    require(res.engine_stats == ref.engine_stats and calls == STREAM_ROWS,
+            f"(b): engine stats {res.engine_stats}, (a)'s {ref.engine_stats}")
+    pool = st["chunk_pool"]
+    require(st["max_inflight_chunks"] == 2 and st["max_resident_rows"] <= 2 * CHUNK
+            and pool["shards"] == STREAM_ROWS // CHUNK and pool["failures"] == 0,
+            f"(b): streaming log {st}")
+    log(f"phase 8 (b): bit for bit (a)'s texts, metrics, streaming state and "
+        f"engine stats; at most {st['max_resident_rows']} rows resident; chunk "
+        f"pool {pool}")
+
+
+def stopping_phase(torch, session, task, tmp: str, ref) -> None:
+    """Phase 8 (c): early stopping, a declared sampling cap and a width rule."""
+    from repro_torch.stats import MetricAccumulator
+    from repro_torch.stats.sequential import StoppingRule
+
+    capped = task.with_streaming(spill_dir=f"{tmp}/cap").with_stopping(
+        max_examples=2 * CHUNK, min_examples=CHUNK)
+    res, launches, calls = stream_run(torch, session, capped, STOP_ROWS,
+                                      "(c) max_examples=32")
+    ad = res.logs["adaptive"]
+    require(ad["stopped"] and ad["reason"] == "max_examples" and ad["stop_chunk"] == 1
+            and ad["n_examples"] == 2 * CHUNK and calls == 2 * CHUNK,
+            f"(c) cap: {ad}, {calls} engine calls")
+    launched(launches, "(c) cap", flash_attention=2 * CHUNK * QWEN_LAYERS)
+    again, launches, calls = stream_run(torch, session, capped, STOP_ROWS,
+                                        "(c) resume of the stopped run")
+    require(calls == 0 and again.logs["adaptive"] == ad and same_result(torch, again, res),
+            f"(c) replay: {calls} engine calls, {again.logs['adaptive']}")
+    launched(launches, "(c) replay", flash_attention=0, decode_attention=0,
+             bootstrap_partials=0)
+
+    # exact_match is 0 on every random-weight answer (checked on (a)'s run),
+    # so its interval's half-width depends on n alone: a target between the
+    # widths at 32 and 48 rows fires after chunk 2 of 4
+    acc = ref.stream_stats.accs["exact_match"]
+    require(acc.total == 0.0 and acc.n == STREAM_ROWS,
+            f"(c): exact_match is not 0 on every answer ({acc.total} of {acc.n})")
+    rule = StoppingRule(enabled=True, metric="exact_match", min_examples=CHUNK)
+
+    def width(n: int) -> float:
+        zeros = MetricAccumulator()
+        zeros.update([0.0] * n)
+        return rule.ci(zeros).half_width
+
+    target = (width(2 * CHUNK) + width(3 * CHUNK)) / 2
+    log(f"phase 8 (c): exact_match half-widths {width(CHUNK)!r} / {width(2 * CHUNK)!r} "
+        f"/ {width(3 * CHUNK)!r} at n = {CHUNK} / {2 * CHUNK} / {3 * CHUNK}; "
+        f"target_half_width {target!r}")
+    wide = task.with_streaming(spill_dir=f"{tmp}/width").with_stopping(
+        metric="exact_match", min_examples=CHUNK, target_half_width=target)
+    res, launches, calls = stream_run(torch, session, wide, STOP_ROWS,
+                                      "(c) width rule")
+    ad = res.logs["adaptive"]
+    require(ad["stopped"] and ad["reason"] == "target_half_width"
+            and ad["stop_chunk"] == 2 and ad["n_examples"] == 3 * CHUNK
+            and calls == 3 * CHUNK and ad["half_width"] == width(3 * CHUNK),
+            f"(c) width: {ad}, {calls} engine calls")
+    log("phase 8 (c): the cap stopped after chunk 1 and replayed with no engine "
+        "call; the width rule stopped after chunk 2 of 4")
+
+
+def adaptive_phase(torch, session, models, metrics, tmp: str) -> dict[str, int]:
+    """Phase 8 (d): ``run_adaptive_suite`` over both engines, then a replay."""
+    from repro_torch.core import (
+        BudgetConfig,
+        EvalSuite,
+        EvalTask,
+        StatisticsConfig,
+        run_adaptive_suite,
+    )
+    from repro_torch.data import iter_qa_examples
+    from repro_torch.stats.sequential import sequential_compare
+
+    task = EvalTask(
+        "phase-8-adaptive", model=models[0], metrics=metrics,
+        statistics=StatisticsConfig(bootstrap_iterations=N_BOOT,
+                                    ci_method="percentile", backend="device"),
+    ).with_streaming(max_memory_rows=CHUNK, spill_dir=f"{tmp}/adaptive")
+    suite = (EvalSuite("phase-8").add_task(task, lambda: iter_qa_examples(N_ROWS, seed=0))
+             .sweep_models(models))
+    budget = BudgetConfig(total_examples=BUDGET_TOTAL, min_examples=BUDGET_MIN,
+                          round_examples=BUDGET_ROUND)
+    runs = RunLog()
+    session.middleware.append(runs)
+    try:
+        out = {}
+        for label in ("run", "replay"):
+            runs.runs.clear()
+            calls = session.accounting.engine_calls
+            zero_counts()
+            t0 = time.perf_counter()
+            out[label] = run_adaptive_suite(session, suite, budget)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            out[label + " launches"] = read_counts()
+            out[label + " calls"] = session.accounting.engine_calls - calls
+            out[label + " runs"] = list(runs.runs)
+            log(f"phase 8 (d) {label}: wall {wall:.3f} s, "
+                f"{out[label + ' calls']} engine calls, launches "
+                f"{ {k: v for k, v in out[label + ' launches'].items() if v} }; "
+                f"rounds (model, resumed chunks, chunks, engine calls) {runs.runs}")
+    finally:
+        session.middleware.remove(runs)
+    res, payload = out["run"], out["run"].adaptive
+    log(f"phase 8 (d) adaptive payload: {payload}")
+    # every round after an arm's first resumes all of its earlier chunks
+    for model in SUITE_MODELS:
+        seq = [r for r in out["run runs"] if r[0] == model]
+        prev = 0
+        for _, resumed, chunks, calls in seq:
+            require(resumed == prev and calls == (chunks - resumed) * CHUNK,
+                    f"(d) {model}: rounds {seq}")
+            prev = chunks
+    spent = payload["budget"]["spent"]
+    require(spent == out["run calls"]
+            and spent <= max(BUDGET_TOTAL, len(SUITE_MODELS) * BUDGET_MIN),
+            f"(d): spent {spent}, {out['run calls']} engine calls")
+    for name in ("flash_attention", "decode_attention", "bootstrap_partials", "ssd"):
+        require(out["run launches"][name] > 0, f"(d): {name} was not launched")
+    t = payload["tasks"][task.task_id]
+    a, b = SUITE_MODELS
+    host = sequential_compare(
+        t["metric"], res.result(a, task.task_id).stream_stats,
+        res.result(b, task.task_id).stream_stats, alpha=budget.alpha,
+        margin=budget.margin, rho=budget.effective_rho(), method=budget.method)
+    require(t["verdicts"] == {f"{a} vs {b}": host.verdict}
+            and (t["certified"] or t["half_width"] == host.half_width),
+            f"(d): payload {t}, host rerun {host}")
+    require(t["reason"] in ("certified", "budget_exhausted", "exhausted")
+            and (t["certified"] or t["verdicts"][f"{a} vs {b}"] == "undecided"),
+            f"(d): {t}")
+    # the replay: the same payload from the spill dirs, no engine call
+    require(out["replay calls"] == 0 and out["replay"].adaptive == payload,
+            f"(d) replay: {out['replay calls']} engine calls, payload "
+            f"{out['replay'].adaptive}")
+    for name in ("flash_attention", "decode_attention", "bootstrap_partials", "ssd"):
+        require(out["replay launches"][name] == 0, f"(d) replay launched {name}")
+    log(f"phase 8 (d): {payload['budget']['rounds']} rounds, {spent} of "
+        f"{BUDGET_TOTAL} examples, {t['reason']}, verdict {t['verdicts']} equal to "
+        f"the host's sequential_compare; the replay made no engine call")
+    return out["run launches"]
+
+
+def streaming_phase(torch, session, models, metrics) -> dict[str, dict[str, int]]:
+    """Phase 8, inside phase 6's session (no new weights): (a) spill, crash
+    and resume, (b) concurrent chunks, (c) early stopping, (d) the adaptive
+    budget over both engines.  Returns the launches of (a)'s resumed run
+    and of (d)."""
+    import tempfile
+
+    from repro_torch.core import EvalTask, StatisticsConfig
+
+    t0 = time.perf_counter()
+    task = EvalTask(
+        "phase-8", model=models[0], metrics=metrics,
+        statistics=StatisticsConfig(bootstrap_iterations=N_BOOT,
+                                    ci_method="percentile", backend="device"),
+    ).with_streaming(max_memory_rows=CHUNK)
+    with tempfile.TemporaryDirectory() as tmp:
+        ref, ref_texts, resumed = resume_phase(torch, session, task, tmp)
+        t_a = time.perf_counter()
+        concurrent_phase(torch, session, task, ref, ref_texts)
+        t_b = time.perf_counter()
+        stopping_phase(torch, session, task, tmp, ref)
+        t_c = time.perf_counter()
+        adaptive = adaptive_phase(torch, session, models, metrics, tmp)
+        t_d = time.perf_counter()
+    log(f"phase 8 walls: (a) {t_a - t0:.1f} s, (b) {t_b - t_a:.1f} s, "
+        f"(c) {t_c - t_b:.1f} s, (d) {t_d - t_c:.1f} s; {t_d - t0:.1f} s in all")
+    return {"resumed": resumed, "adaptive": adaptive}
+
+
 def main() -> int:
     import torch
 
@@ -2401,7 +2796,9 @@ def main() -> int:
         contiguous, metrics = timed("phases 2, 5 and 7", main_path_phase, torch)
         paged = timed("phase 3", paged_phase, torch, fs)
         mamba = timed("phase 4", mamba_phase, torch, fs)
+        t6 = time.perf_counter()
         suite_phase(torch)
+        log(f"phases 6 and 8 took {time.perf_counter() - t6:.1f} s")
     except CheckFailed as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -2424,7 +2821,7 @@ def main() -> int:
                 print(f"chip_smoke: FAIL: {e['name']} {key} = {e[key]}",
                       file=sys.stderr)
                 return 1
-    log(f"phases 1-7 took {time.perf_counter() - t_start:.1f} s after the build")
+    log(f"phases 1-8 took {time.perf_counter() - t_start:.1f} s after the build")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

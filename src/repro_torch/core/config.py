@@ -1,7 +1,10 @@
-"""Evaluation-task configuration: the parts of ``repro/core/config.py`` that
-the port's in-memory and streaming paths, its inference service and
-lock-step path, response cache and suites read.  A task serializes to JSON
-(``EvalTask.to_json``)."""
+"""Evaluation-task configuration (the port of ``repro/core/config.py``).  A
+task serializes to JSON (``EvalTask.to_json``), which equals the
+reference's for a provider both packages share: the resume key of a spill
+manifest and tracking's ``params.json`` are built from it.  The replica
+fields of :class:`InferenceConfig` are kept at the reference's defaults
+only: the port has one engine a model, so another value raises
+``NotImplementedError``."""
 
 from __future__ import annotations
 
@@ -10,6 +13,8 @@ import enum
 import hashlib
 import json
 from typing import Any
+
+from repro_torch.stats.sequential import StoppingRule
 
 
 class CachePolicy(str, enum.Enum):
@@ -70,10 +75,25 @@ class StreamingConfig:
     at a time, folding scores into mergeable accumulators, so peak
     per-example state is one chunk; otherwise (the default, as in the
     reference) it runs the stages over the whole task in memory and keeps
-    the per-example scores."""
+    the per-example scores.
+
+    With a ``spill_dir`` each finished chunk commits its partial state to a
+    manifest (:class:`~repro_torch.storage.spill.ChunkManifest`), so an
+    interrupted run resumes by merging the committed chunks instead of
+    running them again.  ``max_inflight_chunks > 1`` runs that many chunks
+    at once (peak resident examples ``max_inflight_chunks x
+    max_memory_rows``), merged in chunk order, so the result equals the
+    serial run's bit for bit.  ``max_examples`` caps the examples taken
+    from the source (0 = no cap); a declared cap lets a resumed run tell
+    "stopped at my cap" from "the source shrank".  The concurrency, the
+    spill location, ``resume`` and the cap stay out of the resume key."""
 
     enabled: bool = False
-    max_memory_rows: int = 1024
+    max_memory_rows: int = 1024       # chunk size == peak resident examples
+    spill_dir: str = ""               # "" = no spill, run is not resumable
+    resume: bool = True               # skip chunks already in the manifest
+    max_inflight_chunks: int = 1      # >1 = concurrent chunk execution
+    max_examples: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,6 +132,9 @@ class InferenceConfig:
     coalesce: bool = True
     #: batch-formation window of a cold batcher loop
     max_batch_wait_ms: float = 2.0
+    n_replicas: int = 1
+    routing: str = "least_loaded"
+    routing_prefix_len: int = 64
     #: at most this many prompts prefilled per batcher step (0 = unlimited)
     max_prefills_per_step: int = 0
     #: 0 = contiguous per-slot KV cache; > 0 = page pool with this many
@@ -123,11 +146,40 @@ class InferenceConfig:
     #: pool), "int8" = absmax-quantized pages with per-(page, KV head) f32
     #: scales (DESIGN.md §10); int8 requires kv_page_size > 0
     kv_cache_dtype: str = "bf16"
+    #: the reference's serving-fabric fields (replicas and routing here,
+    #: deadlines and hedging, restarts and health probes below): the port
+    #: serves each model with one engine, so only the defaults are accepted
+    request_deadline_s: float = 0.0
+    max_replica_restarts: int = 2
+    restart_backoff_s: float = 0.05
+    health_probe_steps: int = 0
+
+    def __post_init__(self) -> None:
+        for name in _REPLICA_FIELDS:
+            value, default = getattr(self, name), _REPLICA_DEFAULTS[name]
+            if value != default:
+                raise NotImplementedError(
+                    f"InferenceConfig.{name}={value!r}: the port serves each "
+                    f"model with one engine; only the default {default!r} is "
+                    "supported"
+                )
+
+
+_REPLICA_FIELDS = (
+    "n_replicas", "routing", "routing_prefix_len", "request_deadline_s",
+    "max_replica_restarts", "restart_backoff_s", "health_probe_steps",
+)
+_REPLICA_DEFAULTS = {
+    f.name: f.default for f in dataclasses.fields(InferenceConfig)
+    if f.name in _REPLICA_FIELDS
+}
 
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
     prompt_template: str = "{question}"
+    input_columns: tuple[str, ...] = ("question",)
+    reference_column: str = "reference"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,6 +191,10 @@ class EvalTask:
     statistics: StatisticsConfig = StatisticsConfig()
     data: DataConfig = DataConfig()
     streaming: StreamingConfig = StreamingConfig()
+    #: adaptive early stopping (:mod:`repro_torch.stats.sequential`): when
+    #: enabled, the streaming pipelines consult the rule after every merged
+    #: chunk; its fields are part of a spill manifest's resume contract
+    stopping: StoppingRule = StoppingRule()
 
     def with_model(self, model: EngineModelConfig) -> "EvalTask":
         """Rebind the task to another model (suite model sweeps)."""
@@ -146,10 +202,24 @@ class EvalTask:
 
     def with_streaming(self, **kw: Any) -> "EvalTask":
         """Enable (or reconfigure) streaming execution; unspecified fields
-        keep their current values."""
+        keep their current values.  ``concurrency`` is an alias of
+        ``max_inflight_chunks``: ``task.with_streaming(concurrency=4)``
+        runs four chunks in flight."""
         kw.setdefault("enabled", True)
+        if "concurrency" in kw:
+            kw["max_inflight_chunks"] = kw.pop("concurrency")
         return dataclasses.replace(
             self, streaming=dataclasses.replace(self.streaming, **kw)
+        )
+
+    def with_stopping(self, **kw: Any) -> "EvalTask":
+        """Enable (or reconfigure) adaptive early stopping, e.g.
+        ``task.with_stopping(target_half_width=0.02, min_examples=512)``;
+        unspecified fields keep their current values.  Only streaming runs
+        consult it."""
+        kw.setdefault("enabled", True)
+        return dataclasses.replace(
+            self, stopping=dataclasses.replace(self.stopping, **kw)
         )
 
     def with_metrics(self, *metrics: MetricConfig) -> "EvalTask":

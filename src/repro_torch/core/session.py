@@ -17,8 +17,10 @@ long-lived owner of the evaluation resources on one device:
   (:class:`SessionAccounting`).
 
 ``run_task`` runs a task in memory by default and in chunks with
-``streaming.enabled``; pass ``stages=`` to swap stages (for instance
-``rescore_stages(texts)``).  ``run_suite`` runs an
+``streaming.enabled`` (spilled to a resumable manifest with a
+``spill_dir``, several chunks at once with ``max_inflight_chunks > 1``,
+stopped early by ``task.stopping``); pass ``stages=`` to swap stages (for
+instance ``rescore_stages(texts)``).  ``run_suite`` runs an
 :class:`~repro_torch.core.suite.EvalSuite` and builds the pairwise
 significance matrix.  Rate limits sleep only with
 ``wall_clock_rate_limit=True`` (``sleep``); otherwise limiters and retry
@@ -48,7 +50,7 @@ from repro_torch.core.stages import (
     Stage,
     default_stages,
 )
-from repro_torch.core.streaming import StreamingPipeline
+from repro_torch.core.streaming import ConcurrentStreamingExecutor, StreamingPipeline
 from repro_torch.core.suite import EvalSuite, SuiteResult, build_comparisons
 from repro_torch.device import resolve_device
 from repro_torch.ft.workers import WorkerPool
@@ -241,8 +243,10 @@ class EvalSession:
         stages: Sequence[Stage] | None = None,
     ) -> EvalResult:
         """With ``task.streaming.enabled``, stream ``rows`` through prepare
-        -> infer -> score in chunks of ``max_memory_rows``: the result
-        carries ``metrics`` and the mergeable ``stream_stats``.  Otherwise
+        -> infer -> score in chunks of ``max_memory_rows`` (with
+        ``max_inflight_chunks > 1``, that many chunks at once, merged in
+        chunk order): the result carries ``metrics`` and the mergeable
+        ``stream_stats``.  Otherwise
         run ``stages`` (default: prepare -> infer -> score -> aggregate)
         over all of ``rows`` in memory, each stage's seconds in
         ``timing[f"{stage.name}_s"]``: the result carries ``metrics``, the
@@ -276,7 +280,11 @@ class EvalSession:
         t_task = time.monotonic()
         for mw in self.middleware:
             mw.on_task_start(task, [], self)
-        result = StreamingPipeline.from_task(task).run(source, task, self)
+        if task.streaming.max_inflight_chunks > 1:
+            pipeline = ConcurrentStreamingExecutor.from_task(task)
+        else:
+            pipeline = StreamingPipeline.from_task(task)
+        result = pipeline.run(source, task, self)
         self._task_done(task, result, t_task)
         return result
 

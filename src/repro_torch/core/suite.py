@@ -16,13 +16,16 @@ model list, and hand the suite to ``EvalSession.run_suite``::
 
 ``SuiteResult`` keeps every per-(model, task) :class:`EvalResult` and the
 pairwise :class:`Comparison` matrix (per task, per shared metric, per model
-pair), plus text and markdown reports.  The reference's adaptive-budget
-payload is not part of the port yet.
+pair), plus text and markdown reports; a suite run by
+:func:`~repro_torch.core.budget.run_adaptive_suite` also carries its
+``adaptive`` payload (examples consumed, certified verdicts, the budget
+spent), which the markdown report tabulates.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import warnings
 from typing import Callable, Iterable, Sequence, Union
 
@@ -239,6 +242,10 @@ class SuiteResult:
     results: dict[tuple[str, str], EvalResult]
     comparisons: ComparisonMatrix
     accounting: dict
+    #: adaptive-run payload from :func:`repro_torch.core.budget.
+    #: run_adaptive_suite` (empty for exhaustive runs): per-task consumed
+    #: examples, certified verdicts, stop reasons and the budget spent
+    adaptive: dict = dataclasses.field(default_factory=dict)
 
     # -- lookups -----------------------------------------------------------------
 
@@ -330,6 +337,41 @@ class SuiteResult:
                         f"| {cmp.test.test} | {cmp.test.p_value:.4g} "
                         f"| {verdict} |"
                     )
+            lines.append("")
+        if self.adaptive:
+            b = self.adaptive.get("budget", {})
+            lines.append("## Adaptive evaluation")
+            lines.append("")
+            lines.append(
+                f"budget: {b.get('spent', 0)} / {b.get('total_examples', 0)} "
+                f"examples spent over {b.get('rounds', 0)} round(s) "
+                f"(alpha={b.get('alpha', 0)}, margin={b.get('margin', 0)})"
+            )
+            lines.append("")
+            lines.append(
+                "| task | metric | consumed | exhausted | outcome "
+                "| n at stop | half-width | certified verdicts |"
+            )
+            lines.append("|---" * 8 + "|")
+            for tid in self.tasks:
+                t = self.adaptive.get("tasks", {}).get(tid)
+                if t is None:
+                    continue
+                consumed = ", ".join(
+                    f"{lab}: {n}" for lab, n in t.get("consumed", {}).items()
+                )
+                verdicts = "; ".join(
+                    f"{pair}: {v}" for pair, v in t.get("verdicts", {}).items()
+                ) or "—"
+                hw = t.get("half_width", float("inf"))
+                hw_s = f"{hw:.4f}" if math.isfinite(hw) else "inf"
+                lines.append(
+                    f"| {tid} | {t.get('metric', '?')} | {consumed} "
+                    f"| {'yes' if t.get('exhausted') else 'no'} "
+                    f"| {t.get('reason') or 'open'} "
+                    f"| {t.get('n_at_stop', 0)} "
+                    f"| {hw_s} | {verdicts} |"
+                )
             lines.append("")
         serving = self.accounting.get("serving") or []
         if serving:

@@ -19,6 +19,7 @@ import functools
 import hashlib
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -141,6 +142,18 @@ def library() -> ctypes.CDLL:
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     return lib
+
+
+_LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(fn) -> None:
+    """Add one to a kernel wrapper's ``launches`` count.  Batcher threads
+    and concurrent chunk workers launch at the same time, and ``+= 1`` on
+    an attribute is a read and a write, so every count is bumped under one
+    lock; setting a count to 0 and reading it need none."""
+    with _LAUNCH_LOCK:
+        fn.launches += 1
 
 
 def check(err: int, what: str) -> None:

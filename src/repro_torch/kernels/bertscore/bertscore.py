@@ -47,7 +47,7 @@ def bertscore_pr(
         b, lc, lr, d, p.data_ptr(), r.data_ptr(), _cuda.stream_of(cand),
     )
     _cuda.check(err, "bertscore_pr")
-    bertscore_pr.launches += 1
+    _cuda.count_launch(bertscore_pr)
     return p, r
 
 

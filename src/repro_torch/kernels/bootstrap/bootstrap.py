@@ -85,7 +85,7 @@ def bootstrap_partials(
             sw.data_ptr() + 4 * j, stream,
         )
         _cuda.check(err, "bootstrap_partials")
-        bootstrap_partials.launches += 1
+        _cuda.count_launch(bootstrap_partials)
     return swx, sw
 
 
@@ -116,7 +116,7 @@ def bootstrap_means(
         tiles[1].data_ptr(), means.data_ptr(), _cuda.stream_of(data),
     )
     _cuda.check(err, "bootstrap_means")
-    bootstrap_means.launches += 1
+    _cuda.count_launch(bootstrap_means)
     return means
 
 

@@ -81,7 +81,7 @@ def decode_attention(
         scratch.numel(), arrivals.data_ptr(), arrivals.numel(), stream,
     )
     _cuda.check(err, "decode_attention")
-    decode_attention.launches += 1
+    _cuda.count_launch(decode_attention)
     return out
 
 

@@ -70,7 +70,7 @@ def paged_decode_attention(
         scratch.numel(), arrivals.data_ptr(), arrivals.numel(), stream,
     )
     _cuda.check(err, "paged_decode_attention")
-    paged_decode_attention.launches += 1
+    _cuda.count_launch(paged_decode_attention)
     return out
 
 

@@ -68,7 +68,7 @@ def quant_paged_decode_attention(
         d**-0.5, scratch.data_ptr(), scratch.numel(), _cuda.stream_of(q),
     )
     _cuda.check(err, "quant_paged_decode_attention")
-    quant_paged_decode_attention.launches += 1
+    _cuda.count_launch(quant_paged_decode_attention)
     return out
 
 

@@ -45,7 +45,7 @@ def flash_attention(
         b, sq, sk, h, kh, d, strides, q_offset, d**-0.5, _cuda.stream_of(q),
     )
     _cuda.check(err, "flash_attention")
-    flash_attention.launches += 1
+    _cuda.count_launch(flash_attention)
     return out
 
 

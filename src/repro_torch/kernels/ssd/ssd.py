@@ -76,7 +76,7 @@ def ssd(
         scratch.numel(), _cuda.stream_of(x),
     )
     _cuda.check(err, "ssd")
-    ssd.launches += 1
+    _cuda.count_launch(ssd)
     return y, final
 
 

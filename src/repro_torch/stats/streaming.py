@@ -23,6 +23,12 @@ version share the weights but sum in different orders, so an engine
 records which stream it holds (``stream_id``) and refuses to merge state
 from another; :meth:`StreamingStats.comparable_with` refuses to pair two
 runs' replicates across streams for the same reason.
+
+Every accumulator serializes to a plain dict (``state()`` /
+``from_state``; an engine's state carries its stream id), so a chunk's
+partials spill to a manifest and merge on resume: a row written under one
+stream (``device-kernel`` on the card, ``device-ref`` on the CPU) refuses
+to merge under another.
 """
 
 from __future__ import annotations
@@ -75,15 +81,65 @@ class MetricAccumulator:
         var = (self.total_sq - self.total * self.total / self.n) / (self.n - 1)
         return max(var, 0.0)  # clamp catastrophic-cancellation dust
 
+    def state(self) -> dict:
+        return {
+            "n": self.n, "total": self.total,
+            "total_sq": self.total_sq, "n_nan": self.n_nan,
+        }
+
+    @classmethod
+    def from_state(cls, state: dict) -> "MetricAccumulator":
+        acc = cls()
+        acc.n = int(state["n"])
+        acc.total = float(state["total"])
+        acc.total_sq = float(state["total_sq"])
+        acc.n_nan = int(state["n_nan"])
+        return acc
+
 
 class PoissonBootstrap:
-    """One metric's B bootstrap replicates as ``(sum w*x, sum w)`` pairs."""
+    """One metric's B bootstrap replicates as ``(sum w*x, sum w)`` pairs.
+    ``update(scores, start)`` draws a (B, n) Poisson(1) weight block from
+    ``Philox(key=(seed, start))``, ``start`` being the chunk's offset in
+    the source, so chunk states merge in any order; NaN scores get weight
+    zero."""
 
     def __init__(self, n_boot: int = 1000, seed: int = 0):
         self.n_boot = int(n_boot)
         self.seed = int(seed)
         self.sum_wx = np.zeros(self.n_boot, np.float64)
         self.sum_w = np.zeros(self.n_boot, np.float64)
+
+    def update(self, scores: np.ndarray, start: int) -> None:
+        scores = np.asarray(scores, np.float64)
+        if scores.size == 0:
+            return
+        rng = np.random.Generator(np.random.Philox(key=[self.seed, start]))
+        w = rng.poisson(1.0, (self.n_boot, scores.size)).astype(np.float64)
+        valid = ~np.isnan(scores)
+        w *= valid[None, :]
+        self.sum_wx += w @ np.where(valid, scores, 0.0)
+        self.sum_w += w.sum(axis=1)
+
+    def merge(self, other: "PoissonBootstrap") -> "PoissonBootstrap":
+        if (other.n_boot, other.seed) != (self.n_boot, self.seed):
+            raise ValueError("cannot merge bootstraps with different (B, seed)")
+        self.sum_wx += other.sum_wx
+        self.sum_w += other.sum_w
+        return self
+
+    def state(self) -> dict:
+        return {
+            "n_boot": self.n_boot, "seed": self.seed,
+            "sum_wx": self.sum_wx.tolist(), "sum_w": self.sum_w.tolist(),
+        }
+
+    @classmethod
+    def from_state(cls, state: dict) -> "PoissonBootstrap":
+        boot = cls(int(state["n_boot"]), int(state["seed"]))
+        boot.sum_wx = np.asarray(state["sum_wx"], np.float64)
+        boot.sum_w = np.asarray(state["sum_w"], np.float64)
+        return boot
 
     def means(self) -> np.ndarray:
         return self.sum_wx / np.maximum(self.sum_w, 1.0)
@@ -119,14 +175,47 @@ class BootstrapEngine:
         """A zero-state engine with this one's configuration."""
         return type(self)(self.n_boot, self.seed, self.metrics)
 
-    def merge(self, other: "BootstrapEngine") -> "BootstrapEngine":
-        ours = (self.stream_id(), self.n_boot, self.seed, self.metrics)
-        theirs = (other.stream_id(), other.n_boot, other.seed, other.metrics)
+    def _check_mergeable(self, backend: str, n_boot: int, seed: int,
+                         metrics: tuple[str, ...], stream: str) -> None:
+        ours = (
+            self.backend, self.n_boot, self.seed, self.metrics,
+            self.stream_id(),
+        )
+        theirs = (backend, int(n_boot), int(seed), tuple(metrics), stream)
         if ours != theirs:
-            raise ValueError(f"cannot merge bootstrap states: {ours} != {theirs}")
+            raise ValueError(
+                f"cannot merge bootstrap engine states: {ours} != {theirs}"
+            )
+
+    def merge(self, other: "BootstrapEngine") -> "BootstrapEngine":
+        self._check_mergeable(
+            other.backend, other.n_boot, other.seed, other.metrics,
+            other.stream_id(),
+        )
         self.sum_wx += other.sum_wx
         self.sum_w += other.sum_w
         return self
+
+    def merge_state(self, state: dict) -> "BootstrapEngine":
+        """Fold a serialized chunk partial (a spill-manifest row) in."""
+        self._check_mergeable(
+            state["backend"], state["n_boot"], state["seed"],
+            tuple(state["metrics"]), state["stream"],
+        )
+        self.sum_wx += np.asarray(state["sum_wx"], np.float64)
+        self.sum_w += np.asarray(state["sum_w"], np.float64)
+        return self
+
+    def state(self) -> dict:
+        return {
+            "backend": self.backend,
+            "stream": self.stream_id(),
+            "n_boot": self.n_boot,
+            "seed": self.seed,
+            "metrics": list(self.metrics),
+            "sum_wx": self.sum_wx.tolist(),
+            "sum_w": self.sum_w.tolist(),
+        }
 
     def view(self, metric: str) -> PoissonBootstrap:
         """One metric's replicate state as a :class:`PoissonBootstrap`."""
@@ -225,6 +314,18 @@ def make_bootstrap_engine(
             n_boot, seed, metrics, device=resolve_device(device)
         )
     return NumpyBootstrapEngine(n_boot, seed, metrics)
+
+
+def bootstrap_engine_from_state(
+    state: dict, *, device: torch.device | str | None = None
+) -> BootstrapEngine:
+    """An engine holding a serialized state; a device-engine state merges
+    only on a ``device`` whose stream id is the state's."""
+    eng = make_bootstrap_engine(
+        state["backend"], state["n_boot"], state["seed"],
+        tuple(state["metrics"]), device=device,
+    )
+    return eng.merge_state(state)
 
 
 @dataclasses.dataclass

@@ -56,7 +56,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "repro_torch.core.compare", "repro_torch.core.suite",
                    "repro_torch.core.ratelimit", "repro_torch.core.tracking",
                    "repro_torch.core.runner", "repro_torch.ft.workers",
-                   "repro_torch.metrics.judge", "repro_torch.metrics.rag"):
+                   "repro_torch.metrics.judge", "repro_torch.metrics.rag",
+                   "repro_torch.core.streaming", "repro_torch.core.budget",
+                   "repro_torch.stats.sequential", "repro_torch.storage.spill",
+                   "repro_torch.ft.failure_sim"):
         assert module in out["imported"]
 
 
