@@ -102,7 +102,20 @@ min_examples=16, round_examples=16)``: every round after the seed round
 runs only new chunks, the budget holds, kernel 8 launches in the Mamba2
 arm, the verdicts equal ``sequential_compare`` rerun on the host, and a
 replay over the same spill dirs makes no engine call and gives the same
-payload.
+payload.  Phase 9, the serving fabric, runs after phase 8 in sessions of
+its own: two replicas of full-width qwen3-4b on the card
+(``InferenceConfig(n_replicas=2)``), sharing one set of random bf16
+weights (phase 2's seed) and phase 7 (a)'s tokenizer memory, over phase 7
+(a)'s 16 rows: (a) ``least_loaded`` routing in memory and streaming
+(``backend="device"``), bit for bit phase 7 (a)'s single-engine service
+runs, both replicas dispatched; (b) streaming under a
+``ServingFaultSchedule`` that crashes replica 0 at batcher step 6 and
+hangs replica 1 at step 10 past a 4-pump health probe: bit for bit (a),
+two restarts, no failure, both faults injected, kernel 1 launched again
+for the survivors; (c) in memory with replica 0 hung for the whole run,
+no probe and a 0.5 s deadline: every row served by replica 1 with (a)'s
+texts, deadline expiries, hedges and cancelled losing legs, no slot held
+at close.
 
 Standard output: the card's name and power limit first, then log lines,
 then one ``{"kernels": [...]}`` line, and last the
@@ -1045,6 +1058,21 @@ def unit_range(name: str, mv) -> None:
             f"{name}: bad interval {mv}")
 
 
+def serving_clean(session, label: str) -> str:
+    """Every service of ``session`` has restarted no replica and failed no
+    request.  A run without an injected fault must show this: at the
+    default ``max_replica_restarts=2`` a crashed engine is reset and its
+    rows are served again, with the same texts and no other sign.  Returns
+    the counts to log."""
+    snaps = session.serving_stats()
+    restarts = sum(s["restarts"] for s in snaps)
+    errors = sum(s["errors"] for s in snaps)
+    require(restarts == 0 and errors == 0,
+            f"{label}: {restarts} replica restarts, {errors} failed requests "
+            f"({[(s['engine'], s['restarts'], s['errors']) for s in snaps]})")
+    return f"services: restarts {restarts}, errors {errors}"
+
+
 def timed_run_task(torch, session, task, kernels: tuple[str, ...], label: str,
                    check_metric=unit_range, n_rows: int = N_ROWS):
     """``run_task`` over the phase's ``n_rows`` QA rows with every launch
@@ -1079,7 +1107,8 @@ def timed_run_task(torch, session, task, kernels: tuple[str, ...], label: str,
         f"{run['steps']} decode steps, {step_ms:.2f} ms each (batch {N_SLOTS}); "
         f"{run['tokens_generated']} decoded tokens, "
         f"{run['tokens_generated'] / run['decode_s']:.1f} tokens/s in decode, "
-        f"{generated / wall:.1f} generated tokens/s end to end")
+        f"{generated / wall:.1f} generated tokens/s end to end; "
+        f"{serving_clean(session, label)}")
     if task.streaming.enabled:
         require(result.logs["streaming"]["n_examples"] == n_rows, "examples lost")
     else:
@@ -1233,7 +1262,7 @@ def metrics_phase(torch, session, base_task) -> dict[str, int]:
     return launches
 
 
-def main_path_phase(torch) -> tuple[dict[str, int], dict[str, int]]:
+def main_path_phase(torch) -> tuple[dict[str, int], dict[str, int], dict]:
     from repro_torch.core import EvalSession, InferenceRequest
     from repro_torch.data import iter_qa_examples, render
 
@@ -1284,8 +1313,9 @@ def main_path_phase(torch) -> tuple[dict[str, int], dict[str, int]]:
                            lambda: b.model.prefill(b.params, toks, b.cache, 0),
                            kernel="flash")
         metrics = metrics_phase(torch, session, task)
-        harness_phase(torch, session, task)
-    return launches, metrics
+        _, yard = harness_phase(torch, session, task)
+        log(f"phases 2, 5 and 7 {serving_clean(session, 'phases 2, 5 and 7')}")
+    return launches, metrics, yard
 
 
 #: a part of the device kernel names behind each decode wrapper, for the
@@ -1462,6 +1492,7 @@ def paged_run(torch, params, fs, label, kernel, **inference):
         step_breakdown(torch, f"{label} batcher step (batch {N_SLOTS}, positions "
                        f"~{fs.prompt_len})", engine.batcher.step,
                        kernel=DEVICE_KERNEL[kernel])
+        log(f"{label} {serving_clean(session, label)}")
     free_cuda(torch)
     return launches, st, tokens
 
@@ -1666,6 +1697,7 @@ def mamba_phase(torch, fs) -> dict[str, int]:
         pos = torch.zeros((N_SLOTS,), dtype=torch.int64, device="cuda")
         step_breakdown(torch, f"mamba2 decode step (batch {N_SLOTS})",
                        lambda: b.model.decode_step(b.params, nxt, b.cache, pos))
+        log(f"phase 4 {serving_clean(session, 'phase 4')}")
     del params
     free_cuda(torch)
     return launches
@@ -2023,7 +2055,9 @@ def suite_phase(torch) -> tuple[dict[str, int], dict[str, dict[str, int]]]:
         serving = session.serving_stats()
         log(f"phase 6 services: " + "; ".join(
             f"{s['engine']} submitted {s['submitted']} dispatched {s['dispatched']} "
-            f"coalesced {s['coalesced']}" for s in serving))
+            f"coalesced {s['coalesced']} restarts {s['restarts']} errors {s['errors']}"
+            for s in serving))
+        serving_clean(session, "phase 6")
         log(f"phase 6 accounting: {session.accounting.as_dict()}")
         phase_launches = read_counts()
         log(f"phase 6 launches: {phase_launches}; "
@@ -2034,7 +2068,8 @@ def suite_phase(torch) -> tuple[dict[str, int], dict[str, dict[str, int]]]:
 
         t0 = time.perf_counter()
         streaming = streaming_phase(torch, session, models, metrics)
-        log(f"phase 8 took {time.perf_counter() - t0:.1f} s")
+        log(f"phase 8 took {time.perf_counter() - t0:.1f} s; "
+            f"{serving_clean(session, 'phases 6 and 8')}")
     return phase_launches, streaming
 
 
@@ -2106,7 +2141,7 @@ def counted_run(torch, session, rows, task, label: str):
     wall = time.perf_counter() - t0
     launches = read_counts()
     log(f"{label}: run_task wall {wall:.3f} s, {result.engine_stats['calls']} "
-        f"engine calls, launches {launches}")
+        f"engine calls, launches {launches}; {serving_clean(session, label)}")
     return result, launches
 
 
@@ -2122,7 +2157,10 @@ def lockstep_gates(torch, session, task):
     time) in memory and streaming over ``LOCKSTEP_ROWS``, against the
     service path on the same rows (in memory, a fresh response cache
     each).  Returns the service path's in-memory result over the phase's
-    ``PHASE7_ROWS``, the greedy texts (d) compares with."""
+    ``PHASE7_ROWS``, the greedy texts (d) compares with, and phase 9's
+    yardstick: the service path's tasks, results and walls over
+    ``LOCKSTEP_ROWS``, and a copy of the engine's tokenizer as it decoded
+    them."""
     import tempfile
 
     from repro_torch.core import InferenceConfig, StreamingConfig
@@ -2143,10 +2181,15 @@ def lockstep_gates(torch, session, task):
                                                             batch_size=LOCKSTEP_SHARD))
         lock_mem = dataclasses.replace(mem, inference=dataclasses.replace(
             lock, cache_dir=f"{tmp}/lockstep"))
-        *_, svc = run(mem, kernels, "phase 7 (a) service path in memory")
+        *_, svc_wall, svc = run(mem, kernels, "phase 7 (a) service path in memory")
         *_, lm = run(lock_mem, kernels, "phase 7 (a) lock-step path in memory")
     kernels += ("bootstrap_partials",)
-    *_, ss = run(task, kernels, "phase 7 (a) service path streaming")
+    *_, ss_wall, ss = run(task, kernels, "phase 7 (a) service path streaming")
+    yard = {"in memory": (dataclasses.replace(mem, inference=InferenceConfig(
+                batch_size=LOCKSTEP_SHARD)), svc, svc_wall),
+            "streaming": (task, ss, ss_wall),
+            "tokenizer": tokenizer_copy(session.engine_for(task.model,
+                                                          task.inference).tokenizer)}
     *_, ls = run(dataclasses.replace(task, inference=lock), kernels,
                  "phase 7 (a) lock-step path streaming")
 
@@ -2175,7 +2218,19 @@ def lockstep_gates(torch, session, task):
     log(f"phase 7 (a): the lock-step path equals the service path bit for bit in "
         f"memory and streaming; engine stats {calls(lm)}, cache {lm.cache_stats}, "
         f"pool {lm.engine_stats['pool']} / {ls.engine_stats['pool']}")
-    return greedy
+    return greedy, yard
+
+
+def tokenizer_copy(tok):
+    """A copy of a tokenizer with its memory of the words it has encoded (an
+    id it never encoded decodes as ``<id>``, and of two words with one id
+    the first encoded wins): engines given copies render the same tokens as
+    the same text."""
+    from repro_torch.data import HashTokenizer
+
+    out = HashTokenizer(tok.vocab_size)
+    out._inverse = dict(tok._inverse)
+    return out
 
 
 def rag_task(base_task):
@@ -2355,7 +2410,10 @@ def sampling_gates(torch, params, task, greedy):
     for turn in range(2):
         steps.temperature_sample = logging_sample if turn == 0 else real
         try:
-            with EvalSession(device="cuda", engine_kwargs=kw) as s:
+            # a wall-clock session: the service's 100 ms batch window
+            # sleeps through the session's sleep
+            with EvalSession(device="cuda", engine_kwargs=kw,
+                             wall_clock_rate_limit=True) as s:
                 res, launches = counted_run(
                     torch, s, iter_qa_examples(PHASE7_ROWS, seed=0), hot,
                     f"phase 7 (d) temperature {TEMPERATURE}, run {turn + 1}")
@@ -2386,13 +2444,14 @@ def sampling_gates(torch, params, task, greedy):
         f"{int((host == sampled).sum())} equal)")
 
 
-def harness_phase(torch, session, task) -> dict[str, dict[str, int]]:
+def harness_phase(torch, session, task):
     """Phase 7, the harness around inference, in phase 2's session on its
     full-width qwen3-4b engine (no new weights): (a) the lock-step path,
     (b) the task's own engine as judge of the RAG task, (c) a simulated
-    judge beside the card's answers, (d) temperature sampling."""
+    judge beside the card's answers, (d) temperature sampling.  Returns
+    (b)'s launches by stage and phase 9's yardstick from (a)."""
     t0 = time.perf_counter()
-    greedy = lockstep_gates(torch, session, task)
+    greedy, yard = lockstep_gates(torch, session, task)
     t_a = time.perf_counter()
     res_b, by_stage = judge_gates(torch, session, task)
     t_b = time.perf_counter()
@@ -2403,7 +2462,7 @@ def harness_phase(torch, session, task) -> dict[str, dict[str, int]]:
     t_d = time.perf_counter()
     log(f"phase 7 walls: (a) {t_a - t0:.1f} s, (b) {t_b - t_a:.1f} s, "
         f"(c) {t_c - t_b:.1f} s, (d) {t_d - t_c:.1f} s; {t_d - t0:.1f} s in all")
-    return by_stage
+    return by_stage, yard
 
 
 # -- phase 8: streaming at scale -------------------------------------------------
@@ -2508,7 +2567,7 @@ def stream_run(torch, session, task, n_rows: int, label: str, crash=None):
         if "adaptive" in result.logs:
             extra += f"; adaptive {result.logs['adaptive']}"
     log(f"phase 8 {label}: wall {wall:.3f} s, {calls} engine calls, launches "
-        f"{shown}{extra}")
+        f"{shown}{extra}; {serving_clean(session, f'phase 8 {label}')}")
     return result, launches, calls
 
 
@@ -2754,6 +2813,170 @@ def streaming_phase(torch, session, models, metrics) -> dict[str, dict[str, int]
     return {"resumed": resumed, "adaptive": adaptive}
 
 
+# -- phase 9: the serving fabric ---------------------------------------------------
+
+#: phase 9: replicas of qwen3-4b on the card; (b)'s replica crash (replica
+#: 0) and hang (replica 1) at these batcher steps, the hang's length and the
+#: health probe's pumps; (c)'s request deadline
+FABRIC_REPLICAS = 2
+CRASH_STEP, HANG_STEP, HANG_STEPS, PROBE_STEPS = 6, 10, 12, 4
+DEADLINE_S = 0.5
+FABRIC_KERNELS = ("flash_attention", "decode_attention")
+
+
+def fabric_run(torch, params, yard, label, task, faults=(), check=True):
+    """``run_task`` over ``LOCKSTEP_ROWS`` QA rows in a fresh session whose
+    replicas share ``params`` and a copy of phase 7 (a)'s tokenizer, with
+    ``faults`` scheduled; every launch count set to 0 just before and read
+    just after.  Returns (result, launches, wall, the service's snapshot,
+    the schedule, the replicas' engines), the snapshot taken after the
+    service closed."""
+    from repro_torch.core import EvalSession
+    from repro_torch.data import iter_qa_examples
+    from repro_torch.ft import ServingFaultSchedule
+
+    plan = ServingFaultSchedule(list(faults))
+    kw = {"n_slots": N_SLOTS, "max_len": MAX_LEN, "params": params,
+          "tokenizer": tokenizer_copy(yard["tokenizer"])}
+    if faults:
+        kw["fault_plan"] = plan
+    with EvalSession(device="cuda", engine_kwargs=kw) as s:
+        svc = s.service_for(task.model, task.inference)
+        zero_counts()
+        t0 = time.perf_counter()
+        result = s.run_task(iter_qa_examples(LOCKSTEP_ROWS, seed=0), task)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        svc.close()
+        snap = svc.snapshot()
+        engines = [rep.engine for rep in svc.replicas]
+        free = [(e.batcher.slots_busy, len(e.batcher.queue)) for e in engines]
+    per = [{k: r[k] for k in ("routed", "dispatched", "completed", "restarts",
+                              "cancelled", "broken")} for r in snap["replica_stats"]]
+    log(f"{label}: run_task wall {wall:.3f} s, {result.engine_stats['calls']} engine "
+        f"calls, launches {launches}; service "
+        f"{ {k: snap[k] for k in ('dispatched', 'completed', 'errors', 'restarts', 'deadline_expiries', 'hedges_issued', 'hedges_won')} }; "
+        f"replicas {per}; busy slots and queue at close {free}; injected {plan.injected}")
+    require(snap["replicas"] == FABRIC_REPLICAS, f"{label}: {snap['replicas']} replicas")
+    require(free == [(0, 0)] * FABRIC_REPLICAS, f"{label}: slots or queue held at close")
+    require(not result.failures, f"{label}: failures {result.failures[:3]}")
+    for name in FABRIC_KERNELS + (("bootstrap_partials",) if task.streaming.enabled else ()):
+        require(launches[name] > 0, f"{label}: {name} was not launched")
+    return result, launches, wall, snap, plan
+
+
+def fabric_phase(torch, yard) -> dict[str, dict[str, int]]:
+    """Phase 9, the serving fabric, in sessions of its own (a service's
+    fan-out is fixed by the first task that reaches it): full-width
+    qwen3-4b, ``FABRIC_REPLICAS`` replicas on the card sharing one set of
+    random bf16 weights (phase 2's seed, made once) and phase 7 (a)'s
+    tokenizer memory, over phase 7 (a)'s rows and tasks.  (a) the default
+    ``least_loaded`` routing in memory and streaming (``backend="device"``):
+    bit for bit phase 7 (a)'s single-engine service runs, both replicas
+    dispatched, their dispatches summing to the rows' engine calls; (b)
+    streaming with a crash of replica 0 and a hang of replica 1 past the
+    health probe: bit for bit (a), no failure, two restarts, both faults
+    injected, kernel 1 launched again for the survivors; (c) in memory with
+    replica 0 hung for the whole run, no probe and a short deadline: every
+    row served by replica 1 with (a)'s texts, a deadline expiry, a hedge and
+    a cancelled losing leg, every slot free at close.  Returns the launches
+    of each run."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import InferenceConfig
+    from repro_torch.device import resolve_device
+    from repro_torch.ft import ServingFault
+    from repro_torch.models import init_params
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    mem_task, mem_ref, mem_wall = yard["in memory"]
+    stream_task, stream_ref, stream_wall = yard["streaming"]
+    cfg = get_config(stream_task.model.model_name)
+    params = init_params(cfg.reduced() if stream_task.model.reduced else cfg,
+                         stream_task.model.seed, device=resolve_device("cuda"))
+
+    def fleet(task, **inference):
+        inf = dataclasses.replace(task.inference, n_replicas=FABRIC_REPLICAS, **inference)
+        return dataclasses.replace(task, inference=inf)
+
+    out = {}
+    # (a) two replicas, least-loaded routing
+    runs = {}
+    for label, task, ref, ref_wall in (("in memory", mem_task, mem_ref, mem_wall),
+                                       ("streaming", stream_task, stream_ref, stream_wall)):
+        res, launches, wall, snap, _ = fabric_run(
+            torch, params, yard, f"phase 9 (a) {label}", fleet(task))
+        require(same_result(torch, res, ref),
+                f"(a) {label}: texts, scores, metrics or streaming state differ from "
+                f"phase 7 (a)'s single engine")
+        per = [r["dispatched"] for r in snap["replica_stats"]]
+        require(min(per) >= 1 and sum(per) == res.engine_stats["calls"] == LOCKSTEP_ROWS,
+                f"(a) {label}: dispatched {per}, engine calls {res.engine_stats['calls']}")
+        require(snap["restarts"] == snap["errors"] == snap["hedges_issued"] == 0,
+                f"(a) {label}: {snap}")
+        log(f"phase 9 (a) {label}: bit for bit phase 7 (a)'s single engine; wall "
+            f"{wall:.3f} s on {FABRIC_REPLICAS} replicas against {ref_wall:.3f} s on one; "
+            f"dispatched {per}")
+        runs[label] = (res, launches)
+        out[f"(a) {label}"] = launches
+    base, base_launches = runs["streaming"]
+
+    # (b) a crash of replica 0 and a hang of replica 1 past the probe
+    faults = (ServingFault(0, CRASH_STEP, "replica_crash"),
+              ServingFault(1, HANG_STEP, "hang", duration=HANG_STEPS))
+    res, launches, wall, snap, plan = fabric_run(
+        torch, params, yard, "phase 9 (b) faults, streaming",
+        fleet(stream_task, health_probe_steps=PROBE_STEPS), faults)
+    require(same_result(torch, res, base), "(b): results differ from (a)'s streaming run")
+    require(snap["restarts"] == 2 and snap["errors"] == 0
+            and [r["restarts"] for r in snap["replica_stats"]] == [1, 1],
+            f"(b): restarts {snap['restarts']}, errors {snap['errors']}")
+    require(sorted((r, k) for r, _, k in plan.injected)
+            == [(0, "replica_crash"), (1, "hang")], f"(b): injected {plan.injected}")
+    # least-loaded routing deals the 16 rows 8 and 8 (no row finishes before
+    # its 32nd step), and a replica's 8 rows fill 8 of its 16 slots from its
+    # first steps: each row is in a slot at its replica's failure (step 6 or
+    # 10), so each is dispatched and prefilled once more
+    extra = launches["flash_attention"] - base_launches["flash_attention"]
+    again = sum(r["dispatched"] for r in snap["replica_stats"]) - LOCKSTEP_ROWS
+    require(again == LOCKSTEP_ROWS and extra == again * QWEN_LAYERS,
+            f"(b): {again} rows dispatched again, {launches['flash_attention']} "
+            f"prefill launches against (a)'s {base_launches['flash_attention']}; "
+            f"want {LOCKSTEP_ROWS} and {LOCKSTEP_ROWS * QWEN_LAYERS} more")
+    log(f"phase 9 (b): bit for bit (a); restarts 2 (replica 0 crashed at step "
+        f"{CRASH_STEP}, replica 1 hung at step {HANG_STEP} and caught by the probe after "
+        f"{PROBE_STEPS} pumps); {again} survivors dispatched and prefilled again "
+        f"({extra} more kernel 1 launches); wall {wall:.3f} s")
+    out["(b)"] = launches
+
+    # (c) replica 0 hung for the whole run, no probe, a short deadline
+    res, launches, wall, snap, plan = fabric_run(
+        torch, params, yard, "phase 9 (c) deadline and hedge, in memory",
+        fleet(mem_task, request_deadline_s=DEADLINE_S),
+        (ServingFault(0, 0, "hang", duration=10**9),))
+    per = snap["replica_stats"]
+    require(res.responses == runs["in memory"][0].responses, "(c): texts differ from (a)'s")
+    require([r["completed"] for r in per] == [0, LOCKSTEP_ROWS],
+            f"(c): completed by replica {[r['completed'] for r in per]}")
+    require(snap["deadline_expiries"] >= 1 and snap["hedges_issued"] >= 1
+            and snap["hedges_won"] >= 1 and per[0]["cancelled"] >= 1,
+            f"(c): expiries {snap['deadline_expiries']}, hedges {snap['hedges_issued']} "
+            f"(won {snap['hedges_won']}), cancelled on replica 0 {per[0]['cancelled']}")
+    require(snap["restarts"] == snap["errors"] == 0 and plan.injected == [(0, 0, "hang")],
+            f"(c): restarts {snap['restarts']}, errors {snap['errors']}, "
+            f"injected {plan.injected}")
+    log(f"phase 9 (c): every row served by replica 1 with (a)'s texts; "
+        f"{snap['deadline_expiries']} expiries, {snap['hedges_issued']} hedges "
+        f"({snap['hedges_won']} won), {per[0]['cancelled']} losing legs cancelled on the "
+        f"hung replica; wall {wall:.3f} s")
+    out["(c)"] = launches
+    del params
+    log(f"phase 9 took {time.perf_counter() - t_phase:.1f} s, "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB peak allocated")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2793,12 +3016,13 @@ def main() -> int:
     try:
         fs = FewShot()
         entries = timed("phase 1", kernel_phase, torch, fs)
-        contiguous, metrics = timed("phases 2, 5 and 7", main_path_phase, torch)
+        contiguous, metrics, yard = timed("phases 2, 5 and 7", main_path_phase, torch)
         paged = timed("phase 3", paged_phase, torch, fs)
         mamba = timed("phase 4", mamba_phase, torch, fs)
         t6 = time.perf_counter()
         suite_phase(torch)
         log(f"phases 6 and 8 took {time.perf_counter() - t6:.1f} s")
+        timed("phase 9", fabric_phase, torch, yard)
     except CheckFailed as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -2821,7 +3045,7 @@ def main() -> int:
                 print(f"chip_smoke: FAIL: {e['name']} {key} = {e[key]}",
                       file=sys.stderr)
                 return 1
-    log(f"phases 1-8 took {time.perf_counter() - t_start:.1f} s after the build")
+    log(f"phases 1-9 took {time.perf_counter() - t_start:.1f} s after the build")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,10 +1,7 @@
 """Evaluation-task configuration (the port of ``repro/core/config.py``).  A
 task serializes to JSON (``EvalTask.to_json``), which equals the
 reference's for a provider both packages share: the resume key of a spill
-manifest and tracking's ``params.json`` are built from it.  The replica
-fields of :class:`InferenceConfig` are kept at the reference's defaults
-only: the port has one engine a model, so another value raises
-``NotImplementedError``."""
+manifest and tracking's ``params.json`` are built from it."""
 
 from __future__ import annotations
 
@@ -132,8 +129,17 @@ class InferenceConfig:
     coalesce: bool = True
     #: batch-formation window of a cold batcher loop
     max_batch_wait_ms: float = 2.0
+    #: data-parallel engine replicas behind one service front, each its own
+    #: engine (own batcher and decode slots) on the session's device; the
+    #: flight table stays global, and responses are a pure function of the
+    #: request, so the replica count never changes a metric byte.  On one
+    #: card the replicas' batcher threads share one interpreter lock: they
+    #: buy fault tolerance, not throughput (two took 3.2-4.0x one engine's
+    #: wall on an H100, ``chip_smoke.py`` phase 9 (a))
     n_replicas: int = 1
+    #: replica placement: least_loaded | prefix_affinity | round_robin
     routing: str = "least_loaded"
+    #: prompt-prefix characters hashed by prefix_affinity
     routing_prefix_len: int = 64
     #: at most this many prompts prefilled per batcher step (0 = unlimited)
     max_prefills_per_step: int = 0
@@ -146,33 +152,19 @@ class InferenceConfig:
     #: pool), "int8" = absmax-quantized pages with per-(page, KV head) f32
     #: scales (DESIGN.md §10); int8 requires kv_page_size > 0
     kv_cache_dtype: str = "bf16"
-    #: the reference's serving-fabric fields (replicas and routing here,
-    #: deadlines and hedging, restarts and health probes below): the port
-    #: serves each model with one engine, so only the defaults are accepted
+    # fault tolerance of the serving fabric (DESIGN.md §9):
+    #: a request's deadline on the service path (0 = none); on expiry it is
+    #: hedged to another alive replica, the first completion wins and the
+    #: loser's slot is cancelled
     request_deadline_s: float = 0.0
+    #: restarts of a broken replica before its in-flight work fails (0: the
+    #: first crash retires it)
     max_replica_restarts: int = 2
+    #: base delay of the doubling restart backoff
     restart_backoff_s: float = 0.05
+    #: a replica with work in flight and no engine progress for this many
+    #: pumps in a row is declared hung and restarted (0 = no probe)
     health_probe_steps: int = 0
-
-    def __post_init__(self) -> None:
-        for name in _REPLICA_FIELDS:
-            value, default = getattr(self, name), _REPLICA_DEFAULTS[name]
-            if value != default:
-                raise NotImplementedError(
-                    f"InferenceConfig.{name}={value!r}: the port serves each "
-                    f"model with one engine; only the default {default!r} is "
-                    "supported"
-                )
-
-
-_REPLICA_FIELDS = (
-    "n_replicas", "routing", "routing_prefix_len", "request_deadline_s",
-    "max_replica_restarts", "restart_backoff_s", "health_probe_steps",
-)
-_REPLICA_DEFAULTS = {
-    f.name: f.default for f in dataclasses.fields(InferenceConfig)
-    if f.name in _REPLICA_FIELDS
-}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -7,10 +7,13 @@
   the OpenAI / Anthropic / Google providers: a latency model, the price
   book and responses that are a pure function of (prompt, model), with
   recoverable failures injected on demand (``fail_every``);
+* :class:`SimulatedSlotEngine`, the reference's host-only slot simulator
+  (``provider="slotsim"``): decode slots, page accounting, preemption and
+  scheduled serving faults, with the simulated API engine's texts;
 * :func:`retry_with_backoff` and the recoverable-error taxonomy the
   lock-step path and the inference service retry on;
 * :func:`create_engine` and :class:`EngineRegistry`, one initialized engine
-  per model and engine arguments."""
+  per model, replica index and engine arguments."""
 
 from __future__ import annotations
 
@@ -31,7 +34,15 @@ from repro_torch.core.config import EngineModelConfig
 from repro_torch.data.tokenizer import HashTokenizer
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model, init_params
+from repro_torch.ft.failure_sim import SimulatedCrash
+from repro_torch.serve.paged_cache import (
+    PagedCacheManager,
+    PagePoolExhausted,
+    kv_page_bytes,
+    pages_for_budget,
+)
 from repro_torch.serve.scheduler import (
+    BatcherStats,
     Completion,
     ContinuousBatcher,
     Request,
@@ -118,6 +129,14 @@ class InferenceEngine(abc.ABC):
 
     def infer(self, request: InferenceRequest) -> InferenceResponse:
         return self.infer_batch([request])[0]
+
+    def reset(self) -> None:
+        """The replica-restart hook: drop all in-flight serving state
+        (queued and slotted requests, their cache) so that a fresh batcher
+        loop starts clean; cumulative counters survive.  By default a full
+        shutdown and initialize."""
+        self.shutdown()
+        self.initialize()
 
     def serving_stats(self) -> dict:
         """Batcher counters of a slot engine; ``{}`` otherwise."""
@@ -228,6 +247,390 @@ class SimulatedAPIEngine(InferenceEngine):
         return [self.infer(r) for r in requests]
 
 
+# -- simulated slot engine ------------------------------------------------------------
+
+#: nominal KV geometry the slot simulator charges page bytes against (shaped
+#: like the reduced qwen3 serving config), so simulated byte budgets track
+#: the real batcher's page economics
+SIM_KV_HEADS = 8
+SIM_HEAD_DIM = 64
+SIM_LAYERS = 4
+
+
+@dataclasses.dataclass
+class SlotSimStats(BatcherStats):
+    """The slot simulator's counters, with the reference's keys: the
+    batcher's, and ``prefill_recompiles`` (distinct prompt-length buckets
+    admitted), without host-clock seconds."""
+
+    prefill_recompiles: int = 0
+
+    def as_dict(self) -> dict:
+        out = super().as_dict()
+        del out["prefill_s"], out["decode_s"]
+        return out
+
+
+class SimulatedSlotEngine(InferenceEngine):
+    """Deterministic slot-multiplexed decode engine on the host (no tensor
+    math), the reference's: ``n_slots`` decode slots advance one token per
+    step at ``step_ms``, with the simulated API engine's texts and
+    deterministic, long-tail skewed output lengths, so serving tests
+    measure scheduling, not model math.
+
+    ``infer_batch`` is the lock-step path: requests decode in gangs of
+    ``n_slots`` and a gang drains at its slowest member's length.  The
+    streaming interface refills slots as they free, which the
+    :class:`~repro_torch.core.service.InferenceService` batcher loop
+    drives.  ``kv_page_size`` > 0 charges prompt words to a
+    :class:`~repro_torch.serve.paged_cache.PagedCacheManager` (prefix
+    sharing, a low-watermark admission gate, preemption of the cheapest
+    slot under pressure, and with ``decode_page_growth`` a page per decoded
+    token); ``kv_cache_dtype`` changes page bytes, never text.
+    ``fault_plan`` (a :class:`~repro_torch.ft.ServingFaultSchedule`) is
+    polled every pump under the replica index the engine claimed at
+    construction.
+    """
+
+    supports_streaming = True
+
+    def __init__(
+        self,
+        model: EngineModelConfig,
+        *,
+        n_slots: int = 8,
+        step_ms: float = 0.5,
+        wall_clock: bool = False,
+        min_out: int = 4,
+        max_out: int = 48,
+        max_prefills_per_step: int = 0,
+        kv_page_size: int = 0,
+        prefix_cache: bool = True,
+        prefill_ms_per_token: float = 0.0,
+        page_pool: int = 4096,
+        page_pool_bytes: int = 0,
+        kv_cache_dtype: str = "bf16",
+        decode_page_growth: bool = False,
+        fault_plan: Any = None,
+    ):
+        self.model = model
+        self.n_slots = n_slots
+        self.step_ms = step_ms
+        self.wall_clock = wall_clock
+        self.min_out = min_out
+        self.max_out = max_out
+        #: 0 = unlimited; otherwise at most this many queued prompts are
+        #: prefilled into free slots per pump
+        self.max_prefills_per_step = max_prefills_per_step
+        #: wall time each uncached prompt word charges at admission
+        self.prefill_ms_per_token = prefill_ms_per_token
+        self.kv_page_size = kv_page_size
+        self.kv_cache_dtype = kv_cache_dtype
+        self.decode_page_growth = decode_page_growth
+        if kv_cache_dtype not in ("bf16", "int8"):
+            raise ValueError(
+                f"kv_cache_dtype must be 'bf16' or 'int8', got "
+                f"{kv_cache_dtype!r}"
+            )
+        if kv_cache_dtype == "int8" and not kv_page_size:
+            raise ValueError(
+                "kv_cache_dtype='int8' requires a paged cache "
+                "(kv_page_size > 0)"
+            )
+        page_bytes = 0
+        self._pages: PagedCacheManager | None = None
+        if kv_page_size:
+            page_bytes = kv_page_bytes(
+                kv_page_size, SIM_KV_HEADS, SIM_HEAD_DIM, SIM_LAYERS,
+                kv_cache_dtype,
+            )
+            if page_pool_bytes:
+                page_pool = pages_for_budget(page_pool_bytes, page_bytes)
+            self._pages = PagedCacheManager(
+                page_pool, kv_page_size, prefix_cache=prefix_cache,
+                page_bytes=page_bytes,
+            )
+        self.calls = 0
+        self.total_cost = 0.0
+        self.initialized = False
+        self.stats = SlotSimStats(n_slots=n_slots)
+        if kv_page_size:
+            self.stats.kv_bytes_per_token = page_bytes // kv_page_size
+            self.stats.pool_pages = self._pages.n_pages
+        self._lock = threading.Lock()
+        self._next_id = 0
+        #: streaming admission queue: (rid, request, out_len)
+        self._queue: list[tuple[int, InferenceRequest, int]] = []
+        self._slots: list[dict | None] = [None] * n_slots
+        self._seen_len_buckets: set[int] = set()
+        self._fault_plan = fault_plan
+        self.fault_replica = fault_plan.attach() if fault_plan is not None else 0
+        #: pump counter; survives reset() so that later faults on the same
+        #: replica still fire at their scheduled step
+        self._pumps = 0
+        self._hang_until = 0
+
+    def initialize(self) -> None:
+        self.initialized = True
+
+    def shutdown(self) -> None:
+        self.initialized = False
+
+    def _out_len(self, request: InferenceRequest) -> int:
+        h = int(hashlib.sha256(request.prompt.encode()).hexdigest()[8:16], 16)
+        span = max(1, self.max_out - self.min_out)
+        if h % 6 == 0:  # long tail: ~1 in 6 answers runs near max_out
+            n = self.max_out - h % (span // 4 + 1)
+        else:
+            n = self.min_out + h % (span // 3 + 1)
+        return max(1, min(request.max_tokens, n))
+
+    def _response(
+        self, request: InferenceRequest, out_len: int, latency_ms: float
+    ) -> InferenceResponse:
+        text = simulated_answer(
+            request.prompt, request.max_tokens, self.model.model_name
+        )
+        return InferenceResponse(
+            text=text,
+            input_tokens=max(1, len(request.prompt.split())),
+            output_tokens=out_len,
+            latency_ms=latency_ms,
+        )
+
+    def _account_admission(self, request: InferenceRequest) -> None:
+        self.stats.admissions += 1
+        b, n = 16, max(1, len(request.prompt.split()))
+        while b < n:
+            b <<= 1
+        if b not in self._seen_len_buckets:
+            self._seen_len_buckets.add(b)
+            self.stats.prefill_recompiles += 1
+
+    def _account_steps(self, steps: int, active_slot_steps: int) -> None:
+        self.stats.steps += steps
+        self.stats.active_slot_steps += active_slot_steps
+        self.stats.tokens_generated += active_slot_steps
+
+    # -- lock-step path --------------------------------------------------------
+
+    def infer_batch(self, requests: list[InferenceRequest]) -> list[InferenceResponse]:
+        out: list[InferenceResponse] = []
+        with self._lock:
+            self.initialize()
+            for i in range(0, len(requests), self.n_slots):
+                wave = requests[i : i + self.n_slots]
+                lens = [self._out_len(r) for r in wave]
+                wave_steps = max(lens)
+                for r in wave:
+                    self._account_admission(r)
+                self._account_steps(wave_steps, sum(lens))
+                self.stats.completions += len(wave)
+                # a lock-step wave keeps no slots: every prompt prefills in full
+                prefill_ms = self.prefill_ms_per_token * sum(
+                    max(1, len(r.prompt.split())) for r in wave
+                )
+                if self.wall_clock:
+                    time.sleep((wave_steps * self.step_ms + prefill_ms) / 1000.0)
+                latency = wave_steps * self.step_ms + prefill_ms
+                for r, n in zip(wave, lens):
+                    self.calls += 1
+                    out.append(self._response(r, n, latency))
+        return out
+
+    # -- streaming path --------------------------------------------------------
+
+    def stream_submit(self, request: InferenceRequest) -> int:
+        with self._lock:
+            self.initialize()
+            rid = self._next_id
+            self._next_id += 1
+            self._queue.append((rid, request, self._out_len(request)))
+            return rid
+
+    def stream_pending(self) -> bool:
+        with self._lock:
+            return bool(self._queue) or any(s is not None for s in self._slots)
+
+    def slots_busy(self) -> int:
+        with self._lock:
+            return sum(1 for s in self._slots if s is not None) + len(self._queue)
+
+    def _preempt_one_locked(self) -> bool:
+        """Evict the victim slot (fewest decoded tokens, index tie-break),
+        releasing its pages and requeueing its request at the queue front
+        for a full recompute."""
+        victims = [
+            (s["out"] - s["left"], i)
+            for i, s in enumerate(self._slots)
+            if s is not None
+        ]
+        if not victims:
+            return False
+        decoded, i = min(victims)
+        s = self._slots[i]
+        if self._pages is not None:
+            self._pages.release(s["rid"])
+        self._queue.insert(0, (s["rid"], s["req"], s["out"]))
+        self._slots[i] = None
+        self.stats.preemptions += 1
+        self.stats.preempted_tokens += decoded
+        return True
+
+    def _page_gate_locked(self) -> bool:
+        """Admit the queue head only if the pool covers its page need while
+        keeping one page per busy slot in reserve; a prompt larger than the
+        whole pool is admitted so that ``acquire`` raises."""
+        _, req, _ = self._queue[0]
+        words = req.prompt.split() or ["<bos>"]
+        need = -(-len(words) // self.kv_page_size)
+        if need >= self._pages.n_pages:
+            return True
+        busy = sum(1 for s in self._slots if s is not None)
+        return self._pages.pages_free + self._pages.pages_cached >= need + busy
+
+    def _poll_fault_locked(self) -> float:
+        """Apply the due scheduled fault, if any; returns extra latency ms
+        (``slow_step``).  ``replica_crash`` raises out of the pump."""
+        fault = self._fault_plan.poll(self.fault_replica, self._pumps)
+        if fault is None:
+            return 0.0
+        if fault.kind == "replica_crash":
+            raise SimulatedCrash(
+                f"injected replica_crash replica={self.fault_replica} "
+                f"pump={self._pumps}"
+            )
+        if fault.kind == "hang":
+            self._hang_until = self._pumps + fault.duration
+        elif fault.kind == "page_pressure":
+            for _ in range(max(1, fault.duration)):
+                if not self._preempt_one_locked():
+                    break
+        elif fault.kind == "slow_step":
+            return fault.delay_s * 1000.0
+        return 0.0
+
+    def _grow_decode_pages_locked(self) -> None:
+        """Charge each active slot the page holding this step's new token;
+        pool exhaustion preempts the cheapest victim and retries (possibly
+        the growing slot itself)."""
+        for i, s in enumerate(self._slots):
+            if s is None:
+                continue
+            words = s["req"].prompt.split() or ["<bos>"]
+            pos = len(words) + (s["out"] - s["left"])
+            while self._slots[i] is not None:
+                try:
+                    pw = self._pages.ensure_position(s["rid"], pos)
+                    if pw.cow_src is not None:
+                        self.stats.cow_copies += 1
+                    break
+                except PagePoolExhausted:
+                    if not self._preempt_one_locked():
+                        break
+
+    def stream_pump(self) -> list[tuple[int, InferenceResponse]]:
+        slow_ms = 0.0
+        with self._lock:
+            self._pumps += 1
+            if self._fault_plan is not None:
+                slow_ms = self._poll_fault_locked()
+            if self._pumps <= self._hang_until:
+                return []  # hung: no admissions, no decode, no progress
+            admitted = 0
+            prefill_tokens = 0
+            for i, s in enumerate(self._slots):
+                if s is None and self._queue:
+                    capped = (self.max_prefills_per_step
+                              and admitted >= self.max_prefills_per_step)
+                    if capped or (self._pages is not None
+                                  and not self._page_gate_locked()):
+                        # each still-queued request a free slot could have
+                        # taken defers once per pump it actually waits
+                        free_left = sum(
+                            1 for s2 in self._slots[i:] if s2 is None
+                        )
+                        self.stats.prefills_deferred += min(
+                            len(self._queue), free_left
+                        )
+                        break
+                    rid, req, out_len = self._queue.pop(0)
+                    self._account_admission(req)
+                    admitted += 1
+                    words = req.prompt.split() or ["<bos>"]
+                    if self._pages is not None:
+                        m = self._pages.acquire(rid, words)
+                        self._pages.register(rid, words)
+                        self.stats.prefix_pages_hit += m.n_shared_pages
+                        self.stats.prefix_tokens_saved += m.n_shared_tokens
+                        prefill_tokens += len(words) - m.n_shared_tokens
+                    else:
+                        prefill_tokens += len(words)
+                    self._slots[i] = {
+                        "rid": rid, "req": req, "left": out_len,
+                        "out": out_len, "start_step": self.stats.steps,
+                    }
+            n_active = sum(1 for s in self._slots if s is not None)
+            if not n_active:
+                return []
+        if self.wall_clock:
+            # outside the lock: direct infer calls interleave between steps
+            time.sleep(
+                (self.step_ms + self.prefill_ms_per_token * prefill_tokens
+                 + slow_ms) / 1000.0
+            )
+        done: list[tuple[int, InferenceResponse]] = []
+        with self._lock:
+            if self._pages is not None and self.decode_page_growth:
+                self._grow_decode_pages_locked()
+            self._account_steps(1, n_active)
+            for i, s in enumerate(self._slots):
+                if s is None:
+                    continue
+                s["left"] -= 1
+                if s["left"] <= 0:
+                    latency = (self.stats.steps - s["start_step"]) * self.step_ms
+                    self.calls += 1
+                    self.stats.completions += 1
+                    if self._pages is not None:
+                        self._pages.release(s["rid"])
+                    done.append(
+                        (s["rid"], self._response(s["req"], s["out"], latency))
+                    )
+                    self._slots[i] = None
+        return done
+
+    def stream_cancel(self, rid: int) -> bool:
+        with self._lock:
+            for i, (qid, _req, _out) in enumerate(self._queue):
+                if qid == rid:
+                    del self._queue[i]
+                    return True
+            for i, s in enumerate(self._slots):
+                if s is not None and s["rid"] == rid:
+                    if self._pages is not None:
+                        self._pages.release(rid)
+                    self._slots[i] = None
+                    return True
+        return False
+
+    def reset(self) -> None:
+        """Replica restart: drop queued and slotted requests and their
+        pages; the counters and the pump clock survive (the fault schedule
+        stays aligned to the engine's lifetime)."""
+        with self._lock:
+            if self._pages is not None:
+                self._pages.release_all()
+            self._queue.clear()
+            self._slots = [None] * self.n_slots
+            self._hang_until = 0
+            self.initialized = True
+
+    def serving_stats(self) -> dict:
+        with self._lock:
+            return self.stats.as_dict()
+
+
 # -- local engine -----------------------------------------------------------------
 
 
@@ -257,6 +660,21 @@ class TorchLocalEngine(InferenceEngine):
     for one batcher step at a time, not for its whole drain: concurrent
     callers' prompts decode in the same steps instead of queueing behind
     each other, and every caller takes only its own completions.
+
+    ``fault_plan`` (a :class:`~repro_torch.ft.ServingFaultSchedule`) claims
+    the engine's replica index at construction and hooks the batcher's
+    steps (``ContinuousBatcher.fault_hook``); :meth:`reset`, the service's
+    replica restart, rebuilds the batcher on the same weights and hooks it
+    again.
+
+    A text is the decode of the greedy tokens through the tokenizer's
+    memory of the words it has encoded (an id never encoded renders as
+    ``<id>``, and of two words with one id the first encoded wins).  The
+    replicas of a model therefore share one ``tokenizer``, and a service
+    of several replicas hands each request to :meth:`prepare` as it is
+    submitted, so that the memory holds the words in submission order
+    whichever replica serves a prompt: a text is then the one a single
+    engine gives.
     """
 
     supports_streaming = True
@@ -275,6 +693,8 @@ class TorchLocalEngine(InferenceEngine):
         kv_cache_dtype: str = "bf16",
         device: torch.device | str | None = None,
         params: dict | None = None,
+        fault_plan: Any = None,
+        tokenizer: HashTokenizer | None = None,
     ):
         if model.provider != PROVIDER:
             raise ValueError(f"provider must be {PROVIDER!r}, got {model.provider!r}")
@@ -290,8 +710,10 @@ class TorchLocalEngine(InferenceEngine):
         }
         self.device = resolve_device(device)
         self._params = params
+        self._fault_plan = fault_plan
+        self.fault_replica = fault_plan.attach() if fault_plan is not None else 0
         self.batcher: ContinuousBatcher | None = None
-        self._tokenizer: HashTokenizer | None = None
+        self._tokenizer: HashTokenizer | None = tokenizer
         self._next_id = 0
         self._lock = threading.RLock()
         #: stream ids of direct callers' requests still decoding, and the
@@ -306,7 +728,13 @@ class TorchLocalEngine(InferenceEngine):
             cfg = get_config(self.model_cfg.model_name)
             if self.model_cfg.reduced:
                 cfg = cfg.reduced()
-            self._tokenizer = HashTokenizer(cfg.vocab_size)
+            if self._tokenizer is None:
+                self._tokenizer = HashTokenizer(cfg.vocab_size)
+            elif self._tokenizer.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    f"tokenizer vocab {self._tokenizer.vocab_size}, "
+                    f"model vocab {cfg.vocab_size}"
+                )
             params = self._params
             if params is None:
                 params = init_params(cfg, self.model_cfg.seed, device=self.device)
@@ -314,18 +742,60 @@ class TorchLocalEngine(InferenceEngine):
                 raise ValueError(
                     f"params are on {params['embed'].device}, the engine on {self.device}"
                 )
-            self.batcher = ContinuousBatcher(
-                build_model(cfg), cfg, params,
-                n_slots=self.n_slots, max_len=self.max_len,
-                eos_id=self._tokenizer.eos_id,
-                max_prefills_per_step=self.max_prefills_per_step,
-                temperature=self.model_cfg.temperature,
-                **self.paging,
-            )
+            self.batcher = self._new_batcher(cfg, params)
+
+    def _new_batcher(self, cfg: Any, params: dict) -> ContinuousBatcher:
+        b = ContinuousBatcher(
+            build_model(cfg), cfg, params,
+            n_slots=self.n_slots, max_len=self.max_len,
+            eos_id=self._tokenizer.eos_id,
+            max_prefills_per_step=self.max_prefills_per_step,
+            temperature=self.model_cfg.temperature,
+            **self.paging,
+        )
+        if self._fault_plan is not None:
+            b.fault_hook = self._fault_plan.as_hook(self.fault_replica)
+        return b
 
     def shutdown(self) -> None:
         with self._lock:
             self.batcher = None
+
+    def reset(self) -> None:
+        """Replica restart: drop every queued and slotted request and
+        rebuild the batcher (fresh slots, a fresh cache or page pool) on
+        the same weights and tokenizer.  The old cache is freed before the
+        new one is allocated.  The counters and the step clock carry over,
+        so later faults of the schedule fire at their steps of the
+        engine's lifetime."""
+        with self._lock:
+            old = self.batcher
+            if old is None:
+                self.initialize()
+                return
+            cfg, params = old.cfg, old.params
+            stats, steps_run = old.stats, old.steps_run
+            self.batcher = None
+            old.cache = None
+            del old
+            b = self._new_batcher(cfg, params)
+            b.stats, b.steps_run = stats, steps_run
+            self.batcher = b
+
+    @property
+    def tokenizer(self) -> HashTokenizer:
+        self.initialize()
+        return self._tokenizer
+
+    def prepare(self, request: InferenceRequest) -> None:
+        """Encode the request's prompt now (the submitter's thread, in
+        submission order); ``stream_submit`` encodes it again later, so a
+        service calls this only when it has several replicas.  The
+        engine lock is not taken: the batcher thread holds it for a whole
+        step, and a submitter waiting on it would feed the slots one prompt
+        a step (the tokenizer's memory is a dict, whose updates are atomic)."""
+        tok = self._tokenizer or self.tokenizer
+        tok.encode(request.prompt)
 
     def _submit(self, request: InferenceRequest) -> int:
         self.initialize()
@@ -448,32 +918,39 @@ def _kwargs_key(kw: dict) -> str:
 
 def create_engine(model: EngineModelConfig, **kw: Any) -> InferenceEngine:
     """The engine for ``model.provider``: the port's local engine for
-    ``"torch_local"``, the simulated API engine for any other provider, as
-    in the reference.  The reference's slot simulator is not ported."""
+    ``"torch_local"``, the slot simulator for ``"slotsim"``, the simulated
+    API engine for any other provider, as in the reference."""
     if model.provider == PROVIDER:
         return TorchLocalEngine(model, **kw)
     if model.provider == "slotsim":
-        raise NotImplementedError("the simulated slot engine is not ported")
+        return SimulatedSlotEngine(model, **kw)
     return SimulatedAPIEngine(model, **kw)
 
 
 class EngineRegistry:
-    """One initialized engine per (:class:`EngineModelConfig`, engine
-    arguments), the reference's ``EngineRegistry``: a session amortizes an
-    engine's set-up across every task it runs.  Lookups from concurrent
-    jobs initialize an engine once."""
+    """One initialized engine per (:class:`EngineModelConfig`, replica
+    index, engine arguments), the reference's ``EngineRegistry``: a session
+    amortizes an engine's set-up across every task it runs.  Lookups from
+    concurrent jobs initialize an engine once."""
 
     def __init__(self) -> None:
-        self._engines: dict[tuple[EngineModelConfig, str], InferenceEngine] = {}
+        self._engines: dict[tuple[EngineModelConfig, int, str], InferenceEngine] = {}
+        self.initializations = 0
         self._lock = threading.Lock()
 
-    def get(self, model: EngineModelConfig, **kw: Any) -> InferenceEngine:
-        key = (model, _kwargs_key(kw))
+    def get(
+        self, model: EngineModelConfig, *, replica: int = 0, **kw: Any
+    ) -> InferenceEngine:
+        """``replica`` tells data-parallel instances apart: replica i of a
+        model is its own engine (own batcher, own decode slots), and replica
+        0 is the single-replica engine."""
+        key = (model, replica, _kwargs_key(kw))
         with self._lock:
             engine = self._engines.get(key)
             if engine is None:
                 engine = create_engine(model, **kw)
                 engine.initialize()
+                self.initializations += 1
                 self._engines[key] = engine
         return engine
 
@@ -484,6 +961,12 @@ class EngineRegistry:
 
     def __len__(self) -> int:
         return len(self._engines)
+
+    def __contains__(self, model: EngineModelConfig) -> bool:
+        return any(k[0] == model for k in self._engines)
+
+    def engines(self) -> list[InferenceEngine]:
+        return list(self._engines.values())
 
 
 #: provider error codes worth retrying (429 and the 5xx family)

@@ -6,7 +6,11 @@ long-lived owner of the evaluation resources on one device:
 * **inference services**: one :class:`~repro_torch.core.service.
   InferenceService` per engine (``service_for``), the submit/gather front
   that coalesces identical in-flight requests and batches across every
-  task, chunk and suite job using that engine;
+  task, chunk and suite job using that engine, fanned out over
+  ``n_replicas`` engine replicas on the session's device with the
+  configuration's routing, deadlines, restarts and health probe (on one
+  card, replicas are for fault tolerance, not throughput: see
+  :mod:`~repro_torch.core.service`);
 * **response caches**: one :class:`~repro_torch.core.cache.ResponseCache`
   per ``(cache_dir, policy)`` (``cache_for``);
 * **rate limiters and worker pools**: one per inference configuration
@@ -23,9 +27,9 @@ stopped early by ``task.stopping``); pass ``stages=`` to swap stages (for
 instance ``rescore_stages(texts)``).  ``run_suite`` runs an
 :class:`~repro_torch.core.suite.EvalSuite` and builds the pairwise
 significance matrix.  Rate limits sleep only with
-``wall_clock_rate_limit=True`` (``sleep``); otherwise limiters and retry
-backoffs keep accounts without waiting.  Replicas, deadlines, hedging and
-restarts of the reference are not part of the port yet.
+``wall_clock_rate_limit=True`` (``sleep``); otherwise limiters, retry and
+restart backoffs and the service's batch window keep accounts without
+waiting.
 """
 
 from __future__ import annotations
@@ -41,7 +45,7 @@ from repro_torch.core.cache import ResponseCache
 from repro_torch.core.config import CachePolicy, EngineModelConfig, EvalTask, InferenceConfig
 from repro_torch.core.engines import PROVIDER, EngineRegistry, InferenceEngine
 from repro_torch.core.ratelimit import AdaptiveLimiter, TokenBucket
-from repro_torch.core.service import InferenceService
+from repro_torch.core.service import InferenceService, ReplicaRouter
 from repro_torch.core.stages import (
     CostBudgetMiddleware,
     EvalArtifact,
@@ -56,11 +60,17 @@ from repro_torch.device import resolve_device
 from repro_torch.ft.workers import WorkerPool
 
 
+#: the providers whose engines take a task's serving arguments (slot engines)
+SLOT_PROVIDERS = (PROVIDER, "slotsim")
+
+
 def serving_kwargs(inf: InferenceConfig) -> dict:
     """The engine arguments a task's inference config sets, each only where
     it differs from its default, as the reference's ``_add_paging_kwargs``
-    forwards them.  Like the reference, an int8 cache without a page size
-    forwards nothing and the cache stays contiguous."""
+    forwards them (``max_prefills_per_step`` at any replica count, where the
+    reference forwards it to fleets of two or more only).  Like the
+    reference, an int8 cache without a page size forwards nothing and the
+    cache stays contiguous."""
     kw: dict = {}
     if inf.max_prefills_per_step:
         kw["max_prefills_per_step"] = inf.max_prefills_per_step
@@ -99,12 +109,13 @@ class SessionAccounting:
 class EvalSession:
     """Runs on the card unless ``device="cpu"`` is passed.
     ``engine_kwargs`` go to every engine the session builds (for the local
-    engine ``n_slots``, ``max_len``, ``page_pool``, ``params``, ...); a
-    local engine also gets the session's device and a task's serving knobs
-    from its :class:`InferenceConfig`, which an argument of
-    ``engine_kwargs`` overrides.  ``params`` are one model's weights, so
-    they suit a session that serves one model; otherwise each engine makes
-    its weights from its model's seed."""
+    engine ``n_slots``, ``max_len``, ``page_pool``, ``params``,
+    ``fault_plan``, ...); a slot engine (local or ``slotsim``) also gets a
+    task's serving knobs from its :class:`InferenceConfig`, which an
+    argument of ``engine_kwargs`` overrides, and a local engine the
+    session's device.  ``params`` are one model's weights, so they suit a
+    session that serves one model (its replicas then share them);
+    otherwise each engine makes its weights from its model's seed."""
 
     def __init__(
         self,
@@ -143,39 +154,68 @@ class EvalSession:
         return time.sleep if self.wall_clock else (lambda s: None)
 
     def _engine_args(self, model: EngineModelConfig, inf: InferenceConfig) -> dict:
-        if model.provider != PROVIDER:
+        if model.provider not in SLOT_PROVIDERS:
             return dict(self._engine_kwargs)
-        return {"device": self.device, **serving_kwargs(inf), **self._engine_kwargs}
+        kw = serving_kwargs(inf)
+        if model.provider == PROVIDER:
+            kw["device"] = self.device
+        return {**kw, **self._engine_kwargs}
 
     def engine_for(
         self, model: EngineModelConfig, inf: InferenceConfig = InferenceConfig()
     ) -> InferenceEngine:
         """The engine for ``model`` under ``inf``'s serving knobs, built and
-        initialized on first use."""
+        initialized on first use.  Engines called directly (a judge, the
+        lock-step path) are not serving replicas, so a ``fault_plan`` of
+        ``engine_kwargs`` is not passed and they claim no replica index."""
         self._check_open()
-        return self.engines.get(model, **self._engine_args(model, inf))
+        kw = self._engine_args(model, inf)
+        kw.pop("fault_plan", None)
+        return self.engines.get(model, **kw)
+
+    def _replica_engines(
+        self, model: EngineModelConfig, inf: InferenceConfig,
+        first: InferenceEngine, kw: dict,
+    ) -> list[InferenceEngine]:
+        """One engine a data-parallel replica, built in replica order (so a
+        fault plan's replica indices follow it), each with its own batcher
+        and cache; replica 0 is ``first``.  Every replica sits on the
+        session's one device, and local replicas share replica 0's
+        tokenizer (see :class:`~repro_torch.core.engines.TorchLocalEngine`)."""
+        if model.provider == PROVIDER:
+            kw = {"tokenizer": first.tokenizer, **kw}
+        return [first] + [self.engines.get(model, replica=i, **kw)
+                          for i in range(1, max(1, inf.n_replicas))]
 
     def service_for(
         self, model: EngineModelConfig, inf: InferenceConfig
     ) -> InferenceService:
-        """The shared service of :meth:`engine_for`'s engine; its queue
-        depth, coalescing default, batch window and least dispatcher count
-        come from the first inference config that touches the engine."""
-        engine = self.engine_for(model, inf)
+        """The shared service of ``model`` under ``inf``'s serving knobs,
+        whose replica 0 is :meth:`engine_for`'s engine when no fault plan is
+        given; its fan-out (``n_replicas``, ``routing``), fault tolerance,
+        queue depth, coalescing default, batch window and least dispatcher
+        count come from the first inference config that touches it."""
+        self._check_open()
+        kw = self._engine_args(model, inf)
+        first = self.engines.get(model, **kw)
         with self._res_lock:
-            key = id(engine)
-            svc = self._services.get(key)
+            svc = self._services.get(id(first))
             if svc is None:
                 svc = InferenceService(
-                    engine,
+                    engines=self._replica_engines(model, inf, first, kw),
+                    routing=ReplicaRouter(inf.routing,
+                                          prefix_len=inf.routing_prefix_len),
                     queue_depth=inf.service_queue_depth,
                     coalesce=inf.coalesce,
                     max_batch_wait_ms=inf.max_batch_wait_ms,
                     n_dispatchers=inf.n_workers,
                     sleep=self.sleep,
                     name=f"{model.provider}:{model.model_name}",
+                    max_replica_restarts=inf.max_replica_restarts,
+                    restart_backoff_s=inf.restart_backoff_s,
+                    health_probe_steps=inf.health_probe_steps,
                 )
-                self._services[key] = svc
+                self._services[id(first)] = svc
         return svc
 
     def serving_stats(self) -> list[dict]:

@@ -425,6 +425,7 @@ class InferStage:
                         est_tokens=len(prompts[i].split()) + model.max_tokens,
                         max_retries=inf.max_retries,
                         retry_delay=inf.retry_delay,
+                        deadline_s=inf.request_deadline_s,
                     )
                     local[key] = ticket
                     pending.append((i, key, ticket, True))

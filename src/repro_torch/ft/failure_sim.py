@@ -1,16 +1,23 @@
-"""Deterministic failure injection (the streaming part of
-``repro/ft/failure_sim.py``): :class:`FlakyFn` wraps a shard function with
-faults scheduled by (shard index, attempt), and
-:class:`ChunkCrashMiddleware` kills a streaming run after a chunk has
-committed to its spill manifest, so tests reproduce a crash and its
-resume exactly.
+"""Deterministic failure injection (the port of ``repro/ft/failure_sim.py``
+but for ``simulate_training``, which waits for the training slice):
+
+* :class:`FlakyFn` wraps a shard function with faults scheduled by (shard
+  index, attempt);
+* :class:`ChunkCrashMiddleware` kills a streaming run after a chunk has
+  committed to its spill manifest, so tests reproduce a crash and its
+  resume exactly;
+* :class:`ServingFaultSchedule` plans serving faults by (replica, engine
+  step): a replica crash, a hang, page pressure or a slow step, polled by
+  the simulated slot engine every pump and by the continuous batcher every
+  step (``as_hook``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
-from typing import Any, Callable
+from typing import Any, Callable, Sequence
 
 
 @dataclasses.dataclass
@@ -93,3 +100,110 @@ class ChunkCrashMiddleware:
                 )
             if fault.kind == "delay":
                 time.sleep(fault.delay_s)
+
+
+SERVING_FAULT_KINDS = ("replica_crash", "hang", "page_pressure", "slow_step")
+
+
+@dataclasses.dataclass
+class ServingFault:
+    """One serving-layer fault, scheduled by (replica, engine step).
+
+    Kinds (DESIGN.md §9):
+
+    - ``replica_crash``: the engine raises :class:`SimulatedCrash` out of
+      its pump; the service's restart path must recover the replica.
+    - ``hang``: the engine makes no progress (no admissions, no decode
+      steps, no completions) for ``duration`` pumps; only the service's
+      health probe can see this.
+    - ``page_pressure``: force-preempt ``duration`` victim slots (fewest
+      decoded tokens, index tie-break) of the simulated slot engine, one
+      of the batcher, simulating decode-time pool exhaustion.
+    - ``slow_step``: a straggler step, ``delay_s`` of extra latency
+      (wall-clock engines only; a no-op under the virtual clock).
+    """
+
+    replica: int
+    step: int               # engine pump/step index the fault fires at
+    kind: str = "replica_crash"
+    duration: int = 1       # pumps hung / slots preempted
+    delay_s: float = 0.0    # extra latency for slow_step
+
+    def __post_init__(self) -> None:
+        if self.kind not in SERVING_FAULT_KINDS:
+            raise ValueError(
+                f"unknown serving fault kind {self.kind!r}; "
+                f"expected one of {SERVING_FAULT_KINDS}"
+            )
+
+
+class ServingFaultSchedule:
+    """Deterministic serving-layer fault plan keyed by (replica, step).
+
+    Engines claim replica indices via :meth:`attach` in creation order:
+    ``EvalSession`` builds replica engines 0..n-1 in order, so a schedule
+    passed through ``engine_kwargs={"fault_plan": plan}`` maps faults to
+    replicas deterministically.  Each fault fires exactly once, at the
+    first poll whose step is >= its scheduled step (the >= keeps a fault
+    from being lost if an engine skips step numbers).
+
+    Thread-safe: replicas poll concurrently from their batcher loops.
+    """
+
+    def __init__(self, faults: Sequence[ServingFault]):
+        self.faults = sorted(faults, key=lambda f: (f.replica, f.step))
+        self._by_replica: dict[int, list[ServingFault]] = {}
+        for f in self.faults:
+            self._by_replica.setdefault(f.replica, []).append(f)
+        #: (replica, step fired at, kind) in firing order
+        self.injected: list[tuple[int, int, str]] = []
+        self._next_index = 0
+        self._lock = threading.Lock()
+
+    def attach(self) -> int:
+        """Claim the next replica index (engine creation order)."""
+        with self._lock:
+            i = self._next_index
+            self._next_index += 1
+            return i
+
+    def poll(self, replica: int, step: int) -> ServingFault | None:
+        """Return the due fault for (replica, step), at most one per call."""
+        with self._lock:
+            due = self._by_replica.get(replica)
+            if due and step >= due[0].step:
+                fault = due.pop(0)
+                self.injected.append((replica, step, fault.kind))
+                return fault
+        return None
+
+    def as_hook(self, replica: int) -> Callable[[int], str | None]:
+        """Adapt the schedule to ``ContinuousBatcher.fault_hook``: a
+        callable(step) that raises for ``replica_crash``, sleeps for
+        ``slow_step``, and returns the kind string for the batcher to act
+        on (``page_pressure``: a forced preemption; ``hang``: skip the
+        step).  A ``hang`` is returned for ``duration`` calls in a row, as
+        the slot engine hangs for ``duration`` pumps (the reference's hook
+        hangs a batcher for one step whatever the duration).  A new hook
+        starts unhung: an engine reset ends a hang."""
+        hang_left = 0
+
+        def hook(step: int) -> str | None:
+            nonlocal hang_left
+            if hang_left > 0:
+                hang_left -= 1
+                return "hang"
+            fault = self.poll(replica, step)
+            if fault is None:
+                return None
+            if fault.kind == "replica_crash":
+                raise SimulatedCrash(
+                    f"injected replica_crash replica={replica} step={step}"
+                )
+            if fault.kind == "slow_step" and fault.delay_s:
+                time.sleep(fault.delay_s)
+            if fault.kind == "hang":
+                hang_left = max(1, fault.duration) - 1
+            return fault.kind
+
+        return hook

@@ -289,6 +289,14 @@ class PagedCacheManager:
         for pid in self._tables.pop(owner):
             self._release_page(pid)
 
+    def release_all(self) -> int:
+        """Drop every outstanding owner table (the replica-restart reset);
+        returns the number of owners released."""
+        owners = list(self._tables)
+        for owner in owners:
+            self.release(owner)
+        return len(owners)
+
     def check_no_leaks(self) -> None:
         """Raise unless, with no owner outstanding, every page is free or
         cached."""

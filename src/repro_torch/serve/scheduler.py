@@ -42,7 +42,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -234,6 +234,14 @@ class ContinuousBatcher:
         self.cur_tokens = np.zeros((n_slots, 1), np.int64)
         self.queue: list[Request] = []
         self.completions: list[Completion] = []
+        #: decode steps run (the clock of the fault hook)
+        self.steps_run = 0
+        #: deterministic chaos hook, called with ``steps_run`` at the top of
+        #: every step(): it may raise (``replica_crash``), sleep
+        #: (``slow_step``) or return a kind, "page_pressure" preempting the
+        #: cheapest busy slot and "hang" skipping the step
+        #: (:meth:`~repro_torch.ft.ServingFaultSchedule.as_hook`)
+        self.fault_hook: Callable[[int], str | None] | None = None
 
     # -- public API ----------------------------------------------------------
 
@@ -399,6 +407,14 @@ class ContinuousBatcher:
 
     def step(self) -> int:
         """One scheduler iteration; returns the number of active slots."""
+        if self.fault_hook is not None:
+            kind = self.fault_hook(self.steps_run)
+            if kind == "page_pressure":
+                busy = [s for s in range(self.n_slots) if not self.slot_free[s]]
+                if busy:
+                    self._preempt_victim(busy)
+            elif kind == "hang":
+                return 0  # no admission, no decode, no progress
         self._reap()
         self._refill()
         self._reap()
@@ -439,6 +455,7 @@ class ContinuousBatcher:
             self.slot_tokens[slot].append(int(nxt[slot]))
             self.slot_pos[slot] += 1
             self.cur_tokens[slot, 0] = int(nxt[slot])
+        self.steps_run += 1
         return len(active)
 
     def run_to_completion(self, max_steps: int = 10_000) -> list[Completion]:

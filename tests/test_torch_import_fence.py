@@ -59,7 +59,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "repro_torch.metrics.judge", "repro_torch.metrics.rag",
                    "repro_torch.core.streaming", "repro_torch.core.budget",
                    "repro_torch.stats.sequential", "repro_torch.storage.spill",
-                   "repro_torch.ft.failure_sim"):
+                   "repro_torch.ft.failure_sim", "repro_torch.core.engines",
+                   "repro_torch.serve.scheduler", "repro_torch.serve.paged_cache"):
         assert module in out["imported"]
 
 
@@ -75,3 +76,29 @@ def test_port_sources_do_not_name_jax_or_repro_modules():
                 mod = s.split()[1]
                 assert mod != "jax" and not mod.startswith(("jax.", "repro.")) \
                     and mod != "repro", f"{f}: {s}"
+
+
+def test_serving_fabric_is_exported_as_the_reference_exports_it():
+    """``repro_torch.core`` and ``repro_torch.ft`` export the serving
+    fabric's names (the router, the hang error, the slot simulator, the
+    serving faults), each the port's own object, wherever the reference's
+    packages export them."""
+    import repro.core as R
+    import repro.ft as RF
+    import repro_torch.core as P
+    import repro_torch.ft as PF
+
+    for port, ref, names in (
+        (P, R, ("ReplicaRouter", "ReplicaView", "ReplicaHungError",
+                "SimulatedSlotEngine", "aggregate_batcher_stats")),
+        (PF, RF, ("ServingFault", "ServingFaultSchedule", "SERVING_FAULT_KINDS",
+                  "SimulatedCrash")),
+    ):
+        for name in names:
+            assert name in port.__all__, name
+            obj = getattr(port, name)
+            if not isinstance(obj, tuple):
+                assert obj.__module__.startswith("repro_torch."), (name, obj.__module__)
+            if name in getattr(ref, "__all__", ()):
+                assert type(obj) is type(getattr(ref, name)), name
+    assert PF.SERVING_FAULT_KINDS == RF.SERVING_FAULT_KINDS

@@ -3,8 +3,8 @@ the simulated API engine (deterministic per prompt in both packages):
 
 * the configuration: ``with_streaming(concurrency=...)`` (a fault of the
   port's suite, repaired here), ``with_stopping``, the task JSON equal to
-  the reference's for a shared provider, and the replica fields the port
-  refuses;
+  the reference's for a shared provider, and the replica fields accepted
+  as the reference accepts them;
 * the serialized state of the accumulators and bootstrap engines, bit for
   bit the reference's, with the merge laws driven by hypothesis;
 * spill, crash and resume: the resumed run equals an uninterrupted port
@@ -199,13 +199,21 @@ def test_default_task_differs_from_the_reference_only_in_provider():
     ("restart_backoff_s", 0.5), ("health_probe_steps", 4),
 ])
 def test_non_default_replica_field_raises(name, value):
+    """A non-default replica field is accepted as the reference accepts it:
+    ``dataclasses.replace`` keeps it, and the task's JSON carries it and
+    equals the reference's.  The name is kept so that the test ids of the
+    tree that refused these values still pass."""
     default = getattr(P.InferenceConfig(), name)
     assert default == getattr(R.InferenceConfig(), name)
     assert P.InferenceConfig(**{name: default}) == P.InferenceConfig()
-    with pytest.raises(NotImplementedError, match=f"InferenceConfig.{name}="):
-        P.InferenceConfig(**{name: value})
-    with pytest.raises(NotImplementedError, match=f"InferenceConfig.{name}="):
-        dataclasses.replace(P.InferenceConfig(), **{name: value})
+    port = P.InferenceConfig(**{name: value})
+    assert getattr(port, name) == value and port != P.InferenceConfig()
+    assert dataclasses.replace(P.InferenceConfig(), **{name: value}) == port
+    tasks = [mod.EvalTask("t", model=_model(mod),
+                          inference=mod.InferenceConfig(**{name: value}))
+             for mod in (P, R)]
+    assert json.loads(tasks[0].to_json())["inference"][name] == value
+    assert tasks[0].to_json() == tasks[1].to_json()
 
 
 # -- serialized state ------------------------------------------------------------------
