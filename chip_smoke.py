@@ -22,7 +22,9 @@ the registers, spills and shared memory of all eight kernels from the
 runtime, failing on any spill.  The bootstrap kernels' bounds count the
 integer work of every Poisson draw (``DRAW_ALU_OPS`` on the ALU,
 ``DRAW_INSTRUCTIONS`` issued).  The decode kernel
-is also held and timed at the main path's own lengths (11..45).  Every task of phases
+is also held and timed at the main path's own lengths (11..45), and the
+four attention kernels also at phase 10's G = 8 (32 query heads over 4 KV
+heads) at its shapes.  Every task of phases
 2-5 streams (``StreamingConfig(enabled=True)``) unless it says otherwise.
 Phase 2
 runs the contiguous main path through the user's entry point,
@@ -115,7 +117,19 @@ two restarts, no failure, both faults injected, kernel 1 launched again
 for the survivors; (c) in memory with replica 0 hung for the whole run,
 no probe and a 0.5 s deadline: every row served by replica 1 with (a)'s
 texts, deadline expiries, hedges and cancelled losing legs, no slot held
-at close.
+at close.  Phase 10, the MoE family, runs last, after every earlier
+session has closed: full-width qwen3-moe-30b-a3b (48 layers, 128 experts,
+top 8; 56.9 GiB of random bf16 weights from seed 0, made once and shared
+by every engine of the phase, one cache alive at a time).  (a) ``run_task``
+over phase 2's rows on the contiguous cache (kernels 1, 2 and 6
+launched), then phase 2's gates: batch invariance, finite logits, the
+step breakdowns with the expert products' share; (b) ``run_task`` over
+phase 3's few-shot prompts on the f32 pool with prefix sharing (kernel 1
+with ``q_offset`` > 0, kernel 3), then phase 3's ``infer_batch`` gates;
+(c) on the int8 pool (kernel 4, texts non-empty, logits finite); (d)
+MoE layer 0 over 478 tokens (capacity 40) against the naive
+token-by-token version in f32: the routing mask and kept set equal,
+tokens dropped, the output within its tolerance.
 
 Standard output: the card's name and power limit first, then log lines,
 then one ``{"kernels": [...]}`` line, and last the
@@ -146,6 +160,10 @@ HBM_BYTES_PER_S = 3.35e12
 
 #: full-width qwen3-4b attention geometry
 HEADS, KV_HEADS, HEAD_DIM = 32, 8, 128
+#: phase 10's model, full-width qwen3-moe-30b-a3b, and its attention
+#: geometry: 32 query heads over 4 KV heads, G = 8
+MOE = "qwen3-moe-30b-a3b"
+MOE_HEADS, MOE_KV_HEADS = 32, 4
 
 #: the main path of phase 2: QA rows, rows per chunk, batcher slots, cache
 #: positions per slot, new tokens per prompt, bootstrap replicates
@@ -159,6 +177,10 @@ HEADER_TOKENS = (448, 480)
 #: prefill after a prefix-cache hit (478 tokens, 464 shared; FewShot checks)
 FLASH_SHAPES = ((PROMPT_LEN, PROMPT_LEN, 0), (37, 37, 0), (512, 512, 0),
                 (2048, 2048, 0), (512, 2048, 1536), (14, 478, 464))
+#: the G = 8 prefill shapes: phase 10's QA prompts, its few-shot prompt
+#: prefilled whole (478 tokens) and the G = 4 rows' 512, both with two
+#: consumer warpgroups, and its suffix prefill
+MOE_FLASH_SHAPES = (FLASH_SHAPES[0], (478, 478, 0), FLASH_SHAPES[2], FLASH_SHAPES[-1])
 #: full-width mamba2-2.7b SSD geometry (phase 4's): heads, head_dim, state
 #: size, groups, chunk
 SSM_HEADS, SSM_HEAD_DIM, SSM_STATE, SSM_GROUPS, SSM_CHUNK = 80, 64, 128, 1, 256
@@ -274,13 +296,16 @@ def flash_cases(torch, fs):
     )
 
     g = torch.Generator(device="cuda").manual_seed(0)
-    out = []
-    for sq, sk, off in FLASH_SHAPES:
-        def rnd(s, h):
-            return torch.randn((1, s, h, HEAD_DIM), generator=g, device="cuda",
-                               dtype=torch.float32).to(torch.bfloat16)
 
-        q, k, v = rnd(sq, HEADS), rnd(sk, KV_HEADS), rnd(sk, KV_HEADS)
+    def rnd(s, h):
+        return torch.randn((1, s, h, HEAD_DIM), generator=g, device="cuda",
+                           dtype=torch.float32).to(torch.bfloat16)
+
+    out = []
+    for (sq, sk, off), heads, kvh in (
+            [(shape, HEADS, KV_HEADS) for shape in FLASH_SHAPES]
+            + [(shape, MOE_HEADS, MOE_KV_HEADS) for shape in MOE_FLASH_SHAPES]):
+        q, k, v = rnd(sq, heads), rnd(sk, kvh), rnd(sk, kvh)
         got = flash_attention(q, k, v, q_offset=off)
         ref = flash_attention_ref(q, k, v, q_offset=off)
         torch.cuda.synchronize()
@@ -289,13 +314,13 @@ def flash_cases(torch, fs):
         # value plus 1% of the row's largest output.  A 32-key tile dropped
         # from a 2,048-key row moves the output by ~10x that allowance.
         err, ratio = rowwise(torch, got, ref, 2**-7, 1e-2)
-        shape = (f"B=1 H={HEADS} K={KV_HEADS} d={HEAD_DIM} Sq={sq} Sk={sk} "
+        shape = (f"B=1 H={heads} K={kvh} d={HEAD_DIM} Sq={sq} Sk={sk} "
                  f"q_offset={off}")
         require(ratio <= 1.0, f"flash_attention {shape}: error/allowance {ratio:.3g}")
         pairs = sum(min(sk, off + i + 1) for i in range(sq))
-        nbytes = 2 * HEAD_DIM * (2 * sq * HEADS + 2 * sk * KV_HEADS)
-        b_ms, b_by = bound(4 * HEAD_DIM * pairs * HEADS, PEAK_BF16, nbytes)
-        kx, vx = (t.repeat_interleave(HEADS // KV_HEADS, dim=2) for t in (k, v))
+        nbytes = 2 * HEAD_DIM * (2 * sq * heads + 2 * sk * kvh)
+        b_ms, b_by = bound(4 * HEAD_DIM * pairs * heads, PEAK_BF16, nbytes)
+        kx, vx = (t.repeat_interleave(heads // kvh, dim=2) for t in (k, v))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, kx, vx))
         mask = (torch.arange(sq, device="cuda")[:, None] + off
                 >= torch.arange(sk, device="cuda")[None, :])
@@ -326,18 +351,21 @@ def flash_cases(torch, fs):
             f"{causal}, bound {b_ms:.4g} ms ({b_by})")
 
     # a row's bits do not depend on its tile, on Sq or on q_offset: the last
-    # rows of phase 3's full prefill against the suffix prefill after a hit
-    q, k, v = rnd(fs.prompt_len, HEADS), rnd(fs.prompt_len, KV_HEADS), \
-        rnd(fs.prompt_len, KV_HEADS)
-    full = flash_attention(q, k, v)
-    tail = flash_attention(q[:, fs.shared:], k, v, q_offset=fs.shared)
-    torch.cuda.synchronize()
-    require(bool(torch.equal(full[:, fs.shared:], tail)),
-            f"flash_attention: the last {fs.prompt_len - fs.shared} rows of a "
-            f"{fs.prompt_len}-token prefill differ from the suffix prefill")
-    log(f"flash_attention: rows {fs.shared}..{fs.prompt_len - 1} bit-equal between "
-        f"the full {fs.prompt_len}-token prefill and the suffix prefill "
-        f"(q_offset {fs.shared})")
+    # rows of phase 3's (and phase 10's) full prefill against the suffix
+    # prefill after a hit
+    for heads, kvh in ((HEADS, KV_HEADS), (MOE_HEADS, MOE_KV_HEADS)):
+        q, k, v = rnd(fs.prompt_len, heads), rnd(fs.prompt_len, kvh), \
+            rnd(fs.prompt_len, kvh)
+        full = flash_attention(q, k, v)
+        tail = flash_attention(q[:, fs.shared:], k, v, q_offset=fs.shared)
+        torch.cuda.synchronize()
+        require(bool(torch.equal(full[:, fs.shared:], tail)),
+                f"flash_attention H={heads} K={kvh}: the last "
+                f"{fs.prompt_len - fs.shared} rows of a {fs.prompt_len}-token "
+                f"prefill differ from the suffix prefill")
+        log(f"flash_attention H={heads} K={kvh}: rows {fs.shared}..{fs.prompt_len - 1} "
+            f"bit-equal between the full {fs.prompt_len}-token prefill and the "
+            f"suffix prefill (q_offset {fs.shared})")
 
     # the wrapper's host time per call at phase 2's shape, the device left
     # to drain: what a prefill layer pays on the host
@@ -368,9 +396,11 @@ def decode_cases(torch) -> list[dict]:
     ragged[0], ragged[1] = 1, MAX_LEN
     lo, hi = PROMPT_LEN - 1, PROMPT_LEN + 1 + MAX_TOKENS
     main = (lo + (hi - lo) * torch.arange(N_SLOTS, device="cuda") // (N_SLOTS - 1))
+    main = main.to(torch.int32)
     out = [decode_case(torch, g, ragged, f"lengths 1..{MAX_LEN}"),
-           decode_case(torch, g, main.to(torch.int32),
-                       f"main-path lengths {lo}..{hi} (phase 2)")]
+           decode_case(torch, g, main, f"main-path lengths {lo}..{hi} (phase 2)"),
+           decode_case(torch, g, main, f"main-path lengths {lo}..{hi} (phase 10)",
+                       MOE_HEADS, MOE_KV_HEADS)]
     # kernels 2 and 3 are one span-split template, four instantiations
     kernel_limits("repro_decode_kernel_info",
                   {0: "decode_attention split, G <= 4",
@@ -438,30 +468,31 @@ def kernel_limits(lib_fn: str, names: dict[int, str]) -> None:
         require(local == 0, f"{name} spills: {local} local bytes a thread")
 
 
-def decode_case(torch, g, lens, label: str) -> dict:
+def decode_case(torch, g, lens, label: str, heads: int = HEADS,
+                kvh: int = KV_HEADS) -> dict:
     from repro_torch.kernels.decode_attention import (
         decode_attention,
         decode_attention_ref,
     )
 
     b, s = N_SLOTS, MAX_LEN
-    q = torch.randn((b, 1, HEADS, HEAD_DIM), generator=g, device="cuda").to(
+    q = torch.randn((b, 1, heads, HEAD_DIM), generator=g, device="cuda").to(
         torch.bfloat16)
-    kc = torch.randn((b, s, KV_HEADS, HEAD_DIM), generator=g, device="cuda")
-    vc = torch.randn((b, s, KV_HEADS, HEAD_DIM), generator=g, device="cuda")
+    kc = torch.randn((b, s, kvh, HEAD_DIM), generator=g, device="cuda")
+    vc = torch.randn((b, s, kvh, HEAD_DIM), generator=g, device="cuda")
     got = decode_attention(q, kc, vc, lens)
     ref = decode_attention_ref(q, kc, vc, lens)
     torch.cuda.synchronize()
     # both sides are f32 until the final bf16 rounding of the output
     err, ratio = rowwise(torch, got, ref, 2**-7, 1e-3)
-    shape = (f"B={b} H={HEADS} K={KV_HEADS} d={HEAD_DIM} S={s} f32 cache, "
+    shape = (f"B={b} H={heads} K={kvh} d={HEAD_DIM} S={s} f32 cache, "
              f"{label}")
     require(ratio <= 1.0, f"decode_attention {shape}: error/allowance {ratio:.3g}")
     n_rows = int(lens.sum())
-    nbytes = 2 * b * HEADS * HEAD_DIM * 2 + n_rows * KV_HEADS * HEAD_DIM * 4 * 2 + 4 * b
-    b_ms, b_by = bound(4 * HEAD_DIM * n_rows * HEADS, PEAK_BF16, nbytes)
+    nbytes = 2 * b * heads * HEAD_DIM * 2 + n_rows * kvh * HEAD_DIM * 4 * 2 + 4 * b
+    b_ms, b_by = bound(4 * HEAD_DIM * n_rows * heads, PEAK_BF16, nbytes)
     qt = q.float().transpose(1, 2)
-    kt, vt = (t.transpose(1, 2).repeat_interleave(HEADS // KV_HEADS, dim=1)
+    kt, vt = (t.transpose(1, 2).repeat_interleave(heads // kvh, dim=1)
               for t in (kc, vc))
     mask = (torch.arange(s, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -488,13 +519,13 @@ def decode_case(torch, g, lens, label: str) -> dict:
 
 
 
-def paged_pool(torch, g, b: int, n_p: int, n_shared: int):
+def paged_pool(torch, g, b: int, n_p: int, n_shared: int, kvh: int):
     """Phase 3's pool: b * n_p + b pages (the batcher's default) and the
     trash page, f32 (P, ps, K, d); tables whose first n_shared entries
     alias pages 0 .. n_shared - 1 in every sequence and whose other entries
     are shuffled private pages."""
     n_pool = b * n_p + b + 1
-    shape = (n_pool, PAGE_SIZE, KV_HEADS, HEAD_DIM)
+    shape = (n_pool, PAGE_SIZE, kvh, HEAD_DIM)
     k = torch.randn(shape, generator=g, device="cuda")
     v = torch.randn(shape, generator=g, device="cuda")
     private = torch.randperm(n_pool - n_shared, generator=g, device="cuda") + n_shared
@@ -510,7 +541,7 @@ def pad_tables(torch, tables, lens):
     return tables.masked_fill(pad, 0)
 
 
-def paged_bound(torch, tables, lens, row_bytes: int, page_bytes: int,
+def paged_bound(torch, tables, lens, heads: int, row_bytes: int, page_bytes: int,
                 skip_last: bool, extra_bytes: int) -> tuple[float, str]:
     """Least time for one paged decode call: the distinct pool rows its
     sequences read (an aliased row once; the row a fresh row replaces not
@@ -526,16 +557,27 @@ def paged_bound(torch, tables, lens, row_bytes: int, page_bytes: int,
     n_rows = int(rows.unique().numel())
     n_pages = int(page[need].unique().numel())
     nbytes = (n_rows * row_bytes + n_pages * page_bytes
-              + 2 * b * HEADS * HEAD_DIM * 2 + 4 * (b * n_p + b) + extra_bytes)
+              + 2 * b * heads * HEAD_DIM * 2 + 4 * (b * n_p + b) + extra_bytes)
     log(f"  bound inputs: {int(lens.sum())} visible keys, {n_rows} distinct "
         f"pool rows in {n_pages} pages, {nbytes} bytes")
-    return bound(4 * HEAD_DIM * HEADS * int(lens.sum()), PEAK_BF16, nbytes)
+    return bound(4 * HEAD_DIM * heads * int(lens.sum()), PEAK_BF16, nbytes)
 
 
 def paged_cases(torch, fs) -> list[dict]:
     """Kernels 3 and 4 at phase 3's geometry (16 sequences, 64 pages of 16
     rows, a pool of 1,041 pages, the shared header's pages aliased in every
-    table), at ragged lengths 1 .. 1,024 and at the main path's lengths."""
+    table): at G = 4 at ragged lengths 1 .. 1,024 and at the main path's
+    lengths, at G = 8 (phase 10's heads) at the main path's lengths."""
+    out = [*paged_geometry(torch, fs, HEADS, KV_HEADS, ragged_too=True),
+           *paged_geometry(torch, fs, MOE_HEADS, MOE_KV_HEADS, ragged_too=False)]
+    kernel_limits("repro_quant_paged_kernel_info",
+                  {0: "quant_paged_decode_attention split, G <= 4",
+                   1: "quant_paged_decode_attention split, G <= 8",
+                   2: "quant_paged_decode_attention combine"})
+    return out
+
+
+def paged_geometry(torch, fs, heads: int, kvh: int, ragged_too: bool) -> list[dict]:
     from repro_torch.kernels.decode_attention import (
         decode_attention,
         paged_decode_attention,
@@ -548,22 +590,25 @@ def paged_cases(torch, fs) -> list[dict]:
     b, n_p = N_SLOTS, MAX_LEN // PAGE_SIZE
     n_shared = fs.shared // PAGE_SIZE
     g = torch.Generator(device="cuda").manual_seed(3)
-    k, v, full_tables = paged_pool(torch, g, b, n_p, n_shared)
+    k, v, full_tables = paged_pool(torch, g, b, n_p, n_shared, kvh)
     kq, ks = quantize_pages(k)
     vq, vs = quantize_pages(v)
-    q = torch.randn((b, 1, HEADS, HEAD_DIM), generator=g, device="cuda").to(
+    q = torch.randn((b, 1, heads, HEAD_DIM), generator=g, device="cuda").to(
         torch.bfloat16)
-    k_new = torch.randn((b, KV_HEADS, HEAD_DIM), generator=g, device="cuda")
-    v_new = torch.randn((b, KV_HEADS, HEAD_DIM), generator=g, device="cuda")
+    k_new = torch.randn((b, kvh, HEAD_DIM), generator=g, device="cuda")
+    v_new = torch.randn((b, kvh, HEAD_DIM), generator=g, device="cuda")
     ragged = torch.randint(1, MAX_LEN + 1, (b,), generator=g, device="cuda")
     ragged[:6] = torch.tensor([1, MAX_LEN, PAGE_SIZE, fs.shared, 512, 17])
     main = fs.prompt_len + 1 + 2 * torch.arange(b, device="cuda")
+    phase = "phase 3" if heads == HEADS else "phase 10"
     out = []
-    for label, lens in (("ragged lengths 1..1024", ragged),
-                        (f"main-path lengths {int(main[0])}..{int(main[-1])}", main)):
+    cases = [(f"main-path lengths {int(main[0])}..{int(main[-1])} ({phase})", main)]
+    if ragged_too:
+        cases.insert(0, ("ragged lengths 1..1024", ragged))
+    for label, lens in cases:
         lens = lens.to(torch.int32)
         tables = pad_tables(torch, full_tables, lens)
-        shape = (f"B={b} H={HEADS} K={KV_HEADS} d={HEAD_DIM} ps={PAGE_SIZE} "
+        shape = (f"B={b} H={heads} K={kvh} d={HEAD_DIM} ps={PAGE_SIZE} "
                  f"nP={n_p} pool={k.shape[0]} pages, first {n_shared} aliased, {label}")
 
         got = paged_decode_attention(q, k, v, tables, lens)
@@ -577,8 +622,8 @@ def paged_cases(torch, fs) -> list[dict]:
                 f"paged_decode_attention {shape}: error/allowance {ratio:.3g}")
         require(bool(torch.equal(got, contiguous)),
                 f"paged_decode_attention {shape}: not bit-equal to decode_attention")
-        b_ms, b_by = paged_bound(torch, tables, lens, 2 * KV_HEADS * HEAD_DIM * 4, 0,
-                                 False, 0)
+        b_ms, b_by = paged_bound(torch, tables, lens, heads, 2 * kvh * HEAD_DIM * 4,
+                                 0, False, 0)
         kc, vc = (t[tables.long()].flatten(1, 2) for t in (k, v))
         entry = {
             "name": "paged_decode_attention",
@@ -598,7 +643,7 @@ def paged_cases(torch, fs) -> list[dict]:
         }
         contiguous_ms = time_ms(torch, lambda: decode_attention(q, kc, vc, lens))
         qt = q.float().transpose(1, 2)
-        kt, vt = (t.transpose(1, 2).repeat_interleave(HEADS // KV_HEADS, dim=1)
+        kt, vt = (t.transpose(1, 2).repeat_interleave(heads // kvh, dim=1)
                   for t in (kc, vc))
         mask = (torch.arange(MAX_LEN, device="cuda")[None, :]
                 < lens[:, None])[:, None, None, :]
@@ -623,9 +668,9 @@ def paged_cases(torch, fs) -> list[dict]:
             errs.append(rowwise(torch, got, ref, 2**-7, 1e-3))
             require(errs[-1][1] <= 1.0, f"quant_paged_decode_attention {shape} "
                     f"fresh rows {r is not None}: error/allowance {errs[-1][1]:.3g}")
-        b_ms, b_by = paged_bound(torch, tables, lens, 2 * KV_HEADS * HEAD_DIM,
-                                 2 * 4 * KV_HEADS, True,
-                                 2 * b * KV_HEADS * HEAD_DIM * 4 + 4 * b)
+        b_ms, b_by = paged_bound(torch, tables, lens, heads, 2 * kvh * HEAD_DIM,
+                                 2 * 4 * kvh, True,
+                                 2 * b * kvh * HEAD_DIM * 4 + 4 * b)
         entry = {
             "name": "quant_paged_decode_attention",
             "route": "cuda",
@@ -653,10 +698,6 @@ def paged_cases(torch, fs) -> list[dict]:
             f"(device {entry['device_ms']:.4g} ms, split and combine; "
             f"{plain_form_ms:.4g} ms without fresh rows), plain "
             f"{entry['plain_ms']:.4g} ms, bound {b_ms:.4g} ms ({b_by})")
-    kernel_limits("repro_quant_paged_kernel_info",
-                  {0: "quant_paged_decode_attention split, G <= 4",
-                   1: "quant_paged_decode_attention split, G <= 8",
-                   2: "quant_paged_decode_attention combine"})
     return out
 
 
@@ -1262,9 +1303,73 @@ def metrics_phase(torch, session, base_task) -> dict[str, int]:
     return launches
 
 
-def main_path_phase(torch) -> tuple[dict[str, int], dict[str, int], dict]:
-    from repro_torch.core import EvalSession, InferenceRequest
+def engine_gates(torch, engine, task, label: str) -> None:
+    """On a contiguous engine after its ``run_task``: a prompt's greedy
+    tokens do not depend on the batch around it; one prefill and one
+    decode step on slot 0 give finite logits; and where the time of a
+    16-slot decode step and of a prefill (a main-path prompt, and phase
+    3's length in full) goes, with the share of the expert products on a
+    MoE model."""
+    from repro_torch.core import InferenceRequest
     from repro_torch.data import iter_qa_examples, render
+
+    rows = list(iter_qa_examples(N_SLOTS, seed=0))
+    reqs = [InferenceRequest(render(task.data.prompt_template, r), MAX_TOKENS)
+            for r in rows]
+    full = engine.infer_batch(reqs)
+    alone = engine.infer_batch(reqs[:1])
+    require(full[0].text == alone[0].text
+            and full[0].output_tokens == alone[0].output_tokens,
+            f"{label}: batch-dependent tokens: {full[0].text!r} vs {alone[0].text!r}")
+    log(f"{label} batch invariance: prompt 0 gives {alone[0].output_tokens} "
+        f"identical tokens alone and among {N_SLOTS} slots")
+
+    b = engine.batcher
+    toks = torch.tensor([[2, 5, 7, 11]], device="cuda")
+    logits = b.model.prefill(b.params, toks, b.cache, 0)
+    nxt = logits.argmax(-1).repeat(N_SLOTS)[:, None]
+    pos = torch.full((N_SLOTS,), 4, device="cuda")
+    step = b.model.decode_step(b.params, nxt, b.cache, pos)
+    require(bool(torch.isfinite(logits).all() and torch.isfinite(step).all()),
+            f"{label}: logits hold NaN or inf")
+    busy = step_breakdown(
+        torch, f"{label} decode step (batch {N_SLOTS}, all slots at position 4)",
+        lambda: b.model.decode_step(b.params, nxt, b.cache, pos),
+        kernel=DEVICE_KERNEL["decode_attention"])
+    expert_share(torch, b, N_SLOTS, 1, busy)
+    for n_tok in (PROMPT_LEN, 478):
+        toks = torch.arange(2, 2 + n_tok, device="cuda")[None, :]
+        busy = step_breakdown(torch, f"{label} prefill ({n_tok} tokens into slot 0)",
+                              lambda: b.model.prefill(b.params, toks, b.cache, 0),
+                              kernel="flash")
+        expert_share(torch, b, 1, n_tok, busy)
+
+
+def expert_share(torch, batcher, b: int, s: int, busy_ms: float | None) -> None:
+    """The expert products' device time in a call of ``b`` rows of ``s``
+    tokens: one MoE layer's products at the call's dispatch shape (E, b *
+    min(capacity, s), d), timed apart with CUDA events (each call reads the
+    layer's 1.2 GB of experts, past the L2), times the MoE layers, against
+    the call's device-busy time.  A dense model has none."""
+    from repro_torch.models import moe
+
+    cfg, params = batcher.cfg, batcher.params
+    if "moe_layers" not in params:
+        return
+    stack = params["moe_layers"]["moe"]
+    layer = {k: stack[k][0] for k in ("wi", "wg", "wo")}
+    n_layers = stack["wi"].shape[0]
+    c = min(moe.expert_capacity(cfg, s), s)
+    xin = torch.randn((cfg.n_experts, b * c, cfg.d_model), device="cuda").to(
+        torch.bfloat16)
+    ms = n_layers * time_ms(torch, lambda: moe.experts(layer, xin), iters=10)
+    share = "" if busy_ms is None else f", {100 * ms / busy_ms:.1f}% of device busy"
+    log(f"  expert products: {ms:.3f} ms a call ({n_layers} layers x one layer's "
+        f"products at ({cfg.n_experts}, {b * c}, {cfg.d_model}) timed apart){share}")
+
+
+def main_path_phase(torch) -> tuple[dict[str, int], dict[str, int], dict]:
+    from repro_torch.core import EvalSession
 
     task = make_task()
     engine_kwargs = {"n_slots": N_SLOTS, "max_len": MAX_LEN}
@@ -1279,39 +1384,7 @@ def main_path_phase(torch) -> tuple[dict[str, int], dict[str, int], dict]:
             torch, session, task,
             ("flash_attention", "decode_attention", "bootstrap_partials"),
             "contiguous main path")
-
-        # greedy tokens must not depend on the batch around a prompt
-        rows = list(iter_qa_examples(N_SLOTS, seed=0))
-        reqs = [InferenceRequest(render(task.data.prompt_template, r), MAX_TOKENS)
-                for r in rows]
-        full = engine.infer_batch(reqs)
-        alone = engine.infer_batch(reqs[:1])
-        require(full[0].text == alone[0].text
-                and full[0].output_tokens == alone[0].output_tokens,
-                f"batch-dependent tokens: {full[0].text!r} vs {alone[0].text!r}")
-        log(f"batch invariance: prompt 0 gives {alone[0].output_tokens} identical "
-            f"tokens alone and among {N_SLOTS} slots")
-
-        # the logits themselves: one prefill and one decode step on slot 0
-        b = engine.batcher
-        toks = torch.tensor([[2, 5, 7, 11]], device="cuda")
-        logits = b.model.prefill(b.params, toks, b.cache, 0)
-        nxt = logits.argmax(-1).repeat(N_SLOTS)[:, None]
-        pos = torch.full((N_SLOTS,), 4, device="cuda")
-        step = b.model.decode_step(b.params, nxt, b.cache, pos)
-        require(bool(torch.isfinite(logits).all() and torch.isfinite(step).all()),
-                "logits hold NaN or inf")
-        step_breakdown(
-            torch, f"decode step (batch {N_SLOTS}, all slots at position 4)",
-            lambda: b.model.decode_step(b.params, nxt, b.cache, pos),
-            kernel=DEVICE_KERNEL["decode_attention"])
-        # where a prefill's time goes: a main-path prompt, and a prompt of
-        # phase 3's length prefilled in full
-        for n_tok in (PROMPT_LEN, 478):
-            toks = torch.arange(2, 2 + n_tok, device="cuda")[None, :]
-            step_breakdown(torch, f"prefill ({n_tok} tokens into slot 0)",
-                           lambda: b.model.prefill(b.params, toks, b.cache, 0),
-                           kernel="flash")
+        engine_gates(torch, engine, task, "phase 2")
         metrics = metrics_phase(torch, session, task)
         _, yard = harness_phase(torch, session, task)
         log(f"phases 2, 5 and 7 {serving_clean(session, 'phases 2, 5 and 7')}")
@@ -1326,11 +1399,12 @@ DEVICE_KERNEL = {"decode_attention": "split_kernel<false",
 
 
 def step_breakdown(torch, label: str, run, steps: int = 5,
-                   kernel: str | None = None) -> None:
+                   kernel: str | None = None) -> float | None:
     """Where a step's time goes: host-clock wall per call of ``run``
     without the profiler, then device time per call by kernel from a
     ``torch.profiler`` trace of further calls (and the share of the
-    kernels whose name holds ``kernel``)."""
+    kernels whose name holds ``kernel``).  Returns the device-busy ms per
+    call, or None where the profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1341,7 +1415,8 @@ def step_breakdown(torch, label: str, run, steps: int = 5,
         run()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # device records only: nothing here reads the host-side ones
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             run()
         torch.cuda.synchronize()
@@ -1351,7 +1426,7 @@ def step_breakdown(torch, label: str, run, steps: int = 5,
             by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
     if not by_name:
         log(f"{label}: breakdown not measured (the profiler saw no device time)")
-        return
+        return None
     busy_ms = sum(sum(v) for v in by_name.values()) / 1e3 / steps
     n_events = sum(len(v) for v in by_name.values()) / steps
     log(f"{label}: {wall_ms:.2f} ms wall without the profiler; device busy "
@@ -1366,6 +1441,7 @@ def step_breakdown(torch, label: str, run, steps: int = 5,
     for name, times in top:
         log(f"  {sum(times) / 1e3 / steps:.3f} ms/step in {len(times) // steps} "
             f"launches/step: {name[:90]}")
+    return busy_ms
 
 
 # -- phase 3: the paged path ------------------------------------------------------
@@ -1450,21 +1526,25 @@ def free_cuda(torch) -> None:
     torch.cuda.empty_cache()
 
 
-def paged_run(torch, params, fs, label, kernel, **inference):
-    """One paged ``run_task`` over the few-shot task with the given
-    paging knobs; returns (launches, serving stats, tokens by request)."""
+def paged_run(torch, params, fs, label, kernel, model_name="qwen3-4b", **inference):
+    """One paged ``run_task`` of ``model_name`` over the few-shot task with
+    the given paging knobs; returns (launches, serving stats, tokens by
+    request, texts by request)."""
     from repro_torch.core import EvalSession
 
-    task = make_task(fs.template, kv_page_size=PAGE_SIZE, **inference)
+    task = make_task(fs.template, model_name, kv_page_size=PAGE_SIZE, **inference)
     engine_kwargs = {"n_slots": N_SLOTS, "max_len": MAX_LEN, "params": params}
     tokens: dict[int, list[int]] = {}
+    texts: dict[int, str] = {}
     with EvalSession(device="cuda", engine_kwargs=engine_kwargs) as session:
         engine = session.engine_for(task.model, task.inference)
         respond = engine._response
 
         def keep_tokens(c):
             tokens[c.request_id] = c.tokens
-            return respond(c)
+            response = respond(c)
+            texts[c.request_id] = response.text
+            return response
 
         engine._response = keep_tokens
         with Probe() as probe:
@@ -1494,17 +1574,19 @@ def paged_run(torch, params, fs, label, kernel, **inference):
                        kernel=DEVICE_KERNEL[kernel])
         log(f"{label} {serving_clean(session, label)}")
     free_cuda(torch)
-    return launches, st, tokens
+    return launches, st, tokens, texts
 
 
-def infer_gates(torch, params, fs) -> None:
+def infer_gates(torch, params, fs, model_name="qwen3-4b",
+                pool: int | None = None) -> None:
     """Through ``infer_batch`` on 16 few-shot prompts: the paged engine
     without sharing gives the contiguous engine's texts, and so does the
-    same engine with a pool so small that decode preempts."""
+    same engine with a pool of ``pool`` pages, so small that decode
+    preempts (by default room for the first two prompts plus one page)."""
     from repro_torch.core import EngineModelConfig, InferenceRequest, TorchLocalEngine
     from repro_torch.data import iter_qa_examples, render
 
-    model = EngineModelConfig(provider="torch_local", model_name="qwen3-4b",
+    model = EngineModelConfig(provider="torch_local", model_name=model_name,
                               reduced=False, seed=0, max_tokens=MAX_TOKENS)
     reqs = [InferenceRequest(render(fs.template, r), MAX_TOKENS)
             for r in iter_qa_examples(N_SLOTS, seed=0)]
@@ -1532,10 +1614,9 @@ def infer_gates(torch, params, fs) -> None:
                         prefix_cache=False)
     require(paged == contiguous, "paged (no sharing) texts differ from contiguous")
     # room for the first two prompts plus one page: both grow past it
-    need = -(-fs.prompt_len // PAGE_SIZE)
-    tight, st, _ = serve(f"paged engine, no sharing, pool of {2 * need + 1} pages",
-                         kv_page_size=PAGE_SIZE, prefix_cache=False,
-                         page_pool=2 * need + 1)
+    pool = pool or 2 * -(-fs.prompt_len // PAGE_SIZE) + 1
+    tight, st, _ = serve(f"paged engine, no sharing, pool of {pool} pages",
+                         kv_page_size=PAGE_SIZE, prefix_cache=False, page_pool=pool)
     require(st["preemptions"] > 0, "the small pool preempted nothing")
     require(tight == paged, "preempted texts differ from the roomy run")
     shared, _, logits_s = serve("paged engine with prefix sharing",
@@ -1557,11 +1638,11 @@ def paged_phase(torch, fs) -> dict[str, dict[str, int]]:
     torch.cuda.synchronize()
     log(f"phase 3 weights on the card in {time.perf_counter() - t0:.3f} s")
     torch.cuda.reset_peak_memory_stats()
-    f32, _, tok_f32 = paged_run(torch, params, fs, "paged f32 path",
-                                "paged_decode_attention", prefix_cache=True)
-    int8, _, tok_int8 = paged_run(torch, params, fs, "paged int8 path",
-                                  "quant_paged_decode_attention",
-                                  kv_cache_dtype="int8")
+    f32, _, tok_f32, _ = paged_run(torch, params, fs, "paged f32 path",
+                                   "paged_decode_attention", prefix_cache=True)
+    int8, _, tok_int8, _ = paged_run(torch, params, fs, "paged int8 path",
+                                     "quant_paged_decode_attention",
+                                     kv_cache_dtype="int8")
     total = same = 0
     for rid, a in tok_f32.items():
         b = tok_int8[rid]
@@ -2977,6 +3058,121 @@ def fabric_phase(torch, yard) -> dict[str, dict[str, int]]:
     return out
 
 
+# -- phase 10: the MoE family -----------------------------------------------------
+
+#: phase 10 (d): one MoE layer over a prompt of phase 3's full length
+#: (capacity 40 an expert) against the naive version, within 2^-6 of the
+#: value plus 2^-6 of the row's largest (tests/test_torch_moe.py holds the
+#: bf16 block to 2/3 of it at narrower widths); the input's seed
+MOE_LAYER_TOKENS = 478
+MOE_NAIVE_TOL = 2.0**-6
+MOE_LAYER_SEED = 10
+#: the four attention kernels phase 10 drives
+MOE_KERNELS = ("flash_attention", "decode_attention", "paged_decode_attention",
+               "quant_paged_decode_attention")
+
+
+def gib(n_bytes: int) -> str:
+    return f"{n_bytes / 2**30:.2f} GiB"
+
+
+def moe_contiguous(torch, params) -> dict[str, int]:
+    """Phase 10 (a): ``run_task`` over phase 2's rows on the contiguous f32
+    cache, then phase 2's engine gates."""
+    from repro_torch.core import EvalSession
+
+    task = make_task(model_name=MOE)
+    engine_kwargs = {"n_slots": N_SLOTS, "max_len": MAX_LEN, "params": params}
+    with EvalSession(device="cuda", engine_kwargs=engine_kwargs) as session:
+        engine = session.engine_for(task.model, task.inference)
+        launches, *_ = timed_run_task(
+            torch, session, task,
+            ("flash_attention", "decode_attention", "bootstrap_partials"),
+            "phase 10 (a) contiguous")
+        engine_gates(torch, engine, task, "phase 10 (a)")
+        log(f"phase 10 (a) {serving_clean(session, 'phase 10 (a)')}; "
+            f"{gib(torch.cuda.max_memory_allocated())} peak allocated")
+    free_cuda(torch)
+    return launches
+
+
+def moe_layer_gate(torch, params) -> None:
+    """Phase 10 (d): MoE layer 0 of the full-width weights over
+    ``MOE_LAYER_TOKENS`` bf16 hidden states sharing one direction (the
+    router then favours some experts, as a prompt's states do): the
+    fixed-shape block against the naive token-by-token version in f32,
+    the routing mask and kept set equal exactly, tokens dropped."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = get_config(MOE)
+    p = {k: v[0] for k, v in params["moe_layers"]["moe"].items()}
+    cap = moe.expert_capacity(cfg, MOE_LAYER_TOKENS)
+    g = torch.Generator(device="cuda").manual_seed(MOE_LAYER_SEED)
+    x = (torch.randn((1, MOE_LAYER_TOKENS, cfg.d_model), generator=g, device="cuda")
+         + 2.0 * torch.randn((cfg.d_model,), generator=g, device="cuda"))
+    x = x.to(torch.bfloat16)
+    got = moe.moe_block(p, cfg, x)
+    _, mask, keep, _ = moe.route(p, cfg, x)
+    t0 = time.perf_counter()
+    want, nmask, nkeep = moe.moe_block_naive(p, cfg, x)
+    torch.cuda.synchronize()
+    naive_s = time.perf_counter() - t0
+    require(bool(torch.equal(mask, nmask)), "phase 10 (d): routing masks differ")
+    require(bool(torch.equal(keep, nkeep)), "phase 10 (d): kept sets differ")
+    dropped = int((nmask & ~nkeep).sum())
+    require(dropped > 0, "phase 10 (d): no token was dropped")
+    err, ratio = rowwise(torch, got, want, MOE_NAIVE_TOL, MOE_NAIVE_TOL)
+    require(ratio <= 1.0, f"phase 10 (d): error/allowance {ratio:.3g}")
+    log(f"phase 10 (d): MoE layer 0 over {MOE_LAYER_TOKENS} tokens, {cfg.n_experts} "
+        f"experts, top {cfg.n_experts_per_token}, capacity {cap}: mask "
+        f"({int(nmask.sum())} choices) and kept set equal the naive version's, "
+        f"{dropped} choices dropped in {int((nmask & ~nkeep).any(-1).sum())} "
+        f"tokens, most tokens an expert {int(nmask.sum(1).max())}; err {err:.3g} "
+        f"(ratio {ratio:.3g}); the naive version took {naive_s:.1f} s")
+
+
+def moe_phase(torch, fs) -> dict[str, dict[str, int]]:
+    """Phase 10, the MoE family, after every earlier session has closed:
+    full-width qwen3-moe-30b-a3b with random bf16 weights (seed 0), made
+    once and shared by every engine of the phase, one cache alive at a
+    time.  (a) contiguous, (b) paged f32 with prefix sharing and the
+    ``infer_batch`` gates, (c) the int8 pool, (d) one layer against the
+    naive version.  Returns the launches of (a)-(c)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    log(f"phase 10: {gib(torch.cuda.memory_allocated())} allocated before the weights")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(get_config(MOE), 0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"phase 10 weights on the card in {time.perf_counter() - t0:.3f} s: "
+        f"{gib(torch.cuda.memory_allocated())} allocated, "
+        f"{gib(torch.cuda.max_memory_allocated())} peak while made")
+    t_a = time.perf_counter()
+    out = {"contiguous": moe_contiguous(torch, params)}
+    t_b = time.perf_counter()
+    out["f32"], *_ = paged_run(torch, params, fs, "phase 10 (b) paged f32",
+                               "paged_decode_attention", MOE, prefix_cache=True)
+    # room for 8 prompts and the page of growth the admission gate keeps for
+    # each busy slot: all 8 grow past it, in a quarter of phase 3's steps at
+    # this model's slower step (one page fewer admits 7, which never preempt)
+    infer_gates(torch, params, fs, MOE, pool=8 * (-(-fs.prompt_len // PAGE_SIZE) + 1))
+    t_c = time.perf_counter()
+    out["int8"], _, _, texts = paged_run(torch, params, fs, "phase 10 (c) paged int8",
+                                         "quant_paged_decode_attention", MOE,
+                                         kv_cache_dtype="int8")
+    require(len(texts) == N_ROWS and all(texts.values()),
+            "phase 10 (c): an empty text")
+    t_d = time.perf_counter()
+    moe_layer_gate(torch, params)
+    log(f"phase 10 walls: (a) {t_b - t_a:.1f} s, (b) {t_c - t_b:.1f} s, "
+        f"(c) {t_d - t_c:.1f} s, (d) {time.perf_counter() - t_d:.1f} s; "
+        f"{gib(torch.cuda.max_memory_allocated())} peak allocated")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3023,6 +3219,8 @@ def main() -> int:
         suite_phase(torch)
         log(f"phases 6 and 8 took {time.perf_counter() - t6:.1f} s")
         timed("phase 9", fabric_phase, torch, yard)
+        del yard
+        moe_runs = timed("phase 10", moe_phase, torch, fs)
     except CheckFailed as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -3037,6 +3235,9 @@ def main() -> int:
                 "ssd": mamba["ssd"],
                 "bertscore_pr": metrics["bertscore_pr"],
                 "bootstrap_means": metrics["bootstrap_means"]}
+    # and phase 10's runs on the MoE model, for the four attention kernels
+    for name in MOE_KERNELS:
+        launches[name] += sum(run[name] for run in moe_runs.values())
     for e in entries:
         e["launches"] = launches[e["name"]]
     for e in entries:
@@ -3045,7 +3246,7 @@ def main() -> int:
                 print(f"chip_smoke: FAIL: {e['name']} {key} = {e[key]}",
                       file=sys.stderr)
                 return 1
-    log(f"phases 1-9 took {time.perf_counter() - t_start:.1f} s after the build")
+    log(f"phases 1-10 took {time.perf_counter() - t_start:.1f} s after the build")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

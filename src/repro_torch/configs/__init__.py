@@ -5,10 +5,12 @@ from __future__ import annotations
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.mamba2_27b import CONFIG as MAMBA2_27B
 from repro_torch.configs.qwen3_4b import CONFIG as QWEN3_4B
+from repro_torch.configs.qwen3_moe_30b_a3b import CONFIG as QWEN3_MOE_30B_A3B
 
 ARCHS: dict[str, ModelConfig] = {
     QWEN3_4B.name: QWEN3_4B,
     MAMBA2_27B.name: MAMBA2_27B,
+    QWEN3_MOE_30B_A3B.name: QWEN3_MOE_30B_A3B,
 }
 
 

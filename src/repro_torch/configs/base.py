@@ -1,5 +1,5 @@
-"""Model configuration schema: the port's copy of the dense and SSM parts of
-``repro/configs/base.py`` (the JAX package's ``ModelConfig``)."""
+"""Model configuration schema: the port's copy of the dense, MoE and SSM
+parts of ``repro/configs/base.py`` (the JAX package's ``ModelConfig``)."""
 
 from __future__ import annotations
 
@@ -14,7 +14,7 @@ def _round_up(x: int, m: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | ssm
+    family: str  # dense | moe | ssm
 
     n_layers: int
     d_model: int
@@ -28,6 +28,15 @@ class ModelConfig:
     tie_embeddings: bool = False
     norm_eps: float = 1e-6
     rope_theta: float = 1_000_000.0
+
+    # --- MoE ----------------------------------------------------------------
+    n_experts: int = 0
+    n_experts_per_token: int = 0
+    n_shared_experts: int = 0
+    moe_d_ff: int = 0           # per-expert hidden
+    first_k_dense: int = 0      # leading dense layers (deepseek-v2)
+    dense_d_ff: int = 0         # hidden of those dense layers
+    capacity_factor: float = 1.25
 
     # --- SSM (Mamba2 SSD) ----------------------------------------------------
     ssm_state: int = 0
@@ -71,4 +80,8 @@ class ModelConfig:
         )
         if self.family == "ssm":
             kw.update(ssm_state=16, ssm_head_dim=16, ssm_chunk=16)
+        if self.n_experts:
+            kw.update(n_experts=8, n_experts_per_token=2, moe_d_ff=64,
+                      n_shared_experts=min(self.n_shared_experts, 1),
+                      first_k_dense=min(self.first_k_dense, 1), dense_d_ff=128)
         return self.replace(**kw)

@@ -1,7 +1,8 @@
-"""Layers of the dense transformer: RMSNorm, NeoX half-rotation RoPE, the
-SwiGLU MLP, dense projections and the tied embedding.  Each follows the
-arithmetic of its ``repro/models/layers.py`` counterpart: where the
-reference computes in f32 and rounds to the compute dtype, so does this."""
+"""Layers of the transformer: RMSNorm, NeoX half-rotation RoPE, the SwiGLU
+MLP, dense projections, the embedding and the tied or untied unembedding.
+Each follows the arithmetic of its ``repro/models/layers.py`` counterpart:
+where the reference computes in f32 and rounds to the compute dtype, so
+does this."""
 
 from __future__ import annotations
 
@@ -62,3 +63,10 @@ def unembed(table: torch.Tensor, x: torch.Tensor, dtype: torch.dtype) -> torch.T
     rounded to the compute dtype before the cast to f32, as the reference
     does: that rounding decides argmax ties."""
     return (x.to(dtype) @ table.to(dtype).t()).float()
+
+
+def untied_unembed(w: torch.Tensor, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Logits over the padded vocab through an untied ``(d, Vp)`` kernel,
+    rounded to the compute dtype before the cast to f32, as the reference's
+    ``dense(params["unembed"], x)`` is."""
+    return dense(w, x.to(dtype)).float()

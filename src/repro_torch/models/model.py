@@ -1,7 +1,8 @@
-"""The port's model families (``repro/models/model.py``): the dense GQA
-``TransformerLM`` and the pure-SSM ``MambaLM``, each with a prefill of one
-prompt into its cache and one decode step for every slot; :func:`build_model`
-picks one by ``cfg.family``.
+"""The port's model families (``repro/models/model.py``): the GQA
+``TransformerLM`` of the dense and MoE families and the pure-SSM
+``MambaLM``, each with a prefill of one prompt into its cache and one
+decode step for every slot; :func:`build_model` picks one by
+``cfg.family``.
 
 Two caches: the contiguous :class:`KVCache` (one row block per slot) and
 the :class:`PagedKVCache` (a pool of fixed-size pages that slots reach
@@ -19,7 +20,7 @@ import torch
 
 from repro_torch.configs import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models import layers, ssm
+from repro_torch.models import layers, moe, ssm
 from repro_torch.models.ssm import SSMCache
 
 
@@ -86,8 +87,35 @@ def _block(p: dict, i: int) -> dict:
 
 
 class TransformerLM:
+    """Pre-norm GQA blocks: the dense stack (``params["layers"]``: every
+    layer of the dense family, the ``first_k_dense`` leading layers of the
+    MoE family), then the MoE stack (``params["moe_layers"]``), then the
+    tied or untied (``params["unembed"]``) unembedding.  The cache's layer
+    axis runs over both stacks in that order."""
+
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
+
+    @staticmethod
+    def _layers(params: dict):
+        """(layer index, layer's parameters) over both stacks, in order."""
+        i = 0
+        for key in ("layers", "moe_layers"):
+            stack = params.get(key)
+            for j in range(0 if stack is None else stack["ln1"].shape[0]):
+                yield i, _block(stack, j)
+                i += 1
+
+    def _mlp(self, p: dict, h: torch.Tensor) -> torch.Tensor:
+        if "moe" in p:
+            return moe.moe_block(p["moe"], self.cfg, h)
+        return layers.gated_mlp(p["mlp"], h)
+
+    @staticmethod
+    def _logits(params: dict, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        if "unembed" in params:
+            return layers.untied_unembed(params["unembed"], x, dtype)
+        return layers.unembed(params["embed"], x, dtype)
 
     def init_cache(
         self, n_slots: int, max_len: int, device: torch.device | str
@@ -157,8 +185,7 @@ class TransformerLM:
         positions = torch.arange(start, start + s, device=tokens.device)[None, :]
         rope = layers.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
         x = layers.embed(params["embed"], tokens, dtype)
-        for i in range(cfg.n_layers):
-            p = _block(params["layers"], i)
+        for i, p in self._layers(params):
             h = layers.rms_norm(p["ln1"], x, cfg.norm_eps)
             if paged:
                 a = attn.gqa_prefill_paged(
@@ -170,9 +197,11 @@ class TransformerLM:
                 )
             x = x + a
             h = layers.rms_norm(p["ln2"], x, cfg.norm_eps)
-            x = x + layers.gated_mlp(p["mlp"], h)
+            # the MoE capacity follows the length of this call: a suffix
+            # prefill routes the suffix alone, as the reference's does
+            x = x + self._mlp(p, h)
         x = layers.rms_norm(params["final_norm"], x[:, -1:], cfg.norm_eps)
-        return layers.unembed(params["embed"], x, dtype)[:, 0]
+        return self._logits(params, x, dtype)[:, 0]
 
     def decode_step(
         self,
@@ -197,8 +226,7 @@ class TransformerLM:
         lengths = (positions + 1).clamp(max=max_len).to(torch.int32)
         new_pos = positions.to(torch.int32)
         x = layers.embed(params["embed"], tokens, dtype)
-        for i in range(cfg.n_layers):
-            p = _block(params["layers"], i)
+        for i, p in self._layers(params):
             h = layers.rms_norm(p["ln1"], x, cfg.norm_eps)
             if paged:
                 a = attn.gqa_decode_paged(
@@ -211,9 +239,9 @@ class TransformerLM:
                 )
             x = x + a
             h = layers.rms_norm(p["ln2"], x, cfg.norm_eps)
-            x = x + layers.gated_mlp(p["mlp"], h)
+            x = x + self._mlp(p, h)
         x = layers.rms_norm(params["final_norm"], x, cfg.norm_eps)
-        return layers.unembed(params["embed"], x, dtype)[:, 0]
+        return self._logits(params, x, dtype)[:, 0]
 
 
 class MambaLM:
@@ -290,7 +318,7 @@ class MambaLM:
 def build_model(cfg: ModelConfig) -> TransformerLM | MambaLM:
     """The model of ``cfg.family``, as the reference's ``build_model``
     picks it, for the families the port serves."""
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return TransformerLM(cfg)
     if cfg.family == "ssm":
         return MambaLM(cfg)

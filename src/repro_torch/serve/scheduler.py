@@ -1,6 +1,6 @@
 """Continuous-batching scheduler over a model's per-slot cache: a contiguous
-or a paged KV cache for the dense family, the SSM state for Mamba2 (the
-``ContinuousBatcher`` of ``repro/serve/scheduler.py``).
+or a paged KV cache for the dense and MoE families, the SSM state for
+Mamba2 (the ``ContinuousBatcher`` of ``repro/serve/scheduler.py``).
 
 A fixed pool of ``n_slots`` decode slots steps in lock-step.  Each step:
 
