@@ -24,7 +24,9 @@ integer work of every Poisson draw (``DRAW_ALU_OPS`` on the ALU,
 ``DRAW_INSTRUCTIONS`` issued).  The decode kernel
 is also held and timed at the main path's own lengths (11..45), and the
 four attention kernels also at phase 10's G = 8 (32 query heads over 4 KV
-heads) at its shapes.  Every task of phases
+heads) and phase 11's G = 5 (40 over 8) at their shapes; kernels 1 and 2
+at phase 12's head width of 112 (G = 1), kernel 8 at its state of 64 (112
+heads).  Every task of phases
 2-5 streams (``StreamingConfig(enabled=True)``) unless it says otherwise.
 Phase 2
 runs the contiguous main path through the user's entry point,
@@ -117,19 +119,35 @@ two restarts, no failure, both faults injected, kernel 1 launched again
 for the survivors; (c) in memory with replica 0 hung for the whole run,
 no probe and a 0.5 s deadline: every row served by replica 1 with (a)'s
 texts, deadline expiries, hedges and cancelled losing legs, no slot held
-at close.  Phase 10, the MoE family, runs last, after every earlier
-session has closed: full-width qwen3-moe-30b-a3b (48 layers, 128 experts,
-top 8; 56.9 GiB of random bf16 weights from seed 0, made once and shared
-by every engine of the phase, one cache alive at a time).  (a) ``run_task``
-over phase 2's rows on the contiguous cache (kernels 1, 2 and 6
-launched), then phase 2's gates: batch invariance, finite logits, the
+at close.  Phase 10, the MoE family, runs after every earlier session
+has closed: full-width qwen3-moe-30b-a3b (48 layers, 128 experts, top 8;
+56.9 GiB of random bf16 weights from seed 0, made once and shared by every
+engine of the phase, one cache alive at a time), each run_task over 32
+rows, as in phases 11 and 12.  (a) ``run_task`` over phase 2's first
+rows on the contiguous cache (kernels 1, 2 and 6 launched), then phase 2's gates: batch invariance, finite logits, the
 step breakdowns with the expert products' share; (b) ``run_task`` over
 phase 3's few-shot prompts on the f32 pool with prefix sharing (kernel 1
 with ``q_offset`` > 0, kernel 3), then phase 3's ``infer_batch`` gates;
 (c) on the int8 pool (kernel 4, texts non-empty, logits finite); (d)
 MoE layer 0 over 478 tokens (capacity 40) against the naive
 token-by-token version in f32: the routing mask and kept set equal,
-tokens dropped, the output within its tolerance.
+tokens dropped, the output within its tolerance.  Phase 11, the qkv-bias
+dense family, runs after phase 10 has freed its weights: full-width
+qwen2.5-32b (64 layers, 40 / 8 heads of 128, untied vocab 152,064; 61
+GiB of random bf16 weights from seed 0, the MLP leaves drawn a layer at a
+time, and seeded random q/k/v biases in place of the reference's zeros,
+gated to move the logits), one cache alive at a time, over 32 rows: (a)
+phase 2's task and gates, (b) phase 3's few-shot task on the f32 pool
+with sharing and the ``infer_batch`` gates, (c) the int8 pool.  Phase 12,
+the hybrid family, runs last: full-width zamba2-7b (81 Mamba2 layers, the
+shared attention and MLP block after every 6th: 13 applications and a
+tail of 3; 12.3 GiB of random bf16 weights) over 32 of phase 3's few-shot
+prompts on the contiguous cache, with kernel 1 launched exactly 13 times
+a prompt, kernel 8 81 times and kernel 2 13 times a decode step; then
+phase 4's gates (batch invariance, a reused slot, the hand-off), a paged
+engine refused with the reference's error, and one shared-block
+application and one Mamba2 layer at full width through the kernels
+against the same layers through the plain versions.
 
 Standard output: the card's name and power limit first, then log lines,
 then one ``{"kernels": [...]}`` line, and last the
@@ -170,6 +188,10 @@ MOE_HEADS, MOE_KV_HEADS = 32, 4
 N_ROWS, CHUNK, N_SLOTS, MAX_LEN, MAX_TOKENS, N_BOOT = 64, 16, 16, 1024, 32, 1000
 #: a main-path prompt's length (the QA prompts render to 10-13 tokens)
 PROMPT_LEN = 12
+#: the run_tasks of phases 10-12 (the largest models): two chunks, half of
+#: phase 2's rows, so that the script with three models of 7-33 B
+#: parameters stays within its time limit
+BIG_ROWS = 2 * CHUNK
 #: phase 3: tokens per KV page, and the few-shot header's token range
 PAGE_SIZE = 16
 HEADER_TOKENS = (448, 480)
@@ -184,6 +206,20 @@ MOE_FLASH_SHAPES = (FLASH_SHAPES[0], (478, 478, 0), FLASH_SHAPES[2], FLASH_SHAPE
 #: full-width mamba2-2.7b SSD geometry (phase 4's): heads, head_dim, state
 #: size, groups, chunk
 SSM_HEADS, SSM_HEAD_DIM, SSM_STATE, SSM_GROUPS, SSM_CHUNK = 80, 64, 128, 1, 256
+#: phase 11's model, full-width qwen2.5-32b, and its attention geometry:
+#: 40 query heads over 8 KV heads, G = 5
+QWEN25 = "qwen2.5-32b"
+QWEN25_HEADS, QWEN25_KV_HEADS = 40, 8
+#: phase 12's model, full-width zamba2-7b: its shared block's attention (32
+#: heads of 112, G = 1) and its SSD geometry (112 heads of 64, state 64)
+ZAMBA = "zamba2-7b"
+ZAMBA_HEADS, ZAMBA_HEAD_DIM = 32, 112
+ZAMBA_SSM_HEADS, ZAMBA_SSM_STATE = 112, 64
+#: the G = 5 and d = 112 prefill shapes: phase 11's QA prompts, its
+#: few-shot prompt prefilled whole (two consumer warpgroups) and its suffix
+#: prefill; phase 12's QA-length and few-shot prompts
+QWEN25_FLASH_SHAPES = (FLASH_SHAPES[0], (478, 478, 0), FLASH_SHAPES[-1])
+ZAMBA_FLASH_SHAPES = (FLASH_SHAPES[0], (478, 478, 0))
 #: phase 5: BERTScore's default max_len and the hash embedder's width, the
 #: seven metrics (name, type), and the statistics API's sample size
 BERT_LEN, BERT_DIM = 64, 256
@@ -297,15 +333,19 @@ def flash_cases(torch, fs):
 
     g = torch.Generator(device="cuda").manual_seed(0)
 
-    def rnd(s, h):
-        return torch.randn((1, s, h, HEAD_DIM), generator=g, device="cuda",
+    def rnd(s, h, d=HEAD_DIM):
+        return torch.randn((1, s, h, d), generator=g, device="cuda",
                            dtype=torch.float32).to(torch.bfloat16)
 
     out = []
-    for (sq, sk, off), heads, kvh in (
-            [(shape, HEADS, KV_HEADS) for shape in FLASH_SHAPES]
-            + [(shape, MOE_HEADS, MOE_KV_HEADS) for shape in MOE_FLASH_SHAPES]):
-        q, k, v = rnd(sq, heads), rnd(sk, kvh), rnd(sk, kvh)
+    for (sq, sk, off), heads, kvh, d in (
+            [(shape, HEADS, KV_HEADS, HEAD_DIM) for shape in FLASH_SHAPES]
+            + [(shape, MOE_HEADS, MOE_KV_HEADS, HEAD_DIM) for shape in MOE_FLASH_SHAPES]
+            + [(shape, QWEN25_HEADS, QWEN25_KV_HEADS, HEAD_DIM)
+               for shape in QWEN25_FLASH_SHAPES]
+            + [(shape, ZAMBA_HEADS, ZAMBA_HEADS, ZAMBA_HEAD_DIM)
+               for shape in ZAMBA_FLASH_SHAPES]):
+        q, k, v = rnd(sq, heads, d), rnd(sk, kvh, d), rnd(sk, kvh, d)
         got = flash_attention(q, k, v, q_offset=off)
         ref = flash_attention_ref(q, k, v, q_offset=off)
         torch.cuda.synchronize()
@@ -314,12 +354,12 @@ def flash_cases(torch, fs):
         # value plus 1% of the row's largest output.  A 32-key tile dropped
         # from a 2,048-key row moves the output by ~10x that allowance.
         err, ratio = rowwise(torch, got, ref, 2**-7, 1e-2)
-        shape = (f"B=1 H={heads} K={kvh} d={HEAD_DIM} Sq={sq} Sk={sk} "
+        shape = (f"B=1 H={heads} K={kvh} d={d} Sq={sq} Sk={sk} "
                  f"q_offset={off}")
         require(ratio <= 1.0, f"flash_attention {shape}: error/allowance {ratio:.3g}")
         pairs = sum(min(sk, off + i + 1) for i in range(sq))
-        nbytes = 2 * HEAD_DIM * (2 * sq * heads + 2 * sk * kvh)
-        b_ms, b_by = bound(4 * HEAD_DIM * pairs * heads, PEAK_BF16, nbytes)
+        nbytes = 2 * d * (2 * sq * heads + 2 * sk * kvh)
+        b_ms, b_by = bound(4 * d * pairs * heads, PEAK_BF16, nbytes)
         kx, vx = (t.repeat_interleave(heads // kvh, dim=2) for t in (k, v))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, kx, vx))
         mask = (torch.arange(sq, device="cuda")[:, None] + off
@@ -351,9 +391,10 @@ def flash_cases(torch, fs):
             f"{causal}, bound {b_ms:.4g} ms ({b_by})")
 
     # a row's bits do not depend on its tile, on Sq or on q_offset: the last
-    # rows of phase 3's (and phase 10's) full prefill against the suffix
-    # prefill after a hit
-    for heads, kvh in ((HEADS, KV_HEADS), (MOE_HEADS, MOE_KV_HEADS)):
+    # rows of phase 3's (and phase 10's, and 11's) full prefill against the
+    # suffix prefill after a hit
+    for heads, kvh in ((HEADS, KV_HEADS), (MOE_HEADS, MOE_KV_HEADS),
+                       (QWEN25_HEADS, QWEN25_KV_HEADS)):
         q, k, v = rnd(fs.prompt_len, heads), rnd(fs.prompt_len, kvh), \
             rnd(fs.prompt_len, kvh)
         full = flash_attention(q, k, v)
@@ -382,7 +423,9 @@ def flash_cases(torch, fs):
     # kernel 1 with one and two consumer warpgroups (+ 1 producer warp)
     kernel_limits("repro_flash_kernel_info",
                   {1: "flash_attention, 1 consumer warpgroup",
-                   2: "flash_attention, 2 consumer warpgroups"})
+                   2: "flash_attention, 2 consumer warpgroups",
+                   3: "flash_attention d=112, 1 consumer warpgroup",
+                   4: "flash_attention d=112, 2 consumer warpgroups"})
     return out
 
 
@@ -397,16 +440,26 @@ def decode_cases(torch) -> list[dict]:
     lo, hi = PROMPT_LEN - 1, PROMPT_LEN + 1 + MAX_TOKENS
     main = (lo + (hi - lo) * torch.arange(N_SLOTS, device="cuda") // (N_SLOTS - 1))
     main = main.to(torch.int32)
+    # phase 12's few-shot prompts (478 tokens) plus up to 32 new tokens
+    few = (479 + 2 * torch.arange(N_SLOTS, device="cuda")).to(torch.int32)
     out = [decode_case(torch, g, ragged, f"lengths 1..{MAX_LEN}"),
            decode_case(torch, g, main, f"main-path lengths {lo}..{hi} (phase 2)"),
            decode_case(torch, g, main, f"main-path lengths {lo}..{hi} (phase 10)",
-                       MOE_HEADS, MOE_KV_HEADS)]
-    # kernels 2 and 3 are one span-split template, four instantiations
+                       MOE_HEADS, MOE_KV_HEADS),
+           decode_case(torch, g, main, f"main-path lengths {lo}..{hi} (phase 11)",
+                       QWEN25_HEADS, QWEN25_KV_HEADS),
+           decode_case(torch, g, main, f"lengths {lo}..{hi}", ZAMBA_HEADS,
+                       ZAMBA_HEADS, ZAMBA_HEAD_DIM),
+           decode_case(torch, g, few, "main-path lengths 479..509 (phase 12)",
+                       ZAMBA_HEADS, ZAMBA_HEADS, ZAMBA_HEAD_DIM)]
+    # kernels 2 and 3 are one span-split template, six instantiations
     kernel_limits("repro_decode_kernel_info",
                   {0: "decode_attention split, G <= 4",
                    1: "decode_attention split, G <= 8",
                    2: "paged_decode_attention split, G <= 4",
-                   3: "paged_decode_attention split, G <= 8"})
+                   3: "paged_decode_attention split, G <= 8",
+                   4: "decode_attention split d=112, G <= 4",
+                   5: "decode_attention split d=112, G <= 8"})
     return out
 
 
@@ -469,28 +522,28 @@ def kernel_limits(lib_fn: str, names: dict[int, str]) -> None:
 
 
 def decode_case(torch, g, lens, label: str, heads: int = HEADS,
-                kvh: int = KV_HEADS) -> dict:
+                kvh: int = KV_HEADS, d: int = HEAD_DIM) -> dict:
     from repro_torch.kernels.decode_attention import (
         decode_attention,
         decode_attention_ref,
     )
 
     b, s = N_SLOTS, MAX_LEN
-    q = torch.randn((b, 1, heads, HEAD_DIM), generator=g, device="cuda").to(
+    q = torch.randn((b, 1, heads, d), generator=g, device="cuda").to(
         torch.bfloat16)
-    kc = torch.randn((b, s, kvh, HEAD_DIM), generator=g, device="cuda")
-    vc = torch.randn((b, s, kvh, HEAD_DIM), generator=g, device="cuda")
+    kc = torch.randn((b, s, kvh, d), generator=g, device="cuda")
+    vc = torch.randn((b, s, kvh, d), generator=g, device="cuda")
     got = decode_attention(q, kc, vc, lens)
     ref = decode_attention_ref(q, kc, vc, lens)
     torch.cuda.synchronize()
     # both sides are f32 until the final bf16 rounding of the output
     err, ratio = rowwise(torch, got, ref, 2**-7, 1e-3)
-    shape = (f"B={b} H={heads} K={kvh} d={HEAD_DIM} S={s} f32 cache, "
+    shape = (f"B={b} H={heads} K={kvh} d={d} S={s} f32 cache, "
              f"{label}")
     require(ratio <= 1.0, f"decode_attention {shape}: error/allowance {ratio:.3g}")
     n_rows = int(lens.sum())
-    nbytes = 2 * b * heads * HEAD_DIM * 2 + n_rows * kvh * HEAD_DIM * 4 * 2 + 4 * b
-    b_ms, b_by = bound(4 * HEAD_DIM * n_rows * heads, PEAK_BF16, nbytes)
+    nbytes = 2 * b * heads * d * 2 + n_rows * kvh * d * 4 * 2 + 4 * b
+    b_ms, b_by = bound(4 * d * n_rows * heads, PEAK_BF16, nbytes)
     qt = q.float().transpose(1, 2)
     kt, vt = (t.transpose(1, 2).repeat_interleave(heads // kvh, dim=1)
               for t in (kc, vc))
@@ -569,7 +622,9 @@ def paged_cases(torch, fs) -> list[dict]:
     table): at G = 4 at ragged lengths 1 .. 1,024 and at the main path's
     lengths, at G = 8 (phase 10's heads) at the main path's lengths."""
     out = [*paged_geometry(torch, fs, HEADS, KV_HEADS, ragged_too=True),
-           *paged_geometry(torch, fs, MOE_HEADS, MOE_KV_HEADS, ragged_too=False)]
+           *paged_geometry(torch, fs, MOE_HEADS, MOE_KV_HEADS, ragged_too=False),
+           *paged_geometry(torch, fs, QWEN25_HEADS, QWEN25_KV_HEADS,
+                           ragged_too=False)]
     kernel_limits("repro_quant_paged_kernel_info",
                   {0: "quant_paged_decode_attention split, G <= 4",
                    1: "quant_paged_decode_attention split, G <= 8",
@@ -600,7 +655,8 @@ def paged_geometry(torch, fs, heads: int, kvh: int, ragged_too: bool) -> list[di
     ragged = torch.randint(1, MAX_LEN + 1, (b,), generator=g, device="cuda")
     ragged[:6] = torch.tensor([1, MAX_LEN, PAGE_SIZE, fs.shared, 512, 17])
     main = fs.prompt_len + 1 + 2 * torch.arange(b, device="cuda")
-    phase = "phase 3" if heads == HEADS else "phase 10"
+    phase = {(HEADS, KV_HEADS): "phase 3", (MOE_HEADS, MOE_KV_HEADS): "phase 10",
+             (QWEN25_HEADS, QWEN25_KV_HEADS): "phase 11"}[heads, kvh]
     out = []
     cases = [(f"main-path lengths {int(main[0])}..{int(main[-1])} ({phase})", main)]
     if ragged_too:
@@ -770,7 +826,8 @@ def bootstrap_case(torch, n: int, m: int, n_boot: int, starts: tuple[int, ...],
     return entry
 
 
-def ssd_work(slen: int, chunk: int) -> tuple[int, int]:
+def ssd_work(slen: int, chunk: int, h: int = SSM_HEADS,
+             n: int = SSM_STATE) -> tuple[int, int]:
     """FLOPs and bytes of one full-width SSD scan of one sequence in the
     chunked form.  FLOPs per
     head and chunk of ``q`` rows: the causal half of the intra-chunk
@@ -778,7 +835,7 @@ def ssd_work(slen: int, chunk: int) -> tuple[int, int]:
     multiply-adds, and the chunk-state and off-diagonal products, 2 q P N;
     a ragged last chunk counts its own rows only.  Bytes: x, dt, B and C
     per group, y, the final state and ``a``, each once."""
-    h, p, n, g = SSM_HEADS, SSM_HEAD_DIM, SSM_STATE, SSM_GROUPS
+    p, g = SSM_HEAD_DIM, SSM_GROUPS
     q = min(chunk, slen)
     macs = 0
     for c0 in range(0, slen, q):
@@ -793,15 +850,19 @@ def ssd_cases(torch, fs) -> list[dict]:
     """Kernel 8 at full-width mamba2-2.7b geometry (80 heads of 64 on one
     group of 128, chunk 256, batch 1) at 12 tokens (one partial chunk),
     phase 4's prompt length (two chunks, the second ragged) and 2,048 (8
-    chunks); x, B and C are column views of one fused xBC row, as the model
-    slices them."""
+    chunks), and at zamba2-7b's (112 heads of 64 on one group of state 64)
+    at 12 tokens and phase 12's prompt length; x, B and C are column views
+    of one fused xBC row, as the model slices them."""
     from repro_torch.kernels.ssd import ssd
     from repro_torch.models.ssm import ssd_chunked
 
-    h, p, n, g = SSM_HEADS, SSM_HEAD_DIM, SSM_STATE, SSM_GROUPS
+    p, g = SSM_HEAD_DIM, SSM_GROUPS
     out = []
-    for slen in (12, fs.prompt_len, 2048):
-        gen = torch.Generator(device="cuda").manual_seed(10 + slen)
+    mamba, zamba = (SSM_HEADS, SSM_STATE), (ZAMBA_SSM_HEADS, ZAMBA_SSM_STATE)
+    for slen, (h, n) in ((12, mamba), (fs.prompt_len, mamba), (2048, mamba),
+                         (12, zamba), (fs.prompt_len, zamba)):
+        gen = torch.Generator(device="cuda").manual_seed(
+            10 + slen + (0 if n == SSM_STATE else 1000))
         xbc = torch.randn((1, slen, h * p + 2 * g * n), generator=gen,
                           device="cuda").to(torch.bfloat16)
         x = xbc[..., : h * p].unflatten(-1, (h, p))
@@ -827,7 +888,7 @@ def ssd_cases(torch, fs) -> list[dict]:
         err_s, ratio_s = rowwise(torch, state, rstate, 2**-10, 1e-4)
         require(ratio_y <= 1.0, f"ssd {shape}: y error/allowance {ratio_y:.3g}")
         require(ratio_s <= 1.0, f"ssd {shape}: state error/allowance {ratio_s:.3g}")
-        flops, nbytes = ssd_work(slen, SSM_CHUNK)
+        flops, nbytes = ssd_work(slen, SSM_CHUNK, h, n)
         b_ms, b_by = bound(flops, PEAK_BF16, nbytes)
         entry = {
             "name": "ssd",
@@ -857,7 +918,8 @@ def ssd_cases(torch, fs) -> list[dict]:
             f"{flops} FLOPs, {nbytes} bytes)")
     kernel_limits("repro_ssd_kernel_info",
                   {0: "ssd chunk states and C B^T", 1: "ssd recurrence",
-                   2: "ssd outputs"})
+                   2: "ssd outputs", 3: "ssd N=64 chunk states and C B^T",
+                   4: "ssd N=64 recurrence", 5: "ssd N=64 outputs"})
     return out
 
 
@@ -1526,10 +1588,11 @@ def free_cuda(torch) -> None:
     torch.cuda.empty_cache()
 
 
-def paged_run(torch, params, fs, label, kernel, model_name="qwen3-4b", **inference):
-    """One paged ``run_task`` of ``model_name`` over the few-shot task with
-    the given paging knobs; returns (launches, serving stats, tokens by
-    request, texts by request)."""
+def paged_run(torch, params, fs, label, kernel, model_name="qwen3-4b",
+              n_rows=N_ROWS, **inference):
+    """One paged ``run_task`` of ``model_name`` over ``n_rows`` rows of the
+    few-shot task with the given paging knobs; returns (launches, serving
+    stats, tokens by request, texts by request)."""
     from repro_torch.core import EvalSession
 
     task = make_task(fs.template, model_name, kv_page_size=PAGE_SIZE, **inference)
@@ -1550,7 +1613,8 @@ def paged_run(torch, params, fs, label, kernel, model_name="qwen3-4b", **inferen
         with Probe() as probe:
             launches, st, _, _ = timed_run_task(
                 torch, session, task,
-                ("flash_attention", kernel, "bootstrap_partials"), label)
+                ("flash_attention", kernel, "bootstrap_partials"), label,
+                n_rows=n_rows)
         require(probe.suffix_prefills > 0,
                 f"{label}: no flash launch with q_offset > 0")
         require(int(probe.bad) == 0, f"{label}: logits hold NaN or inf")
@@ -1667,6 +1731,15 @@ def paged_phase(torch, fs) -> dict[str, dict[str, int]]:
 HANDOFF_TOL, HANDOFF_CONTROL = 0.15, 3.0
 
 
+def zero_slot(cache, slot: int) -> None:
+    """Every piece of a slot's state set to zeros: an SSM cache's conv
+    window and state, and a hybrid cache's KV rows besides."""
+    parts = (cache.conv, cache.state) if hasattr(cache, "conv") else (
+        cache.ssm.conv, cache.ssm.state, cache.kv.k, cache.kv.v)
+    for t in parts:
+        t[:, slot].zero_()
+
+
 def handoff_gate(torch, b, prompt: list[int], length: int) -> None:
     """Slot 0: the logits of ``prefill(prompt[:length])`` against those of
     ``prefill(prompt[:length - 1])`` then one ``decode_step`` (every slot
@@ -1679,8 +1752,7 @@ def handoff_gate(torch, b, prompt: list[int], length: int) -> None:
     pos = torch.full((N_SLOTS,), length - 1, device="cuda")
     b.model.prefill(b.params, toks[:, : length - 1], b.cache, 0)
     step = b.model.decode_step(b.params, step_toks, b.cache, pos)[:1]
-    b.cache.conv[:, 0].zero_()
-    b.cache.state[:, 0].zero_()
+    zero_slot(b.cache, 0)
     cold = b.model.decode_step(b.params, step_toks, b.cache, pos)[:1]
     require(bool(torch.isfinite(full).all() and torch.isfinite(step).all()),
             "hand-off logits hold NaN or inf")
@@ -3076,21 +3148,22 @@ def gib(n_bytes: int) -> str:
     return f"{n_bytes / 2**30:.2f} GiB"
 
 
-def moe_contiguous(torch, params) -> dict[str, int]:
-    """Phase 10 (a): ``run_task`` over phase 2's rows on the contiguous f32
-    cache, then phase 2's engine gates."""
+def big_contiguous(torch, params, model_name: str, label: str,
+                   n_rows: int = N_ROWS) -> dict[str, int]:
+    """Phases 10 (a) and 11 (a): ``run_task`` over phase 2's rows on the
+    contiguous f32 cache, then phase 2's engine gates."""
     from repro_torch.core import EvalSession
 
-    task = make_task(model_name=MOE)
+    task = make_task(model_name=model_name)
     engine_kwargs = {"n_slots": N_SLOTS, "max_len": MAX_LEN, "params": params}
     with EvalSession(device="cuda", engine_kwargs=engine_kwargs) as session:
         engine = session.engine_for(task.model, task.inference)
         launches, *_ = timed_run_task(
             torch, session, task,
             ("flash_attention", "decode_attention", "bootstrap_partials"),
-            "phase 10 (a) contiguous")
-        engine_gates(torch, engine, task, "phase 10 (a)")
-        log(f"phase 10 (a) {serving_clean(session, 'phase 10 (a)')}; "
+            f"{label} contiguous", n_rows=n_rows)
+        engine_gates(torch, engine, task, label)
+        log(f"{label} {serving_clean(session, label)}; "
             f"{gib(torch.cuda.max_memory_allocated())} peak allocated")
     free_cuda(torch)
     return launches
@@ -3151,10 +3224,12 @@ def moe_phase(torch, fs) -> dict[str, dict[str, int]]:
         f"{gib(torch.cuda.memory_allocated())} allocated, "
         f"{gib(torch.cuda.max_memory_allocated())} peak while made")
     t_a = time.perf_counter()
-    out = {"contiguous": moe_contiguous(torch, params)}
+    out = {"contiguous": big_contiguous(torch, params, MOE, "phase 10 (a)",
+                                        BIG_ROWS)}
     t_b = time.perf_counter()
     out["f32"], *_ = paged_run(torch, params, fs, "phase 10 (b) paged f32",
-                               "paged_decode_attention", MOE, prefix_cache=True)
+                               "paged_decode_attention", MOE, BIG_ROWS,
+                               prefix_cache=True)
     # room for 8 prompts and the page of growth the admission gate keeps for
     # each busy slot: all 8 grow past it, in a quarter of phase 3's steps at
     # this model's slower step (one page fewer admits 7, which never preempt)
@@ -3162,8 +3237,8 @@ def moe_phase(torch, fs) -> dict[str, dict[str, int]]:
     t_c = time.perf_counter()
     out["int8"], _, _, texts = paged_run(torch, params, fs, "phase 10 (c) paged int8",
                                          "quant_paged_decode_attention", MOE,
-                                         kv_cache_dtype="int8")
-    require(len(texts) == N_ROWS and all(texts.values()),
+                                         BIG_ROWS, kv_cache_dtype="int8")
+    require(len(texts) == BIG_ROWS and all(texts.values()),
             "phase 10 (c): an empty text")
     t_d = time.perf_counter()
     moe_layer_gate(torch, params)
@@ -3171,6 +3246,262 @@ def moe_phase(torch, fs) -> dict[str, dict[str, int]]:
         f"(c) {t_d - t_c:.1f} s, (d) {time.perf_counter() - t_d:.1f} s; "
         f"{gib(torch.cuda.max_memory_allocated())} peak allocated")
     return out
+
+
+# -- phase 11: the qkv-bias dense family -------------------------------------------
+
+#: phase 11: the seeded random q/k/v biases put in place of the zeros the
+#: reference initialises (a zero bias would hide a dropped add): their std
+#: (about half the spread of a projected value) and seed
+BIAS_STD, BIAS_SEED = 0.5, 11
+
+
+def bias_gate(torch, params) -> None:
+    """One 12-token prefill of phase 11's model with its biases and with
+    ``bq`` zeroed: the logits must differ, or the biases are not added."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import TransformerLM
+
+    model = TransformerLM(get_config(QWEN25))
+    cache = model.init_cache(1, PROMPT_LEN, "cuda")
+    toks = torch.arange(2, 2 + PROMPT_LEN, device="cuda")[None, :]
+    attn = params["layers"]["attn"]
+    with_bias = model.prefill(params, toks, cache, 0)
+    kept = attn["bq"].clone()
+    attn["bq"].zero_()
+    without = model.prefill(params, toks, cache, 0)
+    attn["bq"].copy_(kept)
+    diff = float((with_bias - without).abs().max())
+    require(diff > 0.0, "phase 11: zeroing bq left the logits unchanged")
+    log(f"phase 11 bias gate: zeroing bq moves a 12-token prefill's logits by "
+        f"up to {diff:.4g} (max |logit| {float(with_bias.abs().max()):.4g})")
+    del cache
+
+
+def qwen25_phase(torch, fs) -> dict[str, dict[str, int]]:
+    """Phase 11, the qkv-bias dense family, after phase 10 has freed its
+    weights: full-width qwen2.5-32b with random bf16 weights (seed 0; the
+    MLP leaves drawn a layer at a time) and seeded random q/k/v biases,
+    made once and shared by every engine of the phase, one cache alive at a
+    time.  (a) contiguous ``run_task`` and phase 2's engine gates, (b) paged
+    f32 with prefix sharing and the ``infer_batch`` gates, (c) the int8
+    pool, each over ``BIG_ROWS`` rows.  Returns the launches of (a)-(c)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    log(f"phase 11: {gib(torch.cuda.memory_allocated())} allocated before the weights")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(get_config(QWEN25), 0, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(BIAS_SEED)
+    attn = params["layers"]["attn"]
+    for name in ("bq", "bk", "bv"):
+        attn[name].copy_(BIAS_STD * torch.randn(attn[name].shape, generator=g,
+                                                device="cuda"))
+    torch.cuda.synchronize()
+    log(f"phase 11 weights on the card in {time.perf_counter() - t0:.3f} s: "
+        f"{gib(torch.cuda.memory_allocated())} allocated, "
+        f"{gib(torch.cuda.max_memory_allocated())} peak while made")
+    bias_gate(torch, params)
+    t_a = time.perf_counter()
+    out = {"contiguous": big_contiguous(torch, params, QWEN25, "phase 11 (a)",
+                                        BIG_ROWS)}
+    t_b = time.perf_counter()
+    out["f32"], *_ = paged_run(torch, params, fs, "phase 11 (b) paged f32",
+                               "paged_decode_attention", QWEN25, BIG_ROWS,
+                               prefix_cache=True)
+    # phase 10's preemption pool: 8 prompts and a page of growth each
+    infer_gates(torch, params, fs, QWEN25,
+                pool=8 * (-(-fs.prompt_len // PAGE_SIZE) + 1))
+    t_c = time.perf_counter()
+    out["int8"], _, _, texts = paged_run(torch, params, fs, "phase 11 (c) paged int8",
+                                         "quant_paged_decode_attention", QWEN25,
+                                         BIG_ROWS, kv_cache_dtype="int8")
+    require(len(texts) == BIG_ROWS and all(texts.values()),
+            "phase 11 (c): an empty text")
+    log(f"phase 11 walls: (a) {t_b - t_a:.1f} s, (b) {t_c - t_b:.1f} s, "
+        f"(c) {time.perf_counter() - t_c:.1f} s; "
+        f"{gib(torch.cuda.max_memory_allocated())} peak allocated")
+    return out
+
+
+# -- phase 12: the hybrid family -----------------------------------------------------
+
+#: phase 12's layer gates: one shared-block application and one Mamba2 layer
+#: of the full-width weights over a prompt of phase 3's full length, with
+#: the kernels against the same code with their plain versions, both bf16:
+#: 2^-6 of the value plus 2^-6 of the row's largest (the kernels' own gates
+#: allow 2^-7 before a projection sums thousands of their outputs); the
+#: input's seed
+HYBRID_LAYER_TOL = 2.0**-6
+HYBRID_LAYER_SEED = 12
+
+
+def hybrid_layer_gate(torch, params, n_tok: int) -> None:
+    """Phase 12 (d): application 0 of the shared block and Mamba2 layer 0
+    over ``n_tok`` bf16 hidden states sharing one direction, through the
+    prefill and SSD kernels against the same layers through the kernels'
+    plain versions (``flash_attention_ref``, ``ssd_chunked``) on the card;
+    the Mamba2 layer's final state too."""
+    import repro_torch.models.attention as attn_mod
+    import repro_torch.models.ssm as ssm_mod
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.models import HybridLM, layers
+
+    cfg = get_config(ZAMBA)
+    model = HybridLM(cfg)
+    g = torch.Generator(device="cuda").manual_seed(HYBRID_LAYER_SEED)
+    x = (torch.randn((1, n_tok, cfg.d_model), generator=g, device="cuda")
+         + 2.0 * torch.randn((cfg.d_model,), generator=g, device="cuda"))
+    x = x.to(torch.bfloat16)
+    rope = layers.rope_cos_sin(torch.arange(n_tok, device="cuda")[None, :],
+                               cfg.head_dim, cfg.rope_theta)
+    kv = torch.zeros((2, 1, n_tok, cfg.n_kv_heads, cfg.head_dim), device="cuda")
+    mixer = {k: v[0, 0] for k, v in params["groups"]["mixer"].items()}
+    ln = params["groups"]["ln"][0, 0]
+    conv = torch.zeros((cfg.ssm_conv - 1, cfg.d_inner + 2 * cfg.ssm_state),
+                       device="cuda")
+    state = torch.zeros((cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state),
+                        device="cuda")
+
+    def run():
+        block = model.shared_block(params, 0, x, lambda pa, h: attn_mod.gqa_prefill(
+            pa, cfg, h, kv[0], kv[1], 0, rope))
+        y = ssm_mod.mamba2_prefill(mixer, cfg, layers.rms_norm(ln, x, cfg.norm_eps),
+                                   conv, state)
+        return block, y, state.clone()
+
+    got = run()
+    flash, scan = attn_mod.flash_attention_bshd, ssm_mod.ssd_apply
+    attn_mod.flash_attention_bshd = lambda q, k, v, q_offset=0: flash_attention_ref(
+        q, k, v, q_offset=q_offset)
+    ssm_mod.ssd_apply = lambda *a, chunk: ssm_mod.ssd_chunked(*a, chunk)
+    try:
+        want = run()
+    finally:
+        attn_mod.flash_attention_bshd, ssm_mod.ssd_apply = flash, scan
+    torch.cuda.synchronize()
+    ratios = []
+    for name, a, b in zip(("shared block", "Mamba2 layer", "Mamba2 state"), got, want):
+        err, ratio = rowwise(torch, a, b, HYBRID_LAYER_TOL, HYBRID_LAYER_TOL)
+        require(ratio <= 1.0, f"phase 12 (d) {name}: error/allowance {ratio:.3g}")
+        ratios.append(f"{name} err {err:.3g} (ratio {ratio:.3g})")
+    log(f"phase 12 (d): application 0 of the shared block and Mamba2 layer 0 over "
+        f"{n_tok} tokens, kernels against plain versions: " + "; ".join(ratios))
+
+
+def zamba_phase(torch, fs) -> dict[str, int]:
+    """Phase 12, the hybrid family, after phase 11 has freed its weights:
+    full-width zamba2-7b (81 Mamba2 layers, the shared block after every
+    6th: 13 applications and a tail of 3) with random bf16 weights (seed 0).
+    (a) ``run_task`` over ``BIG_ROWS`` of phase 3's few-shot prompts on the
+    contiguous cache: kernel 1 launched 13 times a prompt, kernel 8 81
+    times, kernel 2 13 times a decode step, exactly; (b) phase 4's gates:
+    batch invariance, a reused slot, the prefill-to-decode hand-off; (c) a
+    paged cache refused; (d) one shared-block application and one Mamba2
+    layer against their plain versions.  Returns (a)'s launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import EvalSession, InferenceRequest, TorchLocalEngine
+    from repro_torch.data import iter_qa_examples, render
+    from repro_torch.models import init_params
+
+    cfg = get_config(ZAMBA)
+    apps = cfg.n_layers // cfg.shared_attn_every
+    log(f"phase 12: {gib(torch.cuda.memory_allocated())} allocated before the weights")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"phase 12 weights on the card in {time.perf_counter() - t0:.3f} s: "
+        f"{gib(torch.cuda.memory_allocated())} allocated, "
+        f"{gib(torch.cuda.max_memory_allocated())} peak while made")
+    task = make_task(fs.template, model_name=ZAMBA)
+    engine_kwargs = {"n_slots": N_SLOTS, "max_len": MAX_LEN, "params": params}
+    t_a = time.perf_counter()
+    with EvalSession(device="cuda", engine_kwargs=engine_kwargs) as session:
+        engine = session.engine_for(task.model, task.inference)
+        with Probe() as probe:
+            launches, st, *_ = timed_run_task(
+                torch, session, task,
+                ("flash_attention", "decode_attention", "ssd", "bootstrap_partials"),
+                "phase 12 (a) hybrid path", n_rows=BIG_ROWS)
+        want = {"flash_attention": apps * st["admissions"],
+                "ssd": cfg.n_layers * st["admissions"],
+                "decode_attention": apps * st["steps"]}
+        got = {k: launches[k] for k in want}
+        require(st["admissions"] == BIG_ROWS and got == want,
+                f"phase 12 (a): {st['admissions']} prefills, {st['steps']} decode "
+                f"steps, launches {got}, not {want}")
+        require(int(probe.bad) == 0, "phase 12 (a): logits hold NaN or inf")
+        b = engine.batcher
+        slot = [b.cache.kv.k[:, 0], b.cache.kv.v[:, 0], b.cache.ssm.conv[:, 0],
+                b.cache.ssm.state[:, 0]]
+        log(f"phase 12 (a): launches {got} = {apps} and {cfg.n_layers} a prefill "
+            f"x {st['admissions']}, {apps} a decode step x {st['steps']}; state "
+            f"bytes per slot {sum(t.numel() for t in slot) * 4} (KV rows "
+            f"{(slot[0].numel() + slot[1].numel()) * 4}); "
+            f"{gib(torch.cuda.max_memory_allocated())} peak allocated")
+
+        t_b = time.perf_counter()
+        rows = list(iter_qa_examples(N_SLOTS, seed=0))
+        reqs = [InferenceRequest(render(fs.template, r), MAX_TOKENS) for r in rows]
+        full = engine.infer_batch(reqs)
+        alone = engine.infer_batch(reqs[:1])
+        require(full[0].text == alone[0].text
+                and full[0].output_tokens == alone[0].output_tokens,
+                f"phase 12: batch-dependent tokens: {full[0].text!r} vs "
+                f"{alone[0].text!r}")
+        log(f"phase 12 batch invariance: prompt 0 gives {alone[0].output_tokens} "
+            f"identical tokens alone and among {N_SLOTS} slots")
+        short = InferenceRequest("", MAX_TOKENS)
+        (reused,) = engine.infer_batch([short])
+        fresh_engine = TorchLocalEngine(task.model, n_slots=N_SLOTS, max_len=MAX_LEN,
+                                        device="cuda", params=params)
+        fresh_engine.initialize()
+        fresh_engine._tokenizer = engine._tokenizer
+        (fresh,) = fresh_engine.infer_batch([short])
+        require(reused.input_tokens == 1 and reused.text == fresh.text
+                and reused.output_tokens == fresh.output_tokens,
+                f"phase 12 reused slot: {reused.text!r} vs fresh engine {fresh.text!r}")
+        fresh_engine.shutdown()
+        del fresh_engine
+        free_cuda(torch)
+        log(f"phase 12 slot reuse: a 1-token prompt in a slot that held a "
+            f"{fs.prompt_len}-token prompt gives the fresh engine's "
+            f"{fresh.output_tokens} tokens")
+        prompt = engine._tokenizer.encode(render(fs.template, rows[0]))
+        for length in (len(prompt), 2):
+            handoff_gate(torch, b, prompt, length)
+        toks = torch.tensor([prompt], device="cuda")
+        step_breakdown(torch, f"phase 12 prefill ({len(prompt)} tokens into slot 0)",
+                       lambda: b.model.prefill(b.params, toks, b.cache, 0),
+                       kernel="flash")
+        nxt = torch.full((N_SLOTS, 1), 7, dtype=torch.int64, device="cuda")
+        pos = torch.full((N_SLOTS,), len(prompt), dtype=torch.int64, device="cuda")
+        step_breakdown(torch, f"phase 12 decode step (batch {N_SLOTS}, positions "
+                       f"{len(prompt)})",
+                       lambda: b.model.decode_step(b.params, nxt, b.cache, pos),
+                       kernel=DEVICE_KERNEL["decode_attention"])
+        log(f"phase 12 {serving_clean(session, 'phase 12')}")
+    free_cuda(torch)
+
+    t_c = time.perf_counter()
+    paged = TorchLocalEngine(task.model, n_slots=N_SLOTS, max_len=MAX_LEN,
+                             device="cuda", params=params, kv_page_size=PAGE_SIZE)
+    try:
+        paged.initialize()
+    except ValueError as e:
+        require("not hybrid" in str(e), f"phase 12 (c): another error: {e}")
+        log(f"phase 12 (c): a paged engine raises the reference's error: {e}")
+    else:
+        raise CheckFailed("phase 12 (c): a paged hybrid engine was built")
+    t_d = time.perf_counter()
+    hybrid_layer_gate(torch, params, fs.prompt_len)
+    log(f"phase 12 walls: (a) {t_b - t_a:.1f} s, (b) {t_c - t_b:.1f} s, "
+        f"(c) {t_d - t_c:.1f} s, (d) {time.perf_counter() - t_d:.1f} s; "
+        f"{gib(torch.cuda.max_memory_allocated())} peak allocated")
+    return launches
 
 
 def main() -> int:
@@ -3221,6 +3552,8 @@ def main() -> int:
         timed("phase 9", fabric_phase, torch, yard)
         del yard
         moe_runs = timed("phase 10", moe_phase, torch, fs)
+        qwen25_runs = timed("phase 11", qwen25_phase, torch, fs)
+        hybrid = timed("phase 12", zamba_phase, torch, fs)
     except CheckFailed as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -3235,9 +3568,13 @@ def main() -> int:
                 "ssd": mamba["ssd"],
                 "bertscore_pr": metrics["bertscore_pr"],
                 "bootstrap_means": metrics["bootstrap_means"]}
-    # and phase 10's runs on the MoE model, for the four attention kernels
+    # and phase 10's runs on the MoE model and phase 11's on qwen2.5-32b, for
+    # the four attention kernels; phase 12's on zamba2-7b for kernels 1, 2, 8
     for name in MOE_KERNELS:
-        launches[name] += sum(run[name] for run in moe_runs.values())
+        launches[name] += sum(run[name] for run in (*moe_runs.values(),
+                                                    *qwen25_runs.values()))
+    for name in ("flash_attention", "decode_attention", "ssd"):
+        launches[name] += hybrid[name]
     for e in entries:
         e["launches"] = launches[e["name"]]
     for e in entries:
@@ -3246,7 +3583,7 @@ def main() -> int:
                 print(f"chip_smoke: FAIL: {e['name']} {key} = {e[key]}",
                       file=sys.stderr)
                 return 1
-    log(f"phases 1-10 took {time.perf_counter() - t_start:.1f} s after the build")
+    log(f"phases 1-12 took {time.perf_counter() - t_start:.1f} s after the build")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

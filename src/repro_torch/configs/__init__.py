@@ -6,11 +6,17 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.mamba2_27b import CONFIG as MAMBA2_27B
 from repro_torch.configs.qwen3_4b import CONFIG as QWEN3_4B
 from repro_torch.configs.qwen3_moe_30b_a3b import CONFIG as QWEN3_MOE_30B_A3B
+from repro_torch.configs.qwen15_110b import CONFIG as QWEN15_110B
+from repro_torch.configs.qwen25_32b import CONFIG as QWEN25_32B
+from repro_torch.configs.zamba2_7b import CONFIG as ZAMBA2_7B
 
 ARCHS: dict[str, ModelConfig] = {
     QWEN3_4B.name: QWEN3_4B,
     MAMBA2_27B.name: MAMBA2_27B,
     QWEN3_MOE_30B_A3B.name: QWEN3_MOE_30B_A3B,
+    QWEN25_32B.name: QWEN25_32B,
+    QWEN15_110B.name: QWEN15_110B,
+    ZAMBA2_7B.name: ZAMBA2_7B,
 }
 
 

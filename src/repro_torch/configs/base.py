@@ -1,5 +1,6 @@
-"""Model configuration schema: the port's copy of the dense, MoE and SSM
-parts of ``repro/configs/base.py`` (the JAX package's ``ModelConfig``)."""
+"""Model configuration schema: the port's copy of the dense, MoE, SSM and
+hybrid parts of ``repro/configs/base.py`` (the JAX package's
+``ModelConfig``)."""
 
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ def _round_up(x: int, m: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | moe | ssm
+    family: str  # dense | moe | ssm | hybrid
 
     n_layers: int
     d_model: int
@@ -24,6 +25,7 @@ class ModelConfig:
     vocab_size: int
 
     head_dim: int = 0  # 0 -> d_model // n_heads
+    qkv_bias: bool = False
     qk_norm: bool = False
     tie_embeddings: bool = False
     norm_eps: float = 1e-6
@@ -45,6 +47,9 @@ class ModelConfig:
     ssm_head_dim: int = 64
     ssm_ngroups: int = 1
     ssm_chunk: int = 256
+
+    # --- hybrid (zamba2) ------------------------------------------------------
+    shared_attn_every: int = 0  # apply the shared attention block every N layers
 
     def __post_init__(self) -> None:
         if self.head_dim == 0 and self.n_heads:
@@ -78,8 +83,10 @@ class ModelConfig:
             d_ff=128,
             vocab_size=512,
         )
-        if self.family == "ssm":
+        if self.family in ("ssm", "hybrid"):
             kw.update(ssm_state=16, ssm_head_dim=16, ssm_chunk=16)
+        if self.family == "hybrid":
+            kw.update(n_layers=4, shared_attn_every=2)
         if self.n_experts:
             kw.update(n_experts=8, n_experts_per_token=2, moe_d_ff=64,
                       n_shared_experts=min(self.n_shared_experts, 1),

@@ -1,0 +1,19 @@
+"""qwen1.5-110b [dense] — 80L d_model=8192 64H (GQA kv=8) d_ff=49152
+vocab=152064, QKV bias [hf:Qwen/Qwen1.5 family].  220 GB of bf16
+weights: more than one 80 GB card holds, so the port runs it reduced."""
+
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen1.5-110b",
+    family="dense",
+    n_layers=80,
+    d_model=8192,
+    n_heads=64,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=49_152,
+    vocab_size=152_064,
+    qkv_bias=True,
+    rope_theta=1_000_000.0,
+)

@@ -8,6 +8,11 @@
 // split_decode.cuh, shared with the paged kernel (paged_decode_attention.cu),
 // with position p of sequence b at row b * k_sb + p * k_ss + kh * k_sh.
 //
+// Head widths 128 (qwen3, qwen2.5, the MoE family) and 112 (zamba2's
+// shared attention block, which runs G = 1: 32 query heads over 32 KV
+// heads).  G = 1 takes the GM = 4 instantiation, whose query rows 1-3 are
+// idle: their registers and FMAs are spent for nothing (not tuned yet).
+//
 // Inputs: q (B, 1, H, d) bf16, cache (B, S, K, d) f32 (the serving cache
 // holds bf16-rounded values in f32, as the JAX package's does), lengths (B,)
 // int32 in [1, S].  Output (B, 1, H, d) bf16.  Scores, softmax and the P V
@@ -32,7 +37,7 @@ using split_decode::Args;
 
 // q (B, 1, H, d) bf16; k_cache and v_cache (B, S, K, d) f32 with 16-byte
 // aligned rows; lengths (B,) int32 in [1, S]; out (B, 1, H, d) bf16; d =
-// 128, unit stride on d everywhere.  strides[10] = q (batch, head), k
+// 128 or 112, unit stride on d everywhere.  strides[10] = q (batch, head), k
 // (batch, seq, head), v (batch, seq, head), out (batch, head), in
 // elements.  scratch: at least B * K * ceil(S / span) * G * (d + 2) f32,
 // 16-byte aligned; arrivals: at least B * K uint32, zero (the kernel leaves
@@ -59,27 +64,38 @@ extern "C" int repro_decode_attention_f32cache(
   a.v_s0 = st[5]; a.v_s1 = st[6]; a.v_s2 = st[7];
   a.o_sb = st[8]; a.o_sh = st[9];
   a.scale = scale;
-  return split_decode::launch<false>(a, batch, n_heads, head_dim, scratch,
-                                     scratch_floats, arrivals, n_arrivals, stream);
+  return head_dim == 112
+             ? split_decode::launch<false, 112>(a, batch, n_heads, head_dim, scratch,
+                                                scratch_floats, arrivals, n_arrivals,
+                                                stream)
+             : split_decode::launch<false, 128>(a, batch, n_heads, head_dim, scratch,
+                                                scratch_floats, arrivals, n_arrivals,
+                                                stream);
 }
 
 // Registers, local (spill) bytes a thread, shared memory a block and
 // resident blocks an SM of the split kernel `which`, as the runtime
 // reports them: 0 and 1 the contiguous kernel for G <= 4 and G <= 8, 2 and
-// 3 the paged kernel's.
+// 3 the paged kernel's, 4 and 5 the contiguous kernel's at d = 112.
 extern "C" int repro_decode_kernel_info(int which, int* regs, int* local_bytes,
                                         int* smem_bytes, int* blocks_per_sm) {
   switch (which) {
     case 0:
-      return split_decode::kernel_info<false, 4>(regs, local_bytes, smem_bytes,
-                                                 blocks_per_sm);
+      return split_decode::kernel_info<false, 4, 128>(regs, local_bytes, smem_bytes,
+                                                      blocks_per_sm);
     case 1:
-      return split_decode::kernel_info<false, 8>(regs, local_bytes, smem_bytes,
-                                                 blocks_per_sm);
+      return split_decode::kernel_info<false, 8, 128>(regs, local_bytes, smem_bytes,
+                                                      blocks_per_sm);
     case 2:
     case 3:
       return repro_paged_decode_kernel_info(which == 3, regs, local_bytes,
                                             smem_bytes, blocks_per_sm);
+    case 4:
+      return split_decode::kernel_info<false, 4, 112>(regs, local_bytes, smem_bytes,
+                                                      blocks_per_sm);
+    case 5:
+      return split_decode::kernel_info<false, 8, 112>(regs, local_bytes, smem_bytes,
+                                                      blocks_per_sm);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

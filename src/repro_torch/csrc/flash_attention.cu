@@ -48,6 +48,14 @@
 // depend on its tile, on Sq, or on whether it was prefilled in full or as a
 // suffix after a prefix-cache hit.
 //
+// Head widths 128 (qwen3, qwen2.5) and 112 (zamba2).  Shared memory is laid
+// out for 128 columns either way: at d = 112 the tensor maps' inner extent
+// is 112, so the second 64-column box of each row is filled with zeros
+// past column 111 by the hardware; Q K^T takes 7 k16 steps instead of 8,
+// the zero columns of V make output columns 112-127 zero, and the store
+// writes 14 16-byte chunks a row instead of 16.  The d = 128 instantiation
+// is the code it was.
+//
 // Numerics: bf16 operands, f32 accumulation and softmax.  The unnormalised
 // probabilities are rounded to bf16 for P V and the row sum adds those
 // same rounded values, so the final division normalises exactly what was
@@ -61,7 +69,7 @@
 
 namespace {
 
-constexpr int D = 128;             // head_dim (qwen3-4b)
+constexpr int D = 128;             // columns of a shared-memory row (the widest head)
 constexpr int WG_ROWS = 64;        // query rows per consumer warpgroup
 constexpr int BN = 128;            // keys per tile
 constexpr int NSTAGE = 2;          // K/V ring depth
@@ -230,7 +238,7 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], uint32_t a0,
 // column 8j + 2 * (lane % 4) + (e & 1).  The A fragment of one k16 step of
 // P V is the same pattern over 16 columns, so S's elements 8k .. 8k + 7
 // packed in pairs are exactly P's registers for keys 16k .. 16k + 15.
-template <int NWG>
+template <int NWG, int DH>
 __global__ void __launch_bounds__(NWG * 128 + 32, 1)
 flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
@@ -323,11 +331,11 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
     const uint32_t parity = (j / NSTAGE) & 1;
     mbar_wait(bar_k + 8 * s, parity);
     if (j < wg_tiles) {
-      // S = Q K^T: 8 k16 steps over d, 4 in each 64-column half
+      // S = Q K^T: DH / 16 k16 steps over d, 4 in the first 64-column half
       const uint32_t k_sm = base + L::k + s * KV_TILE;
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < DH / 16; ++kk) {
         const uint32_t off = (kk % 4) * 32;  // 16 columns = 32 bytes
         wgmma_ss_n128(sacc,
                       sw128_desc(q_sm + (kk / 4) * Q_HALF + off, 16, 1024),
@@ -412,7 +420,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
   uint8_t* stage = smem + L::q + wg * 2 * Q_HALF;
   wg_sync(wg);  // every warp of this warpgroup is done reading Q
 #pragma unroll
-  for (int jn = 0; jn < D / 8; ++jn) {
+  for (int jn = 0; jn < DH / 8; ++jn) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int r = r0 + 8 * e;
@@ -424,8 +432,8 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
   }
   wg_sync(wg);
-  for (int idx = t; idx < WG_ROWS * (D / 8); idx += 128) {
-    const int r = idx / (D / 8), c = idx % (D / 8);
+  for (int idx = t; idx < WG_ROWS * (DH / 8); idx += 128) {
+    const int r = idx / (DH / 8), c = idx % (DH / 8);
     const int qrow = row0 + r;
     if (qrow < sq)
       *reinterpret_cast<uint4*>(o + b * o_sb + qrow * o_ss + h * o_sh + c * 8) =
@@ -462,14 +470,14 @@ EncodeTiled encode_tiled() {
 
 // A (batch, seq, heads, d) bf16 view with unit stride on d as a 4-D tensor
 // map (d, seq, heads, batch) whose box is 64 columns by `rows` rows, in the
-// 128-byte swizzle.  Strides are in elements; a dimension of size 1 gets a
+// 128-byte swizzle; columns from d to 127 of a box read as zeros.  Strides are in elements; a dimension of size 1 gets a
 // stride that TMA accepts, since it is never stepped.
 struct MapKey {
   const void* ptr;
-  int batch, seq, heads, rows;
+  int dim, batch, seq, heads, rows;
   int64_t s_b, s_s, s_h;
   bool operator==(const MapKey& o) const {
-    return ptr == o.ptr && batch == o.batch && seq == o.seq &&
+    return ptr == o.ptr && dim == o.dim && batch == o.batch && seq == o.seq &&
            heads == o.heads && rows == o.rows && s_b == o.s_b &&
            s_s == o.s_s && s_h == o.s_h;
   }
@@ -480,7 +488,7 @@ bool encode_map(CUtensorMap* map, const MapKey& key) {
   if (encode == nullptr) return false;
   int64_t s_h = key.heads == 1 ? key.s_s * key.seq : key.s_h;
   int64_t s_b = key.batch == 1 ? s_h * key.heads : key.s_b;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(key.dim),
                               static_cast<cuuint64_t>(key.seq),
                               static_cast<cuuint64_t>(key.heads),
                               static_cast<cuuint64_t>(key.batch)};
@@ -507,9 +515,9 @@ struct MapCache {
 };
 thread_local MapCache map_cache;
 
-bool make_map(CUtensorMap* map, const void* ptr, int batch, int seq, int heads,
-              int64_t s_b, int64_t s_s, int64_t s_h, int rows) {
-  const MapKey key{ptr, batch, seq, heads, rows, s_b, s_s, s_h};
+bool make_map(CUtensorMap* map, const void* ptr, int dim, int batch, int seq,
+              int heads, int64_t s_b, int64_t s_s, int64_t s_h, int rows) {
+  const MapKey key{ptr, dim, batch, seq, heads, rows, s_b, s_s, s_h};
   MapCache& c = map_cache;
   for (int i = 0; i < c.size; ++i) {
     if (c.key[i] == key) {
@@ -525,7 +533,7 @@ bool make_map(CUtensorMap* map, const void* ptr, int batch, int seq, int heads,
   return true;
 }
 
-template <int NWG>
+template <int NWG, int DH>
 cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
                    const CUtensorMap& tv, void* o, int batch, int sq, int sk,
                    int n_heads, int group, const int64_t* st, int q_offset,
@@ -533,14 +541,14 @@ cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_prefill_kernel<NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_prefill_kernel<NWG, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         Smem<NWG>::bytes);
     if (err != cudaSuccess) return err;
     configured = true;
   }
   const int n_qtiles = (sq + NWG * WG_ROWS - 1) / (NWG * WG_ROWS);
   const dim3 grid(n_heads * batch, n_qtiles);
-  flash_prefill_kernel<NWG><<<grid, NWG * 128 + 32, Smem<NWG>::bytes, stream>>>(
+  flash_prefill_kernel<NWG, DH><<<grid, NWG * 128 + 32, Smem<NWG>::bytes, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), sq, sk, n_heads, group,
       n_qtiles, st[9], st[10], st[11], q_offset, scale_log2);
   return cudaGetLastError();
@@ -548,19 +556,20 @@ cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
 
 }  // namespace
 
-// What limits the kernel with `warpgroups` consumer warpgroups (1 or 2):
-// registers a thread, local (stack and spill) bytes a thread, dynamic
-// shared memory a block, and blocks resident on one SM.  Returns the
-// queries' cudaError_t.
-extern "C" int repro_flash_kernel_info(int warpgroups, int* regs,
+// What limits the kernel with `which` consumer warpgroups at d = 128 (1 or
+// 2), or `which - 2` at d = 112 (3 or 4): registers a thread, local (stack
+// and spill) bytes a thread, dynamic shared memory a block, and blocks
+// resident on one SM.  Returns the queries' cudaError_t.
+extern "C" int repro_flash_kernel_info(int which, int* regs,
                                        int* local_bytes, int* smem_bytes,
                                        int* blocks_per_sm) {
-  if (warpgroups != 1 && warpgroups != 2)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const void* fn =
-      warpgroups == 1
-          ? reinterpret_cast<const void*>(flash_prefill_kernel<1>)
-          : reinterpret_cast<const void*>(flash_prefill_kernel<2>);
+  const void* fns[4] = {reinterpret_cast<const void*>(flash_prefill_kernel<1, 128>),
+                        reinterpret_cast<const void*>(flash_prefill_kernel<2, 128>),
+                        reinterpret_cast<const void*>(flash_prefill_kernel<1, 112>),
+                        reinterpret_cast<const void*>(flash_prefill_kernel<2, 112>)};
+  if (which < 1 || which > 4) return static_cast<int>(cudaErrorInvalidValue);
+  const int warpgroups = (which - 1) % 2 + 1;
+  const void* fn = fns[which - 1];
   const int smem = warpgroups == 1 ? Smem<1>::bytes : Smem<2>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -576,8 +585,8 @@ extern "C" int repro_flash_kernel_info(int warpgroups, int* regs,
   return static_cast<int>(cudaSuccess);
 }
 
-// q (B, Sq, H, d), k and v (B, Sk, K, d), o (B, Sq, H, d): bf16, d = 128,
-// unit stride on d, 16-byte aligned rows.  strides[12] holds the (batch,
+// q (B, Sq, H, d), k and v (B, Sk, K, d), o (B, Sq, H, d): bf16, d = 128
+// or 112, unit stride on d, 16-byte aligned rows.  strides[12] holds the (batch,
 // seq, head) strides of q, k, v, o in elements.  Returns the launch's
 // cudaError_t.
 extern "C" int repro_flash_prefill_bf16(const void* q, const void* k,
@@ -587,21 +596,26 @@ extern "C" int repro_flash_prefill_bf16(const void* q, const void* k,
                                         const int64_t* strides, int q_offset,
                                         float scale, void* stream) {
   if (batch <= 0 || sq <= 0 || sk <= 0 || n_kv_heads <= 0 ||
-      n_heads % n_kv_heads != 0 || q_offset < 0 || head_dim != D)
+      n_heads % n_kv_heads != 0 || q_offset < 0 ||
+      (head_dim != 128 && head_dim != 112))
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t* st = strides;
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, batch, sq, n_heads, st[0], st[1], st[2], WG_ROWS) ||
-      !make_map(&tk, k, batch, sk, n_kv_heads, st[3], st[4], st[5], BN) ||
-      !make_map(&tv, v, batch, sk, n_kv_heads, st[6], st[7], st[8], BN))
+  if (!make_map(&tq, q, head_dim, batch, sq, n_heads, st[0], st[1], st[2],
+                WG_ROWS) ||
+      !make_map(&tk, k, head_dim, batch, sk, n_kv_heads, st[3], st[4], st[5], BN) ||
+      !make_map(&tv, v, head_dim, batch, sk, n_kv_heads, st[6], st[7], st[8], BN))
     return static_cast<int>(cudaErrorInvalidValue);
   const int group = n_heads / n_kv_heads;
   const float scale_log2 = scale * LOG2E;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define REPRO_FLASH_LAUNCH(NWG, DH)                                             \
+  launch<NWG, DH>(tq, tk, tv, o, batch, sq, sk, n_heads, group, st, q_offset, \
+                  scale_log2, s)
   const cudaError_t err =
-      sq > WG_ROWS ? launch<2>(tq, tk, tv, o, batch, sq, sk, n_heads, group, st,
-                               q_offset, scale_log2, s)
-                   : launch<1>(tq, tk, tv, o, batch, sq, sk, n_heads, group, st,
-                               q_offset, scale_log2, s);
+      head_dim == 128
+          ? (sq > WG_ROWS ? REPRO_FLASH_LAUNCH(2, 128) : REPRO_FLASH_LAUNCH(1, 128))
+          : (sq > WG_ROWS ? REPRO_FLASH_LAUNCH(2, 112) : REPRO_FLASH_LAUNCH(1, 112));
+#undef REPRO_FLASH_LAUNCH
   return static_cast<int>(err);
 }

@@ -72,7 +72,7 @@ extern "C" int repro_paged_decode_attention_f32(
   a.v_s0 = st[5]; a.v_s1 = st[6]; a.v_s2 = st[7];
   a.o_sb = st[8]; a.o_sh = st[9];
   a.scale = scale;
-  return split_decode::launch<true>(a, batch, n_heads, head_dim, scratch,
+  return split_decode::launch<true, 128>(a, batch, n_heads, head_dim, scratch,
                                     scratch_floats, arrivals, n_arrivals, stream);
 }
 
@@ -80,8 +80,8 @@ extern "C" int repro_paged_decode_attention_f32(
 // 4, or for G <= 8 where gm8 is non-zero.
 extern "C" int repro_paged_decode_kernel_info(int gm8, int* regs, int* local_bytes,
                                               int* smem_bytes, int* blocks_per_sm) {
-  return gm8 ? split_decode::kernel_info<true, 8>(regs, local_bytes, smem_bytes,
+  return gm8 ? split_decode::kernel_info<true, 8, 128>(regs, local_bytes, smem_bytes,
                                                   blocks_per_sm)
-             : split_decode::kernel_info<true, 4>(regs, local_bytes, smem_bytes,
+             : split_decode::kernel_info<true, 4, 128>(regs, local_bytes, smem_bytes,
                                                   blocks_per_sm);
 }

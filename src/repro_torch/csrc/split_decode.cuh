@@ -35,6 +35,12 @@
 // and its gap to every decode call, also where each sequence has one span
 // (the contiguous main path's lengths 11..45).
 //
+// Head widths D = 128 and (the contiguous kernel only) 112.  A row is D / 4
+// float4s: at D = 112, lanes 28-31 own no column of a row and threads
+// 112-127 no output column, so they copy, score, sum and store nothing;
+// every such test is on the template's D and folds away at D = 128, whose
+// instantiations are the code they were.
+//
 // SPAN is a constant, never derived from S, the batch, the occupancy or
 // the page size, and the tile order and every reduction order depend on
 // positions alone.  The two kernels differ only in how a position becomes
@@ -56,7 +62,6 @@
 namespace split_decode {
 namespace {
 
-constexpr int D = 128;           // head_dim (qwen3-4b)
 constexpr int SPAN = 128;        // positions a block; a constant (above)
 constexpr int NTHREADS = 128;
 constexpr int NWARPS = NTHREADS / 32;
@@ -64,10 +69,12 @@ constexpr int WARP_ROWS = SPAN / NWARPS;       // a warp's rows of the span
 constexpr int NGROUP = 4;                      // cp.async groups a warp
 constexpr int GROUP_ROWS = WARP_ROWS / NGROUP;
 constexpr int MAXG = 8;                        // query heads per KV head
-constexpr int SMEM_BYTES = SPAN * D * 4;       // K rows, then V rows (dynamic)
-static_assert(WARP_ROWS <= 32 && D == NTHREADS && D == 4 * 32 && NGROUP <= 4,
-              "a lane's row offset, a thread's column, a lane's float4 of a "
-              "row, cp_async_wait_dyn's range");
+static_assert(WARP_ROWS <= 32 && NGROUP <= 4,
+              "a lane's row offset, cp_async_wait_dyn's range");
+
+// Dynamic shared memory of a D-wide instantiation: K rows, then V rows.
+template <int D>
+constexpr int SMEM_BYTES = SPAN * D * 4;
 
 struct Args {
   const __nv_bfloat16* q;  // (B, 1, H, d)
@@ -127,11 +134,16 @@ __device__ __forceinline__ void row_offsets(const Args& a, int b, int kh, int po
   *vo = i0 * a.v_s0 + i1 * a.v_s1 + kh * a.v_s2;
 }
 
-// GM: the most query heads per KV head it serves (4 or 8).
-template <bool PAGED, int GM>
+// GM: the most query heads per KV head it serves (4 or 8); D: the head
+// width (128 or 112).
+template <bool PAGED, int GM, int D>
 __global__ void __launch_bounds__(NTHREADS, 3) split_kernel(const Args a) {
+  static_assert(D <= NTHREADS && D <= 4 * 32 && D % 16 == 0,
+                "a thread's column, a lane's float4 of a row");
+  constexpr bool FULL = D == NTHREADS;   // every thread and lane has columns
+  constexpr int NCH = D / 4;             // float4s a row
   constexpr int LPR = GM <= 4 ? 8 : 16;  // lanes a row in the scores
-  constexpr int EPL = D / LPR;           // d elements a lane: EPL / 4 float4
+  constexpr int CPL = 32 / LPR;          // float4s a lane of a full row
   constexpr int RPI = 32 / LPR;          // rows a warp scores at once
   extern __shared__ __align__(16) float s_kv[];  // [SPAN][D]
   __shared__ __align__(16) float s_p[SPAN][GM];  // scores, then probabilities
@@ -142,6 +154,8 @@ __global__ void __launch_bounds__(NTHREADS, 3) split_kernel(const Args a) {
 
   const int sp = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const bool col = FULL || tid < D;         // this thread's output column
+  const bool lane_col = FULL || lane < NCH;  // this lane's float4 of a row
   const int group = a.group;
   const int p0 = sp * SPAN;
   // this warp's i-th row of the span: rows are dealt to the warps in turn,
@@ -153,7 +167,7 @@ __global__ void __launch_bounds__(NTHREADS, 3) split_kernel(const Args a) {
   __nv_bfloat16 qraw[GM];
 #pragma unroll
   for (int g = 0; g < GM; ++g)
-    if (g < group) qraw[g] = a.q[b * a.q_sb + (kh * group + g) * a.q_sh + tid];
+    if (g < group && col) qraw[g] = a.q[b * a.q_sb + (kh * group + g) * a.q_sh + tid];
   int64_t ko, vo;
   row_offsets<PAGED>(a, b, kh, min(p0 + row(lane), a.limit - 1), &ko, &vo);
 
@@ -161,7 +175,7 @@ __global__ void __launch_bounds__(NTHREADS, 3) split_kernel(const Args a) {
   __nv_bfloat16* out = a.out + b * a.o_sb + kh * group * a.o_sh;
   if (p0 >= len) {  // past this sequence: the whole block, no barrier yet
     if (sp == 0)    // no visible position at all
-      for (int g = 0; g < group; ++g) out[g * a.o_sh + tid] = __float2bfloat16(0.f);
+      for (int g = 0; g < group && col; ++g) out[g * a.o_sh + tid] = __float2bfloat16(0.f);
     return;
   }
   const int nrow = min(SPAN, len - p0);
@@ -176,24 +190,26 @@ __global__ void __launch_bounds__(NTHREADS, 3) split_kernel(const Args a) {
       for (int i = 0; i < GROUP_ROWS; ++i) {
         const int64_t off = __shfl_sync(0xffffffffu, ko, GROUP_ROWS * c + i);
         const int r = row(GROUP_ROWS * c + i);
-        if (r < nrow) cp_async16(s_kv + r * D + 4 * lane, a.k + off + 4 * lane);
+        if (r < nrow && lane_col) cp_async16(s_kv + r * D + 4 * lane, a.k + off + 4 * lane);
       }
     }
     cp_async_commit();
   }
 
   // a lane's share of every head's query: float4 chunks sl, sl + LPR, ...
+  // (those past the row's NCH are zero and never scored)
 #pragma unroll
   for (int g = 0; g < GM; ++g)
-    if (g < group) s_q[g][tid] = __bfloat162float(qraw[g]);
+    if (g < group && col) s_q[g][tid] = __bfloat162float(qraw[g]);
   __syncthreads();
   const int sl = lane % LPR;
-  float qf[GM][EPL];
+  auto has_chunk = [sl](int e4) { return FULL || sl + LPR * e4 < NCH; };
+  float qf[GM][4 * CPL];
 #pragma unroll
   for (int g = 0; g < GM; ++g)
 #pragma unroll
-    for (int e4 = 0; e4 < EPL / 4; ++e4) {
-      const float4 q4 = g < group
+    for (int e4 = 0; e4 < CPL; ++e4) {
+      const float4 q4 = g < group && has_chunk(e4)
                             ? *reinterpret_cast<const float4*>(&s_q[g][4 * (sl + LPR * e4)])
                             : make_float4(0.f, 0.f, 0.f, 0.f);
       qf[g][4 * e4] = q4.x; qf[g][4 * e4 + 1] = q4.y;
@@ -219,7 +235,8 @@ __global__ void __launch_bounds__(NTHREADS, 3) split_kernel(const Args a) {
       if (r < nrow) {
         const float* kr = s_kv + r * D;
 #pragma unroll
-        for (int e4 = 0; e4 < EPL / 4; ++e4) {
+        for (int e4 = 0; e4 < CPL; ++e4) {
+          if (!has_chunk(e4)) break;
           const float4 k4 = *reinterpret_cast<const float4*>(kr + 4 * (sl + LPR * e4));
 #pragma unroll
           for (int g = 0; g < GM; ++g) {
@@ -246,7 +263,7 @@ __global__ void __launch_bounds__(NTHREADS, 3) split_kernel(const Args a) {
     for (int i = 0; i < GROUP_ROWS; ++i) {
       const int64_t off = __shfl_sync(0xffffffffu, vo, GROUP_ROWS * c + i);
       const int r = row(GROUP_ROWS * c + i);
-      if (r < nrow) cp_async16(s_kv + r * D + 4 * lane, a.v + off + 4 * lane);
+      if (r < nrow && lane_col) cp_async16(s_kv + r * D + 4 * lane, a.v + off + 4 * lane);
     }
     cp_async_commit();
   }
@@ -292,7 +309,8 @@ __global__ void __launch_bounds__(NTHREADS, 3) split_kernel(const Args a) {
     cp_async_wait_dyn(NGROUP - 1 - c);
     __syncwarp();
     // rows grow with i: the group's visible ones are i < iend
-    const int iend = min(GROUP_ROWS * (c + 1), (nrow - warp + NWARPS - 1) / NWARPS);
+    const int iend = !lane_col ? 0 : min(GROUP_ROWS * (c + 1),
+                                         (nrow - warp + NWARPS - 1) / NWARPS);
 #pragma unroll 4
     for (int i = GROUP_ROWS * c; i < iend; ++i) {
       const int r = row(i);
@@ -313,34 +331,36 @@ __global__ void __launch_bounds__(NTHREADS, 3) split_kernel(const Args a) {
     }
   }
   // the warps' sums, kept where the rows were, added in warp order
-  static_assert(NWARPS * MAXG * D * 4 <= SMEM_BYTES, "P V sums fit over the rows");
+  static_assert(NWARPS * MAXG * D * 4 <= SMEM_BYTES<D>, "P V sums fit over the rows");
   float (*s_acc)[GM][D] = reinterpret_cast<float (*)[GM][D]>(s_kv);
   __syncthreads();  // every warp is done with its V rows
 #pragma unroll
   for (int g = 0; g < GM; ++g)
-    *reinterpret_cast<float4*>(&s_acc[warp][g][4 * lane]) =
-        make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+    if (lane_col)
+      *reinterpret_cast<float4*>(&s_acc[warp][g][4 * lane]) =
+          make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
   __syncthreads();
   float o[GM];
 #pragma unroll
   for (int g = 0; g < GM; ++g) {
-    o[g] = s_acc[0][g][tid];
+    o[g] = col ? s_acc[0][g][tid] : 0.f;
 #pragma unroll
-    for (int w = 1; w < NWARPS; ++w) o[g] += s_acc[w][g][tid];
+    for (int w = 1; w < NWARPS; ++w) o[g] += col ? s_acc[w][g][tid] : 0.f;
   }
 
   const int ns = (len + SPAN - 1) / SPAN;
   if (ns == 1) {
 #pragma unroll
     for (int g = 0; g < GM; ++g)
-      if (g < group) out[g * a.o_sh + tid] = __float2bfloat16(o[g] / fmaxf(s_l[g], 1e-37f));
+      if (g < group && col)
+        out[g * a.o_sh + tid] = __float2bfloat16(o[g] / fmaxf(s_l[g], 1e-37f));
     return;
   }
   const int64_t seq = static_cast<int64_t>(b) * a.n_kv + kh;
   const int64_t pbase = (seq * a.n_span + sp) * group;  // partial (sp, g) at row pbase + g
 #pragma unroll
   for (int g = 0; g < GM; ++g)
-    if (g < group) a.part_acc[(pbase + g) * D + tid] = o[g];
+    if (g < group && col) a.part_acc[(pbase + g) * D + tid] = o[g];
   if (tid < group)
     *reinterpret_cast<float2*>(a.part_ml + 2 * (pbase + tid)) = make_float2(s_m[tid], s_l[tid]);
   __threadfence();  // the partial is visible on the card before the arrival
@@ -361,18 +381,19 @@ __global__ void __launch_bounds__(NTHREADS, 3) split_kernel(const Args a) {
       const float2 ml = __ldcg(reinterpret_cast<const float2*>(a.part_ml + 2 * i));
       const float w = expf(ml.x - m);
       l = fmaf(ml.y, w, l);
-      acc_o = fmaf(__ldcg(a.part_acc + i * D + tid), w, acc_o);
+      if (col) acc_o = fmaf(__ldcg(a.part_acc + i * D + tid), w, acc_o);
     }
-    out[g * a.o_sh + tid] = __float2bfloat16(acc_o / fmaxf(l, 1e-37f));
+    if (col) out[g * a.o_sh + tid] = __float2bfloat16(acc_o / fmaxf(l, 1e-37f));
   }
 }
 
-template <bool PAGED, int GM>
+template <bool PAGED, int GM, int D>
 cudaError_t configure() {
   static bool done = false;
   if (done) return cudaSuccess;
   const cudaError_t err = cudaFuncSetAttribute(
-      split_kernel<PAGED, GM>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      split_kernel<PAGED, GM, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES<D>);
   done = err == cudaSuccess;
   return err;
 }
@@ -380,8 +401,9 @@ cudaError_t configure() {
 // Checks the geometry, the rows' alignment and the scratch (partials of
 // (B, K, n_span, G) rows of d + 2 floats, n_span = ceil(limit / SPAN); B *
 // K arrival counters), sets the scratch fields of `a` (the caller fills
-// the rest), launches on `stream` and returns the launch's cudaError_t.
-template <bool PAGED>
+// the rest), launches the D-wide kernel on `stream` and returns the
+// launch's cudaError_t.
+template <bool PAGED, int D>
 int launch(Args a, int batch, int n_heads, int head_dim, void* scratch,
            int64_t n_scratch, void* arrivals, int64_t n_arrivals, void* stream) {
   if (batch <= 0 || batch > 65535 || a.n_kv <= 0 || a.n_kv > 65535 ||
@@ -408,32 +430,33 @@ int launch(Args a, int batch, int n_heads, int head_dim, void* scratch,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(static_cast<unsigned>(n_span), a.n_kv, batch);
   cudaError_t err;
+  constexpr int smem = SMEM_BYTES<D>;
   if (a.group <= 4) {
-    err = configure<PAGED, 4>();
-    if (err == cudaSuccess) split_kernel<PAGED, 4><<<grid, NTHREADS, SMEM_BYTES, s>>>(a);
+    err = configure<PAGED, 4, D>();
+    if (err == cudaSuccess) split_kernel<PAGED, 4, D><<<grid, NTHREADS, smem, s>>>(a);
   } else {
-    err = configure<PAGED, 8>();
-    if (err == cudaSuccess) split_kernel<PAGED, 8><<<grid, NTHREADS, SMEM_BYTES, s>>>(a);
+    err = configure<PAGED, 8, D>();
+    if (err == cudaSuccess) split_kernel<PAGED, 8, D><<<grid, NTHREADS, smem, s>>>(a);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Registers, local (spill) bytes a thread, shared memory a block (static
-// and dynamic) and resident blocks an SM of split_kernel<PAGED, GM>.
-template <bool PAGED, int GM>
-int kernel_info(int* regs, int* local_bytes, int* smem_bytes, int* blocks_per_sm) {
-  const void* fn = reinterpret_cast<const void*>(split_kernel<PAGED, GM>);
-  cudaError_t err = configure<PAGED, GM>();
+// and dynamic) and resident blocks an SM of split_kernel<PAGED, GM, D>.
+template <bool PAGED, int GM, int D>
+int kernel_info(int* regs, int* local_bytes, int* smem, int* blocks_per_sm) {
+  const void* fn = reinterpret_cast<const void*>(split_kernel<PAGED, GM, D>);
+  cudaError_t err = configure<PAGED, GM, D>();
   cudaFuncAttributes attr;
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, fn);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, NTHREADS,
-                                                        SMEM_BYTES);
+                                                        SMEM_BYTES<D>);
   if (err != cudaSuccess) return static_cast<int>(err);
   *regs = attr.numRegs;
   *local_bytes = static_cast<int>(attr.localSizeBytes);
-  *smem_bytes = static_cast<int>(attr.sharedSizeBytes) + SMEM_BYTES;
+  *smem = static_cast<int>(attr.sharedSizeBytes) + SMEM_BYTES<D>;
   return static_cast<int>(cudaSuccess);
 }
 

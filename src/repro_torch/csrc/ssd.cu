@@ -48,7 +48,12 @@
 // f32, B and C per group (B, L, G, N) bf16, head h reading group
 // h / (H / G): the groups are never repeated out to heads in memory.
 // Outputs: y (B, L, H, P) bf16, final state (B, H, P, N) f32.  P = 64,
-// N = 128 (Mamba2's), Q <= 256.
+// N = 128 (mamba2-2.7b's) or 64 (zamba2-7b's), Q <= 256.  The three
+// kernels are templates on N: at 64 the state tiles, shared-memory rows
+// and scratch states (16 KB a (chunk, head)) are half as wide, pass 1's
+// warps own 32 state columns each instead of 64, C's products take 4 k
+// steps instead of 8, and pass 3 runs half the threads; the N = 128
+// instantiations are the code they were.
 //
 // Bound on the H100: per head and full chunk the products cost
 // Q(Q+1)/2 (N + P) + 2 Q P N multiply-adds, C B^T once per group; the head
@@ -65,18 +70,18 @@
 namespace {
 
 constexpr int P = 64;      // head_dim
-constexpr int N = 128;     // state size
 constexpr int QMAX = 256;  // largest chunk
 constexpr int TR = 64;     // rows of a C B^T or output tile
 constexpr int NTHREADS = 256;
 // row strides, in elements, padded by 16 bytes so that the 8 rows an
 // ldmatrix reads fall in distinct banks
 constexpr int XS = P + 8;       // bf16 [row][p]
-constexpr int NS = N + 8;       // bf16 [row][n]
-constexpr int CBS = QMAX + 8;   // f32 [row][j]: float2 reads of 8 rows x 4
+template <int N>
+constexpr int NS = N + 8;       // bf16 [row][n], N the state size
 
 struct Geo {
   int L, H, G, rep, Q, QP, nc;  // QP: Q rounded up to 16
+  int PN;                       // P * N, the floats of one state
   int64_t x_sb, x_sl, x_sh, dt_sb, dt_sl, dt_sh;
   int64_t b_sb, b_sl, b_sg, c_sb, c_sl, c_sg;
   float* cum;  // (B, H, nc, QP) running sums
@@ -88,7 +93,7 @@ __device__ __forceinline__ float* cum_at(const Geo& g, int b, int h, int c) {
   return g.cum + ((static_cast<int64_t>(b) * g.H + h) * g.nc + c) * g.QP;
 }
 __device__ __forceinline__ float* st_at(const Geo& g, int b, int c, int h) {
-  return g.st + ((static_cast<int64_t>(b) * g.nc + c) * g.H + h) * (P * N);
+  return g.st + ((static_cast<int64_t>(b) * g.nc + c) * g.H + h) * g.PN;
 }
 __device__ __forceinline__ float* cb_at(const Geo& g, int b, int c, int grp) {
   return g.cb + ((static_cast<int64_t>(b) * g.nc + c) * g.G + grp) *
@@ -167,23 +172,29 @@ __device__ __forceinline__ void copy_rows(__nv_bfloat16* dst, int ss,
 
 // ---- pass 1: running sums and chunk states ----------------------------------
 
-constexpr int S_OFF_X = 0;                           // x [j][p]
-constexpr int S_OFF_B = S_OFF_X + QMAX * XS * 2;     // B [j][n]
-constexpr int S_OFF_DT = S_OFF_B + QMAX * NS * 2;    // dt [j]
-constexpr int S_OFF_CUM = S_OFF_DT + QMAX * 4;       // cum [j]
-constexpr int S_OFF_W = S_OFF_CUM + QMAX * 4;        // dt_j exp(cum_last - cum_j)
-constexpr int S_SMEM = S_OFF_W + QMAX * 4;
-static_assert(2 * (S_SMEM + 1024) <= 233472, "two blocks an SM");
+template <int N>
+struct SLayout {
+  static constexpr int X = 0;                            // x [j][p]
+  static constexpr int B = X + QMAX * XS * 2;            // B [j][n]
+  static constexpr int DT = B + QMAX * NS<N> * 2;        // dt [j]
+  static constexpr int CUM = DT + QMAX * 4;              // cum [j]
+  static constexpr int W = CUM + QMAX * 4;               // dt_j exp(cum_last - cum_j)
+  static constexpr int SMEM = W + QMAX * 4;
+  static_assert(2 * (SMEM + 1024) <= 233472, "two blocks an SM");
+};
 
+template <int N>
 __device__ __forceinline__ void state_block(
     unsigned char* smem, const __nv_bfloat16* __restrict__ x,
     const float* __restrict__ dt, const float* __restrict__ a,
     const __nv_bfloat16* __restrict__ bm, const Geo& g, int h) {
-  __nv_bfloat16* s_x = reinterpret_cast<__nv_bfloat16*>(smem + S_OFF_X);
-  __nv_bfloat16* s_b = reinterpret_cast<__nv_bfloat16*>(smem + S_OFF_B);
-  float* s_dt = reinterpret_cast<float*>(smem + S_OFF_DT);
-  float* s_cum = reinterpret_cast<float*>(smem + S_OFF_CUM);
-  float* s_w = reinterpret_cast<float*>(smem + S_OFF_W);
+  using SL = SLayout<N>;
+  constexpr int ns = NS<N>;
+  __nv_bfloat16* s_x = reinterpret_cast<__nv_bfloat16*>(smem + SL::X);
+  __nv_bfloat16* s_b = reinterpret_cast<__nv_bfloat16*>(smem + SL::B);
+  float* s_dt = reinterpret_cast<float*>(smem + SL::DT);
+  float* s_cum = reinterpret_cast<float*>(smem + SL::CUM);
+  float* s_w = reinterpret_cast<float*>(smem + SL::W);
 
   const int c = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -192,7 +203,7 @@ __device__ __forceinline__ void state_block(
 
   copy_rows<P>(s_x, XS, x + b * g.x_sb + c0 * g.x_sl + h * g.x_sh, g.x_sl, 0,
                kend, qv);
-  copy_rows<N>(s_b, NS, bm + b * g.b_sb + c0 * g.b_sl + (h / g.rep) * g.b_sg,
+  copy_rows<N>(s_b, ns, bm + b * g.b_sb + c0 * g.b_sl + (h / g.rep) * g.b_sg,
                g.b_sl, 0, kend, qv);
   if (tid < g.QP)
     s_dt[tid] = tid < qv ? dt[b * g.dt_sb + (c0 + tid) * g.dt_sl + h * g.dt_sh] : 0.f;
@@ -228,13 +239,14 @@ __device__ __forceinline__ void state_block(
   __syncthreads();
 
   // state[p][n] = sum_j x[j][p] w_j B[j][n]: warp w owns p rows 16 (w % 4)
-  // .. and n columns 64 (w / 4) .. + 63 (8 tiles of 8).  A = (x w)^T, from
-  // x stored [j][p] read transposed, times w in f32, split.
+  // .. and n columns NW (w / 4) .. + NW - 1 (NT tiles of 8).  A = (x w)^T,
+  // from x stored [j][p] read transposed, times w in f32, split.
+  constexpr int NW = N / 2, NT = NW / 8;
   const int mt = warp & 3, nh = warp >> 2;
   const int mi = lane >> 3, r8 = lane & 7, gid = lane >> 2, tig = lane & 3;
-  float acc[8][4];
+  float acc[NT][4];
 #pragma unroll
-  for (int t = 0; t < 8; ++t)
+  for (int t = 0; t < NT; ++t)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
   for (int k0 = 0; k0 < kend; k0 += 16) {
@@ -249,9 +261,9 @@ __device__ __forceinline__ void state_block(
       split2(__fmul_rn(xv.x, s_w[j]), __fmul_rn(xv.y, s_w[j + 1]), ah[q], al[q]);
     }
 #pragma unroll
-    for (int np = 0; np < 4; ++np) {
+    for (int np = 0; np < NT / 2; ++np) {
       uint32_t bf[4];  // B stored [j][n]: (k = j, col = n), read transposed
-      ldsm_x4_t(bf, s_b + (k0 + r8 + ((mi & 1) << 3)) * NS + 64 * nh + 16 * np +
+      ldsm_x4_t(bf, s_b + (k0 + r8 + ((mi & 1) << 3)) * ns + NW * nh + 16 * np +
                         ((mi >> 1) << 3));
       mma(acc[2 * np], ah, bf[0], bf[1]);
       mma(acc[2 * np], al, bf[0], bf[1]);
@@ -261,8 +273,8 @@ __device__ __forceinline__ void state_block(
   }
   float* dst = st_at(g, b, c, h);
 #pragma unroll
-  for (int t = 0; t < 8; ++t) {
-    const int p = 16 * mt + gid, n = 64 * nh + 8 * t + 2 * tig;
+  for (int t = 0; t < NT; ++t) {
+    const int p = 16 * mt + gid, n = NW * nh + 8 * t + 2 * tig;
     *reinterpret_cast<float2*>(dst + p * N + n) = make_float2(acc[t][0], acc[t][1]);
     *reinterpret_cast<float2*>(dst + (p + 8) * N + n) =
         make_float2(acc[t][2], acc[t][3]);
@@ -271,48 +283,54 @@ __device__ __forceinline__ void state_block(
 
 // ---- pass 2: C B^T once per (sequence, chunk, group) ------------------------
 
-constexpr int C_OFF_C = 0;                        // C [i][n], the row tile
-constexpr int C_OFF_B = C_OFF_C + TR * NS * 2;    // B [j][n]
-constexpr int C_SMEM = C_OFF_B + QMAX * NS * 2;
-static_assert(C_SMEM <= S_SMEM, "passes 1 and 2 share a launch");
+template <int N>
+struct CLayout {
+  static constexpr int C = 0;                        // C [i][n], the row tile
+  static constexpr int B = C + TR * NS<N> * 2;       // B [j][n]
+  static constexpr int SMEM = B + QMAX * NS<N> * 2;
+  static_assert(SMEM <= SLayout<N>::SMEM, "passes 1 and 2 share a launch");
+};
 
+template <int N>
 __device__ __forceinline__ void cb_block(unsigned char* smem,
                                          const __nv_bfloat16* __restrict__ bm,
                                          const __nv_bfloat16* __restrict__ cm,
                                          const Geo& g, int rt, int grp) {
-  __nv_bfloat16* s_c = reinterpret_cast<__nv_bfloat16*>(smem + C_OFF_C);
-  __nv_bfloat16* s_b = reinterpret_cast<__nv_bfloat16*>(smem + C_OFF_B);
+  constexpr int ns = NS<N>;
+  __nv_bfloat16* s_c = reinterpret_cast<__nv_bfloat16*>(smem + CLayout<N>::C);
+  __nv_bfloat16* s_b = reinterpret_cast<__nv_bfloat16*>(smem + CLayout<N>::B);
 
   const int i0 = rt * TR;
   const int c = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int c0 = c * g.Q, qv = min(g.Q, g.L - c0);
   const int rows = min(TR, g.QP - i0);
-  copy_rows<N>(s_c, NS, cm + b * g.c_sb + c0 * g.c_sl + grp * g.c_sg, g.c_sl, i0,
+  copy_rows<N>(s_c, ns, cm + b * g.c_sb + c0 * g.c_sl + grp * g.c_sg, g.c_sl, i0,
                rows, qv);
-  copy_rows<N>(s_b, NS, bm + b * g.b_sb + c0 * g.b_sl + grp * g.b_sg, g.b_sl, 0,
+  copy_rows<N>(s_b, ns, bm + b * g.b_sb + c0 * g.b_sl + grp * g.b_sg, g.b_sl, 0,
                i0 + rows, qv);
   cp_async_wait_all();
   __syncthreads();
 
   // warp w owns rows 16 (w % 4) .. of the tile and every other pair of
   // 8-column tiles up to its last row (the causal part)
+  constexpr int KS = N / 16;  // k steps over the state
   const int r0 = 16 * (warp & 3);
   if (r0 >= rows) return;
   const int mi = lane >> 3, r8 = lane & 7, gid = lane >> 2, tig = lane & 3;
-  uint32_t af[8][4];  // C rows, all of N
+  uint32_t af[KS][4];  // C rows, all of N
 #pragma unroll
-  for (int ks = 0; ks < 8; ++ks)
-    ldsm_x4(af[ks], s_c + (r0 + r8 + ((mi & 1) << 3)) * NS + 16 * ks +
+  for (int ks = 0; ks < KS; ++ks)
+    ldsm_x4(af[ks], s_c + (r0 + r8 + ((mi & 1) << 3)) * ns + 16 * ks +
                         ((mi >> 1) << 3));
   float* out = cb_at(g, b, c, grp);
   const int jlim = i0 + r0 + 16;
   for (int j0 = 16 * (warp >> 2); j0 < jlim; j0 += 32) {
     float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
-    for (int ks = 0; ks < 8; ++ks) {
+    for (int ks = 0; ks < KS; ++ks) {
       uint32_t bf[4];  // B stored [j][n]: (k = n, col = j), read as stored
-      ldsm_x4(bf, s_b + (j0 + ((mi >> 1) << 3) + r8) * NS + 16 * ks +
+      ldsm_x4(bf, s_b + (j0 + ((mi >> 1) << 3) + r8) * ns + 16 * ks +
                       ((mi & 1) << 3));
       mma(acc[0], af[ks], bf[0], bf[1]);
       mma(acc[1], af[ks], bf[2], bf[3]);
@@ -330,6 +348,7 @@ __device__ __forceinline__ void cb_block(unsigned char* smem,
 
 // Passes 1 and 2 in one launch: blocks 0 .. H - 1 of a (chunk, sequence)
 // are pass 1's heads, the rest pass 2's (group, row tile) pairs.
+template <int N>
 __global__ void __launch_bounds__(NTHREADS, 2)
 ssd_chunk_kernel(const __nv_bfloat16* __restrict__ x,
                  const float* __restrict__ dt, const float* __restrict__ a,
@@ -339,9 +358,9 @@ ssd_chunk_kernel(const __nv_bfloat16* __restrict__ x,
   const int nrt = (g.QP + TR - 1) / TR;
   const int blk = blockIdx.x;
   if (blk < g.H)
-    state_block(smem, x, dt, a, bm, g, blk);
+    state_block<N>(smem, x, dt, a, bm, g, blk);
   else
-    cb_block(smem, bm, cm, g, (blk - g.H) % nrt, (blk - g.H) / nrt);
+    cb_block<N>(smem, bm, cm, g, (blk - g.H) % nrt, (blk - g.H) / nrt);
 }
 
 // ---- pass 3: the state recurrence across chunks ------------------------------
@@ -375,21 +394,25 @@ ssd_scan_kernel(float* __restrict__ fs, const Geo g) {
                         __fadd_rn(__fmul_rn(s.w, d), local[k].w));
       }
   }
-  *reinterpret_cast<float4*>(fs + (static_cast<int64_t>(b) * g.H + h) * (P * N) + e) = s;
+  *reinterpret_cast<float4*>(fs + (static_cast<int64_t>(b) * g.H + h) * g.PN + e) = s;
 }
 
 // ---- pass 4: outputs ---------------------------------------------------------
 
 constexpr int TO = 128;                              // rows of an output tile
-constexpr int O_OFF_X = 0;                           // x [j][p]
-constexpr int O_OFF_SH = O_OFF_X + QMAX * XS * 2;    // entering state hi [p][n]
-constexpr int O_OFF_SL = O_OFF_SH + P * NS * 2;      // entering state lo
-constexpr int O_OFF_C = O_OFF_SL + P * NS * 2;       // C [i][n], the row tile
-constexpr int O_OFF_CUM = O_OFF_C + TO * NS * 2;     // cum [j]
-constexpr int O_OFF_DT = O_OFF_CUM + QMAX * 4;       // dt [j]
-constexpr int O_SMEM = O_OFF_DT + QMAX * 4;
-static_assert(2 * (O_SMEM + 1024) <= 233472, "two blocks an SM");
 static_assert(TO == 16 * (NTHREADS / 32), "a warp's 16 rows");
+
+template <int N>
+struct OLayout {
+  static constexpr int X = 0;                          // x [j][p]
+  static constexpr int SH = X + QMAX * XS * 2;         // entering state hi [p][n]
+  static constexpr int SL = SH + P * NS<N> * 2;        // entering state lo
+  static constexpr int C = SL + P * NS<N> * 2;         // C [i][n], the row tile
+  static constexpr int CUM = C + TO * NS<N> * 2;       // cum [j]
+  static constexpr int DT = CUM + QMAX * 4;            // dt [j]
+  static constexpr int SMEM = DT + QMAX * 4;
+  static_assert(2 * (SMEM + 1024) <= 233472, "two blocks an SM");
+};
 
 // One block per (sequence, chunk, head, 128-row tile); warp w owns rows
 // 16 w .. 16 w + 15 of the tile and all 64 p columns.  The off-diagonal
@@ -401,17 +424,20 @@ static_assert(TO == 16 * (NTHREADS / 32), "a warp's 16 rows");
 // instead of 8; the diagonal block takes exp(cum_i - cum_j) itself where
 // j <= i.  These exponentials feed y only (gated at 2^-7 of the value), so
 // they are the fast ones.
+template <int N>
 __global__ void __launch_bounds__(NTHREADS, 2)
 ssd_out_kernel(const __nv_bfloat16* __restrict__ x,
                const float* __restrict__ dt, const __nv_bfloat16* __restrict__ cm,
                __nv_bfloat16* __restrict__ y, const Geo g) {
+  using OL = OLayout<N>;
+  constexpr int ns = NS<N>;
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* s_x = reinterpret_cast<__nv_bfloat16*>(smem + O_OFF_X);
-  __nv_bfloat16* s_sh = reinterpret_cast<__nv_bfloat16*>(smem + O_OFF_SH);
-  __nv_bfloat16* s_sl = reinterpret_cast<__nv_bfloat16*>(smem + O_OFF_SL);
-  __nv_bfloat16* s_c = reinterpret_cast<__nv_bfloat16*>(smem + O_OFF_C);
-  float* s_cum = reinterpret_cast<float*>(smem + O_OFF_CUM);
-  float* s_dt = reinterpret_cast<float*>(smem + O_OFF_DT);
+  __nv_bfloat16* s_x = reinterpret_cast<__nv_bfloat16*>(smem + OL::X);
+  __nv_bfloat16* s_sh = reinterpret_cast<__nv_bfloat16*>(smem + OL::SH);
+  __nv_bfloat16* s_sl = reinterpret_cast<__nv_bfloat16*>(smem + OL::SL);
+  __nv_bfloat16* s_c = reinterpret_cast<__nv_bfloat16*>(smem + OL::C);
+  float* s_cum = reinterpret_cast<float*>(smem + OL::CUM);
+  float* s_dt = reinterpret_cast<float*>(smem + OL::DT);
 
   const int nrt = (g.QP + TO - 1) / TO;
   const int rt = nrt - 1 - static_cast<int>(blockIdx.x) % nrt;  // heaviest first
@@ -423,7 +449,7 @@ ssd_out_kernel(const __nv_bfloat16* __restrict__ x,
 
   copy_rows<P>(s_x, XS, x + b * g.x_sb + c0 * g.x_sl + h * g.x_sh, g.x_sl, 0,
                jend, qv);
-  copy_rows<N>(s_c, NS, cm + b * g.c_sb + c0 * g.c_sl + grp * g.c_sg, g.c_sl, i0,
+  copy_rows<N>(s_c, ns, cm + b * g.c_sb + c0 * g.c_sl + grp * g.c_sg, g.c_sl, i0,
                rows, qv);
   if (tid < jend) {
     s_cum[tid] = cum_at(g, b, h, c)[tid];
@@ -442,8 +468,8 @@ ssd_out_kernel(const __nv_bfloat16* __restrict__ x,
       uint2 hi, lo;
       split2(v[k].x, v[k].y, hi.x, lo.x);
       split2(v[k].z, v[k].w, hi.y, lo.y);
-      *reinterpret_cast<uint2*>(s_sh + p * NS + n) = hi;
-      *reinterpret_cast<uint2*>(s_sl + p * NS + n) = lo;
+      *reinterpret_cast<uint2*>(s_sh + p * ns + n) = hi;
+      *reinterpret_cast<uint2*>(s_sl + p * ns + n) = lo;
     }
   }
   cp_async_wait_all();
@@ -463,9 +489,9 @@ ssd_out_kernel(const __nv_bfloat16* __restrict__ x,
   // y_off = C s_in (split), then scaled by exp(cum_i) row by row
   if (c > 0) {
 #pragma unroll
-    for (int ks = 0; ks < 8; ++ks) {
+    for (int ks = 0; ks < N / 16; ++ks) {
       uint32_t af[4];
-      ldsm_x4(af, s_c + (r0 + r8 + ((mi & 1) << 3)) * NS + 16 * ks +
+      ldsm_x4(af, s_c + (r0 + r8 + ((mi & 1) << 3)) * ns + 16 * ks +
                       ((mi >> 1) << 3));
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
@@ -473,8 +499,8 @@ ssd_out_kernel(const __nv_bfloat16* __restrict__ x,
         const int srow = 16 * np + ((mi >> 1) << 3) + r8;
         const int scol = 16 * ks + ((mi & 1) << 3);
         uint32_t bh[4], bl[4];
-        ldsm_x4(bh, s_sh + srow * NS + scol);
-        ldsm_x4(bl, s_sl + srow * NS + scol);
+        ldsm_x4(bh, s_sh + srow * ns + scol);
+        ldsm_x4(bl, s_sl + srow * ns + scol);
         mma(acc[2 * np], af, bh[0], bh[1]);
         mma(acc[2 * np], af, bl[0], bl[1]);
         mma(acc[2 * np + 1], af, bh[2], bh[3]);
@@ -570,43 +596,31 @@ ssd_out_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-bool g_attrs_set = false;
-
+template <int N>
 cudaError_t set_attrs() {
-  if (g_attrs_set) return cudaSuccess;
+  static bool done = false;
+  if (done) return cudaSuccess;
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S_SMEM);
+      ssd_chunk_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SLayout<N>::SMEM);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(ssd_out_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, O_SMEM);
-  g_attrs_set = err == cudaSuccess;
+    err = cudaFuncSetAttribute(ssd_out_kernel<N>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               OLayout<N>::SMEM);
+  done = err == cudaSuccess;
   return err;
 }
 
-}  // namespace
-
-// Scratch the wrapper allocates, in floats: running sums (B, H, nc, QP),
-// chunk states (B, nc, H, P, N) and C B^T (B, nc, G, QP, QP), where Q =
-// min(chunk, L), QP = Q rounded up to 16 and nc = ceil(L / Q).
-static int64_t ssd_scratch_floats(int batch, int len, int heads, int groups,
-                                  int chunk) {
-  const int64_t q = chunk < len ? chunk : len;
-  const int64_t qp = (q + 15) / 16 * 16, nc = (len + q - 1) / q;
-  return batch * nc * (heads * qp + static_cast<int64_t>(heads) * P * N +
-                       groups * qp * qp);
-}
-
 // Registers, local (spill) bytes a thread, dynamic shared memory and
-// resident blocks an SM of kernel `which` (0: chunk states and C B^T, 1:
-// the recurrence, 2: outputs), as the runtime reports them.
-extern "C" int repro_ssd_kernel_info(int which, int* regs, int* local_bytes,
-                                     int* smem_bytes, int* blocks_per_sm) {
-  const void* fns[3] = {reinterpret_cast<const void*>(ssd_chunk_kernel),
+// resident blocks an SM of kernel `which` (0 .. 2) at state size N.
+template <int N>
+int kernel_info(int which, int* regs, int* local_bytes, int* smem_bytes,
+                int* blocks_per_sm) {
+  const void* fns[3] = {reinterpret_cast<const void*>(ssd_chunk_kernel<N>),
                         reinterpret_cast<const void*>(ssd_scan_kernel),
-                        reinterpret_cast<const void*>(ssd_out_kernel)};
-  const int smem[3] = {S_SMEM, 0, O_SMEM};
-  if (which < 0 || which > 2) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = set_attrs();
+                        reinterpret_cast<const void*>(ssd_out_kernel<N>)};
+  const int smem[3] = {SLayout<N>::SMEM, 0, OLayout<N>::SMEM};
+  cudaError_t err = set_attrs<N>();
   cudaFuncAttributes attr;
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, fns[which]);
   if (err == cudaSuccess)
@@ -619,14 +633,60 @@ extern "C" int repro_ssd_kernel_info(int which, int* regs, int* local_bytes,
   return static_cast<int>(cudaSuccess);
 }
 
+// The three launches at state size N on `s`; returns the first error.
+template <int N>
+cudaError_t launch(const __nv_bfloat16* x, const float* dt, const float* a,
+                   const __nv_bfloat16* bm, const __nv_bfloat16* cm,
+                   __nv_bfloat16* y, float* fs, int batch, const Geo& g,
+                   cudaStream_t s) {
+  cudaError_t err = set_attrs<N>();
+  if (err != cudaSuccess) return err;
+  const int nrt = (g.QP + TR - 1) / TR;
+  ssd_chunk_kernel<N><<<dim3(g.H + g.G * nrt, g.nc, batch), NTHREADS,
+                        SLayout<N>::SMEM, s>>>(x, dt, a, bm, cm, g);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  ssd_scan_kernel<<<dim3(P * N / (NTHREADS * SCAN_EL), g.H, batch), NTHREADS, 0,
+                    s>>>(fs, g);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  ssd_out_kernel<N><<<dim3((g.QP + TO - 1) / TO * g.H, g.nc, batch), NTHREADS,
+                      OLayout<N>::SMEM, s>>>(x, dt, cm, y, g);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Scratch the wrapper allocates, in floats: running sums (B, H, nc, QP),
+// chunk states (B, nc, H, P, N) and C B^T (B, nc, G, QP, QP), where Q =
+// min(chunk, L), QP = Q rounded up to 16 and nc = ceil(L / Q).
+static int64_t ssd_scratch_floats(int batch, int len, int heads, int groups,
+                                  int state, int chunk) {
+  const int64_t q = chunk < len ? chunk : len;
+  const int64_t qp = (q + 15) / 16 * 16, nc = (len + q - 1) / q;
+  return batch * nc * (heads * qp + static_cast<int64_t>(heads) * P * state +
+                       groups * qp * qp);
+}
+
+// Registers, local (spill) bytes a thread, dynamic shared memory and
+// resident blocks an SM of kernel `which` (0: chunk states and C B^T, 1:
+// the recurrence, 2: outputs) at N = 128, or `which - 3` at N = 64, as the
+// runtime reports them.
+extern "C" int repro_ssd_kernel_info(int which, int* regs, int* local_bytes,
+                                     int* smem_bytes, int* blocks_per_sm) {
+  if (which < 0 || which > 5) return static_cast<int>(cudaErrorInvalidValue);
+  return which < 3
+             ? kernel_info<128>(which, regs, local_bytes, smem_bytes, blocks_per_sm)
+             : kernel_info<64>(which - 3, regs, local_bytes, smem_bytes,
+                               blocks_per_sm);
+}
+
 // x (B, L, H, P) bf16; dt (B, L, H) f32; a (H,) f32; bm and cm (B, L, G,
 // N) bf16; y (B, L, H, P) bf16 and fs (B, H, P, N) f32, both contiguous;
 // scratch: at least ssd_scratch_floats(...) f32, 16-byte aligned.
-// P = 64, N = 128, G divides H, 1 <= chunk <= 256 (taken as min(chunk, L)).
-// strides[12] = x (batch, seq, head), dt (batch, seq, head), bm (batch,
-// seq, group), cm (batch, seq, group), in elements; unit stride on the last
-// axis of each, and 16-byte aligned bf16 rows.  Three launches on `stream`;
-// returns the first cudaError_t.
+// P = 64, N = 128 or 64, G divides H, 1 <= chunk <= 256 (taken as
+// min(chunk, L)).  strides[12] = x (batch, seq, head), dt (batch, seq,
+// head), bm (batch, seq, group), cm (batch, seq, group), in elements; unit
+// stride on the last axis of each, and 16-byte aligned bf16 rows.  Three
+// launches on `stream`; returns the first cudaError_t.
 extern "C" int repro_ssd_bf16(const void* x, const void* dt, const void* a,
                               const void* bm, const void* cm, void* y,
                               void* fs, int batch, int len, int heads,
@@ -634,13 +694,12 @@ extern "C" int repro_ssd_bf16(const void* x, const void* dt, const void* a,
                               int chunk, const int64_t* strides, void* scratch,
                               int64_t scratch_floats, void* stream) {
   if (batch <= 0 || len <= 0 || heads <= 0 || groups <= 0 ||
-      heads % groups != 0 || head_dim != P || state_dim != N || chunk < 1 ||
-      chunk > QMAX || batch > 65535 ||
-      scratch_floats < ssd_scratch_floats(batch, len, heads, groups, chunk) ||
+      heads % groups != 0 || head_dim != P || (state_dim != 128 && state_dim != 64) ||
+      chunk < 1 || chunk > QMAX || batch > 65535 ||
+      scratch_floats <
+          ssd_scratch_floats(batch, len, heads, groups, state_dim, chunk) ||
       reinterpret_cast<uintptr_t>(scratch) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = set_attrs();
-  if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t* st = strides;
   Geo g;
   g.L = len;
@@ -650,6 +709,7 @@ extern "C" int repro_ssd_bf16(const void* x, const void* dt, const void* a,
   g.Q = chunk < len ? chunk : len;
   g.QP = (g.Q + 15) / 16 * 16;
   g.nc = (len + g.Q - 1) / g.Q;
+  g.PN = P * state_dim;
   g.x_sb = st[0]; g.x_sl = st[1]; g.x_sh = st[2];
   g.dt_sb = st[3]; g.dt_sl = st[4]; g.dt_sh = st[5];
   g.b_sb = st[6]; g.b_sl = st[7]; g.b_sg = st[8];
@@ -657,23 +717,17 @@ extern "C" int repro_ssd_bf16(const void* x, const void* dt, const void* a,
   float* sf = static_cast<float*>(scratch);
   g.cum = sf;
   g.st = g.cum + static_cast<int64_t>(batch) * heads * g.nc * g.QP;
-  g.cb = g.st + static_cast<int64_t>(batch) * g.nc * heads * (P * N);
-  const int nrt = (g.QP + TR - 1) / TR;
+  g.cb = g.st + static_cast<int64_t>(batch) * g.nc * heads * g.PN;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* xp = static_cast<const __nv_bfloat16*>(x);
   const auto* dtp = static_cast<const float*>(dt);
+  const auto* ap = static_cast<const float*>(a);
   const auto* bp = static_cast<const __nv_bfloat16*>(bm);
   const auto* cp = static_cast<const __nv_bfloat16*>(cm);
-
-  ssd_chunk_kernel<<<dim3(heads + groups * nrt, g.nc, batch), NTHREADS, S_SMEM,
-                     s>>>(xp, dtp, static_cast<const float*>(a), bp, cp, g);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  ssd_scan_kernel<<<dim3(P * N / (NTHREADS * SCAN_EL), heads, batch), NTHREADS, 0,
-                    s>>>(
-      static_cast<float*>(fs), g);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  ssd_out_kernel<<<dim3((g.QP + TO - 1) / TO * heads, g.nc, batch), NTHREADS,
-                   O_SMEM, s>>>(
-      xp, dtp, cp, static_cast<__nv_bfloat16*>(y), g);
-  return static_cast<int>(cudaGetLastError());
+  auto* yp = static_cast<__nv_bfloat16*>(y);
+  auto* fp = static_cast<float*>(fs);
+  const cudaError_t err =
+      state_dim == 128 ? launch<128>(xp, dtp, ap, bp, cp, yp, fp, batch, g, s)
+                       : launch<64>(xp, dtp, ap, bp, cp, yp, fp, batch, g, s);
+  return static_cast<int>(err);
 }

@@ -15,6 +15,11 @@ from repro_torch.kernels import _cuda
 #: depends on the batch, the cache length or the page size
 SPAN = 128
 
+#: the head widths the contiguous kernel is built for: qwen3's, qwen2.5's and
+#: the MoE family's, zamba2's (the paged kernels take 128 only: only the
+#: dense and MoE families page)
+HEAD_DIMS = (128, 112)
+
 #: (device index, stream) -> (f32 partials scratch, uint32 arrival counters)
 _WORKSPACES: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
 
@@ -49,8 +54,8 @@ def decode_attention(
     lengths: torch.Tensor,  # (B,) int32, each in [1, S]
 ) -> torch.Tensor:
     """One query token per sequence over its first ``lengths[b]`` cache
-    rows, on the card.  ``d`` = 128, at most 8 query heads per KV
-    head.  One device kernel a call: a split over spans of ``SPAN``
+    rows, on the card.  ``d`` in :data:`HEAD_DIMS`, at most 8 query heads
+    per KV head.  One device kernel a call: a split over spans of ``SPAN``
     positions whose last block per (sequence, KV head) combines the spans
     in order.  Returns (B, 1, H, d) bf16."""
     _cuda.require_cuda(q, "q", torch.bfloat16)
@@ -67,7 +72,7 @@ def decode_attention(
         )
     if lengths.shape != (b,) or not lengths.is_contiguous():
         raise ValueError(f"lengths must be a contiguous ({b},) tensor")
-    if h % kh or h // kh > 8 or d != 128:
+    if h % kh or h // kh > 8 or d not in HEAD_DIMS:
         raise ValueError(f"unsupported: H={h} K={kh} d={d}")
     out = torch.empty((b, 1, h, d), dtype=torch.bfloat16, device=q.device)
     strides = [q.stride(0), q.stride(2), *k_cache.stride()[:3],

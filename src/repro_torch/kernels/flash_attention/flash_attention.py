@@ -9,6 +9,9 @@ import torch
 
 from repro_torch.kernels import _cuda
 
+#: the head widths the kernel is built for: qwen3's and qwen2.5's, zamba2's
+HEAD_DIMS = (128, 112)
+
 
 def flash_attention(
     q: torch.Tensor,  # (B, Sq, H, d) bf16, CUDA
@@ -19,8 +22,8 @@ def flash_attention(
 ) -> torch.Tensor:
     """Causal GQA attention on the card: query ``i`` sits at position
     ``q_offset + i`` and sees keys ``0 .. q_offset + i``.  Any ``Sq`` and
-    ``Sk``; ``d`` = 128; strided (B, S, heads, d) views with unit
-    stride on ``d``.  Returns (B, Sq, H, d) bf16."""
+    ``Sk``; ``d`` in :data:`HEAD_DIMS`; strided (B, S, heads, d) views with
+    unit stride on ``d``.  Returns (B, Sq, H, d) bf16."""
     qs, ks, vs = q.stride(), k.stride(), v.stride()
     for name, t, st in (("q", q, qs), ("k", k, ks), ("v", v, vs)):
         _cuda.require_cuda(t, name, torch.bfloat16)
@@ -34,7 +37,7 @@ def flash_attention(
     sk, kh = k.shape[1], k.shape[2]
     if k.shape != (b, sk, kh, d) or v.shape != k.shape:
         raise ValueError(f"shape mismatch: q {q.shape}, k {k.shape}, v {v.shape}")
-    if h % kh or d != 128 or q_offset < 0:
+    if h % kh or d not in HEAD_DIMS or q_offset < 0:
         raise ValueError(f"unsupported: H={h} K={kh} d={d} q_offset={q_offset}")
     out = q.new_empty((b, sq, h, d))
     strides = _cuda.int64_array(

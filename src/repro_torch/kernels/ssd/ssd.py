@@ -7,8 +7,9 @@ import torch
 
 from repro_torch.kernels import _cuda
 
-#: the head width and state size the kernel is built for (Mamba2's)
-HEAD_DIM, STATE_DIM = 64, 128
+#: the head width and the state sizes the kernel is built for: Mamba2's
+#: head of 64, mamba2-2.7b's state of 128 and zamba2-7b's of 64
+HEAD_DIM, STATE_DIMS = 64, (128, 64)
 MAX_CHUNK = 256
 
 
@@ -18,14 +19,14 @@ def _check_rows(t: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name} must be 16-byte aligned in every row")
 
 
-def scratch_floats(bsz: int, slen: int, h: int, g: int, chunk: int) -> int:
+def scratch_floats(bsz: int, slen: int, h: int, g: int, n: int, chunk: int) -> int:
     """f32 scratch of one call (``csrc/ssd.cu``): each chunk's running sums
     (B, H, QP), states (B, H, P, N) and C B^T (B, G, QP, QP), where Q =
     min(chunk, L), QP is Q rounded up to 16 and there are ceil(L / Q)
     chunks."""
     q = min(chunk, slen)
     qp, nc = -(-q // 16) * 16, -(-slen // q)
-    return bsz * nc * (h * qp + h * HEAD_DIM * STATE_DIM + g * qp * qp)
+    return bsz * nc * (h * qp + h * HEAD_DIM * n + g * qp * qp)
 
 
 def ssd(
@@ -40,7 +41,8 @@ def ssd(
     """The chunked SSD scan from a zero state on the card: ``y`` (B, L, H,
     P) bf16 and the final state (B, H, P, N) f32.  ``x``, ``B`` and ``C``
     may be strided views (columns of the fused ``xBC`` projection) with unit
-    stride on their last axis; G divides H; P = 64, N = 128, chunk <= 256.
+    stride on their last axis; G divides H; P = 64, N in
+    :data:`STATE_DIMS`, chunk <= 256.
     A ragged last chunk is computed as if padded with ``dt = 0``.  One call
     runs three device kernels (chunk states with C B^T, the recurrence
     across chunks, outputs) and counts one launch."""
@@ -59,13 +61,13 @@ def ssd(
             f"shape mismatch: x {x.shape}, dt {dt.shape}, a {a.shape}, "
             f"B {b_mat.shape}, C {c_mat.shape}"
         )
-    if (bsz == 0 or slen == 0 or h % g or p != HEAD_DIM or n != STATE_DIM
+    if (bsz == 0 or slen == 0 or h % g or p != HEAD_DIM or n not in STATE_DIMS
             or not 1 <= chunk <= MAX_CHUNK):
         raise ValueError(f"unsupported: B={bsz} L={slen} H={h} G={g} P={p} "
                          f"N={n} chunk={chunk}")
     y = torch.empty((bsz, slen, h, p), dtype=torch.bfloat16, device=x.device)
     final = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
-    scratch = torch.empty(scratch_floats(bsz, slen, h, g, chunk),
+    scratch = torch.empty(scratch_floats(bsz, slen, h, g, n, chunk),
                           dtype=torch.float32, device=x.device)
     strides = [*x.stride()[:3], *dt.stride(), *b_mat.stride()[:3],
                *c_mat.stride()[:3]]

@@ -1,4 +1,6 @@
 from repro_torch.models.model import (
+    HybridCache,
+    HybridLM,
     KVCache,
     MambaLM,
     PagedKVCache,
@@ -10,6 +12,8 @@ from repro_torch.models.params import init_params, params_from_jax
 from repro_torch.models.ssm import SSMCache
 
 __all__ = [
+    "HybridCache",
+    "HybridLM",
     "KVCache",
     "MambaLM",
     "PageTables",

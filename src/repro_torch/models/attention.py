@@ -1,5 +1,7 @@
 """GQA attention block of the dense transformer (the GQA path of
-``repro/models/attention.py``).
+``repro/models/attention.py``): q, k and v projections with a bias where
+the config has ``qkv_bias`` (``bq``, ``bk``, ``bv``), RMS norms of q and k
+where it has ``qk_norm``, then RoPE.
 
 Prefill runs the port's flash kernel at every prompt length: it is exact
 attention.  (The reference's ``chunked_attention``, which its prefill takes
@@ -39,8 +41,9 @@ def gqa_project_q(
     p: dict, cfg: ModelConfig, x: torch.Tensor, rope: tuple[torch.Tensor, torch.Tensor]
 ) -> torch.Tensor:
     b, s, _ = x.shape
-    q = layers.dense(p["wq"], x).view(b, s, cfg.n_heads, cfg.head_dim)
-    q = layers.rms_norm(p["q_norm"], q, cfg.norm_eps)
+    q = layers.dense(p["wq"], x, p.get("bq")).view(b, s, cfg.n_heads, cfg.head_dim)
+    if "q_norm" in p:
+        q = layers.rms_norm(p["q_norm"], q, cfg.norm_eps)
     return layers.apply_rope(q, *rope)
 
 
@@ -48,9 +51,10 @@ def gqa_project_kv(
     p: dict, cfg: ModelConfig, x: torch.Tensor, rope: tuple[torch.Tensor, torch.Tensor]
 ) -> tuple[torch.Tensor, torch.Tensor]:
     b, s, _ = x.shape
-    k = layers.dense(p["wk"], x).view(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = layers.dense(p["wv"], x).view(b, s, cfg.n_kv_heads, cfg.head_dim)
-    k = layers.rms_norm(p["k_norm"], k, cfg.norm_eps)
+    k = layers.dense(p["wk"], x, p.get("bk")).view(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = layers.dense(p["wv"], x, p.get("bv")).view(b, s, cfg.n_kv_heads, cfg.head_dim)
+    if "k_norm" in p:
+        k = layers.rms_norm(p["k_norm"], k, cfg.norm_eps)
     return layers.apply_rope(k, *rope), v
 
 

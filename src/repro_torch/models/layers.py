@@ -1,5 +1,6 @@
 """Layers of the transformer: RMSNorm, NeoX half-rotation RoPE, the SwiGLU
-MLP, dense projections, the embedding and the tied or untied unembedding.
+MLP, dense projections (with an optional bias), the embedding and the tied
+or untied unembedding.
 Each follows the arithmetic of its ``repro/models/layers.py`` counterpart:
 where the reference computes in f32 and rounds to the compute dtype, so
 does this."""
@@ -41,9 +42,14 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return out.to(x.dtype)
 
 
-def dense(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` for a kernel stored (in, out), in x's dtype."""
-    return x @ w.to(x.dtype)
+def dense(
+    w: torch.Tensor, x: torch.Tensor, b: torch.Tensor | None = None
+) -> torch.Tensor:
+    """``x @ w (+ b)`` for a kernel stored (in, out), in x's dtype: the bias
+    is cast to it and added after the product, as the reference's
+    ``layers.dense`` adds it."""
+    y = x @ w.to(x.dtype)
+    return y if b is None else y + b.to(y.dtype)
 
 
 def gated_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,8 @@
 """The port's model families (``repro/models/model.py``): the GQA
-``TransformerLM`` of the dense and MoE families and the pure-SSM
-``MambaLM``, each with a prefill of one prompt into its cache and one
-decode step for every slot; :func:`build_model` picks one by
-``cfg.family``.
+``TransformerLM`` of the dense and MoE families, the pure-SSM ``MambaLM``
+and the zamba2 ``HybridLM`` (Mamba2 layers and one shared attention
+block), each with a prefill of one prompt into its cache and one decode
+step for every slot; :func:`build_model` picks one by ``cfg.family``.
 
 Two caches: the contiguous :class:`KVCache` (one row block per slot) and
 the :class:`PagedKVCache` (a pool of fixed-size pages that slots reach
@@ -315,11 +315,144 @@ class MambaLM:
         return layers.unembed(params["embed"], x, dtype)[:, 0]
 
 
-def build_model(cfg: ModelConfig) -> TransformerLM | MambaLM:
+class HybridLM:
+    """zamba2 (the reference's ``HybridLM``): ``n_layers`` pre-norm Mamba2
+    blocks in ``G = n_layers // shared_attn_every`` groups of ``K =
+    shared_attn_every`` and a tail of the rest; after each group one
+    *shared* transformer block (one set of weights) runs on the hidden
+    state normed by that application's own gain, and its residual is
+    ``h + (out - normed)``, as the reference adds it.  The embedding also
+    unembeds.  Its cache is a :class:`HybridCache`: a KV cache per
+    application and the Mamba2 state of every layer."""
+
+    def __init__(self, cfg: ModelConfig):
+        if cfg.shared_attn_every <= 0 or cfg.n_heads <= 0:
+            raise ValueError(f"{cfg.name}: the hybrid family needs attention heads "
+                             f"and shared_attn_every > 0")
+        self.cfg = cfg
+        self.k = cfg.shared_attn_every
+        self.g = cfg.n_layers // self.k
+
+    def init_cache(
+        self, n_slots: int, max_len: int, device: torch.device | str
+    ) -> "HybridCache":
+        cfg = self.cfg
+        shape = (self.g, n_slots, max_len, cfg.n_kv_heads, cfg.head_dim)
+        kv = KVCache(k=torch.zeros(shape, dtype=torch.float32, device=device),
+                     v=torch.zeros(shape, dtype=torch.float32, device=device))
+        return HybridCache(kv=kv, ssm=MambaLM(cfg).init_cache(n_slots, 0, device))
+
+    def shared_block(
+        self, params: dict, g: int, x: torch.Tensor, attend
+    ) -> torch.Tensor:
+        """Application ``g`` of the shared block on ``x``; ``attend(p, h)``
+        is its attention (``p`` the block's attention parameters) on the
+        normed input ``h``."""
+        cfg, p = self.cfg, params["shared_attn"]
+        normed = layers.rms_norm(params["app_norms"][g], x, cfg.norm_eps)
+        h = layers.rms_norm(p["ln1"], normed, cfg.norm_eps)
+        out = normed + attend(p["attn"], h)
+        h = layers.rms_norm(p["ln2"], out, cfg.norm_eps)
+        out = out + layers.gated_mlp(p["mlp"], h)
+        return x + (out - normed)
+
+    def _stack(self, params: dict, x: torch.Tensor, mamba, attend) -> torch.Tensor:
+        """Every Mamba2 block in order, ``x + mamba(i, p, normed)`` for
+        layer ``i`` (groups, then the tail), and after each group the shared
+        block, whose attention on its normed input is ``attend(g, p, h)``
+        for application ``g``."""
+        cfg = self.cfg
+
+        def block(i: int, p: dict, x: torch.Tensor) -> torch.Tensor:
+            return x + mamba(i, p, layers.rms_norm(p["ln"], x, cfg.norm_eps))
+
+        for gi in range(self.g):
+            group = _block(params["groups"], gi)
+            for ki in range(self.k):
+                x = block(gi * self.k + ki, _block(group, ki), x)
+            x = self.shared_block(params, gi, x,
+                                  lambda p, h, gi=gi: attend(gi, p, h))
+        tail = params.get("tail")
+        for ti in range(0 if tail is None else tail["ln"].shape[0]):
+            x = block(self.g * self.k + ti, _block(tail, ti), x)
+        return x
+
+    def prefill(
+        self,
+        params: dict,
+        tokens: torch.Tensor,  # (1, S) one prompt
+        cache: "HybridCache",
+        target: int,
+        *,
+        dtype: torch.dtype = torch.bfloat16,
+    ) -> torch.Tensor:
+        """Run the prompt and return its last position's logits, (1, Vp)
+        f32.  Every piece of slot ``target``'s state is overwritten: each
+        application's K/V rows ``0 .. S`` and each layer's conv window and
+        SSD state."""
+        cfg = self.cfg
+        if tokens.dim() != 2 or tokens.shape[0] != 1:
+            raise ValueError(f"prefill takes one prompt (1, S), got {tokens.shape}")
+        s = tokens.shape[1]
+        if s > cache.kv.max_len:
+            raise ValueError(f"prompt of {s} tokens exceeds max_len {cache.kv.max_len}")
+        positions = torch.arange(s, device=tokens.device)[None, :]
+        rope = layers.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+        kv, st = cache.kv, cache.ssm
+        x = self._stack(
+            params, layers.embed(params["embed"], tokens, dtype),
+            lambda i, p, h: ssm.mamba2_prefill(p["mixer"], cfg, h, st.conv[i, target],
+                                               st.state[i, target]),
+            lambda g, p, h: attn.gqa_prefill(p, cfg, h, kv.k[g], kv.v[g], target,
+                                             rope))
+        x = layers.rms_norm(params["final_norm"], x[:, -1:], cfg.norm_eps)
+        return layers.unembed(params["embed"], x, dtype)[:, 0]
+
+    def decode_step(
+        self,
+        params: dict,
+        tokens: torch.Tensor,     # (B, 1) one new token per slot
+        cache: "HybridCache",
+        positions: torch.Tensor,  # (B,) position of the new token
+        pages: PageTables | None = None,
+        *,
+        dtype: torch.dtype = torch.bfloat16,
+    ) -> torch.Tensor:
+        """Advance every slot by one token; returns (B, Vp) f32 logits."""
+        if pages is not None:
+            raise ValueError("a hybrid cache is not paged")
+        cfg = self.cfg
+        kv, st = cache.kv, cache.ssm
+        rope = layers.rope_cos_sin(positions[:, None], cfg.head_dim, cfg.rope_theta)
+        lengths = (positions + 1).clamp(max=kv.max_len).to(torch.int32)
+        x = self._stack(
+            params, layers.embed(params["embed"], tokens, dtype),
+            lambda i, p, h: ssm.mamba2_decode(p["mixer"], cfg, h, st.conv[i],
+                                              st.state[i]),
+            lambda g, p, h: attn.gqa_decode(p, cfg, h, kv.k[g], kv.v[g], positions,
+                                            lengths, rope))
+        x = layers.rms_norm(params["final_norm"], x, cfg.norm_eps)
+        return layers.unembed(params["embed"], x, dtype)[:, 0]
+
+
+@dataclasses.dataclass
+class HybridCache:
+    """A :class:`HybridLM`'s per-slot state: one f32 KV cache per shared
+    block application, ``kv.k`` and ``kv.v`` (G, n_slots, max_len, K, dh),
+    and every Mamba2 layer's conv window and SSD state (layers indexed
+    group by group, then the tail)."""
+
+    kv: KVCache
+    ssm: SSMCache
+
+
+def build_model(cfg: ModelConfig) -> TransformerLM | MambaLM | HybridLM:
     """The model of ``cfg.family``, as the reference's ``build_model``
     picks it, for the families the port serves."""
     if cfg.family in ("dense", "moe"):
         return TransformerLM(cfg)
     if cfg.family == "ssm":
         return MambaLM(cfg)
+    if cfg.family == "hybrid":
+        return HybridLM(cfg)
     raise ValueError(f"the port does not serve the {cfg.family!r} family yet")

@@ -1,17 +1,20 @@
 """Parameters of the port's models (the GQA ``TransformerLM`` of the dense
-and MoE families and the Mamba2 ``MambaLM``): random init on the target
-device from a seeded ``torch.Generator``, and the bridge that takes the JAX
-package's own parameter tree.
+and MoE families, the Mamba2 ``MambaLM`` and the zamba2 ``HybridLM``):
+random init on the target device from a seeded ``torch.Generator``, and
+the bridge that takes the JAX package's own parameter tree.
 
 Layout: one tensor per weight with the layers stacked on a leading axis, as
 the reference stacks them for its scan (the MoE family's leading dense
-layers in ``layers``, its MoE layers in ``moe_layers``); dense kernels are
-stored ``(in, out)``, experts ``(E, in, out)``.  Matmul weights, experts and
-the embeddings are stored in the compute dtype (the reference keeps f32
-masters and casts them to the compute dtype at every use, which rounds the
-same way); norm scales, the MoE router and the SSM's conv, decay, skip and
-dt-bias parameters stay f32, since the reference casts each of them to f32
-where it uses them.  Init is fan-in scaled over ``shape[-2]``, the
+layers in ``layers``, its MoE layers in ``moe_layers``; the hybrid's
+grouped Mamba2 layers ``(G, K, ...)`` in ``groups``, its unstacked
+``shared_attn`` block, its ``tail``); dense kernels are stored ``(in,
+out)``, experts ``(E, in, out)``, q/k/v biases as ``bq``, ``bk``, ``bv``
+beside their kernels.  Matmul weights, experts and the embeddings are
+stored in the compute dtype (the reference keeps f32 masters and casts
+them to the compute dtype at every use, which rounds the same way); norm
+scales, biases, the MoE router and the SSM's conv, decay, skip and dt-bias
+parameters stay f32, since the reference casts each of them where it uses
+them.  Init is fan-in scaled over ``shape[-2]``, the
 reference's convention (``repro/models/params.py:57-68``); ``jax.random``
 cannot be reproduced in torch, so parity tests go through
 :func:`params_from_jax` instead.
@@ -33,30 +36,38 @@ from repro_torch.models.ssm import mamba2_specs
 #: constants (the reference's init kinds)
 Spec = tuple[tuple[int, ...], str]
 
+#: the most elements a leaf outside the MoE stacks draws at once in f32 (8
+#: GiB); a larger one draws a slice of its leading axis at a time
+WHOLE_DRAW = 2**31
 
-def _mlp_specs(n: int, d: int, f: int) -> dict[str, Spec]:
-    return {"wi": ((n, d, f), "matrix"), "wg": ((n, d, f), "matrix"),
-            "wo": ((n, f, d), "matrix")}
+
+def _mlp_specs(lead: tuple[int, ...], d: int, f: int) -> dict[str, Spec]:
+    return {"wi": ((*lead, d, f), "matrix"), "wg": ((*lead, d, f), "matrix"),
+            "wo": ((*lead, f, d), "matrix")}
 
 
-def _block_specs(cfg: ModelConfig, n: int, mlp: dict[str, Any]) -> dict[str, Any]:
-    """A stack of ``n`` pre-norm blocks: GQA attention with qk-norm, then
-    ``mlp`` (``{"mlp": ...}`` or ``{"moe": ...}``)."""
+def _block_specs(cfg: ModelConfig, lead: tuple[int, ...],
+                 mlp: dict[str, Any]) -> dict[str, Any]:
+    """Pre-norm blocks stacked over ``lead`` (``(n,)``, or ``()`` for one
+    block): GQA attention, with q/k/v biases where ``cfg.qkv_bias`` and q/k
+    norms where ``cfg.qk_norm``, then ``mlp`` (``{"mlp": ...}`` or
+    ``{"moe": ...}``)."""
     d, dh = cfg.d_model, cfg.head_dim
     hq, hk = cfg.n_heads * dh, cfg.n_kv_heads * dh
-    return {
-        "ln1": ((n, d), "ones"),
-        "attn": {
-            "wq": ((n, d, hq), "matrix"),
-            "wk": ((n, d, hk), "matrix"),
-            "wv": ((n, d, hk), "matrix"),
-            "wo": ((n, hq, d), "matrix"),
-            "q_norm": ((n, dh), "ones"),
-            "k_norm": ((n, dh), "ones"),
-        },
-        "ln2": ((n, d), "ones"),
-        **mlp,
+    attn: dict[str, Spec] = {
+        "wq": ((*lead, d, hq), "matrix"),
+        "wk": ((*lead, d, hk), "matrix"),
+        "wv": ((*lead, d, hk), "matrix"),
+        "wo": ((*lead, hq, d), "matrix"),
     }
+    if cfg.qkv_bias:
+        # the reference initialises biases to zeros
+        attn.update(bq=((*lead, hq), "zeros"), bk=((*lead, hk), "zeros"),
+                    bv=((*lead, hk), "zeros"))
+    if cfg.qk_norm:
+        attn.update(q_norm=((*lead, dh), "ones"), k_norm=((*lead, dh), "ones"))
+    return {"ln1": ((*lead, d), "ones"), "attn": attn,
+            "ln2": ((*lead, d), "ones"), **mlp}
 
 
 def _moe_specs(cfg: ModelConfig, n: int) -> dict[str, Any]:
@@ -69,16 +80,18 @@ def _moe_specs(cfg: ModelConfig, n: int) -> dict[str, Any]:
     }
     if cfg.n_shared_experts:
         # one fused MLP of n_shared * moe_d_ff hidden, as the reference's
-        spec["shared"] = _mlp_specs(n, d, cfg.n_shared_experts * f)
+        spec["shared"] = _mlp_specs((n,), d, cfg.n_shared_experts * f)
     return spec
 
 
 def param_specs(cfg: ModelConfig) -> dict[str, Any]:
     if cfg.family == "ssm":
         return _mamba_specs(cfg)
-    if cfg.family not in ("dense", "moe") or not cfg.qk_norm:
+    if cfg.family == "hybrid":
+        return _hybrid_specs(cfg)
+    if cfg.family not in ("dense", "moe"):
         raise ValueError(
-            f"{cfg.name}: the port serves qk-norm GQA (dense, MoE) and Mamba2"
+            f"{cfg.name}: the port serves GQA (dense, MoE), Mamba2 and hybrid"
         )
     n_moe = cfg.n_layers - cfg.first_k_dense if cfg.n_experts else 0
     n_dense = cfg.n_layers - n_moe
@@ -89,11 +102,19 @@ def param_specs(cfg: ModelConfig) -> dict[str, Any]:
     if not cfg.tie_embeddings:
         spec["unembed"] = ((cfg.d_model, cfg.padded_vocab), "matrix")
     if n_dense:
-        spec["layers"] = _block_specs(cfg, n_dense, {"mlp": _mlp_specs(
-            n_dense, cfg.d_model, cfg.dense_d_ff or cfg.d_ff)})
+        spec["layers"] = _block_specs(cfg, (n_dense,), {"mlp": _mlp_specs(
+            (n_dense,), cfg.d_model, cfg.dense_d_ff or cfg.d_ff)})
     if n_moe:
-        spec["moe_layers"] = _block_specs(cfg, n_moe, {"moe": _moe_specs(cfg, n_moe)})
+        spec["moe_layers"] = _block_specs(cfg, (n_moe,),
+                                          {"moe": _moe_specs(cfg, n_moe)})
     return spec
+
+
+def _mamba_blocks(cfg: ModelConfig, lead: tuple[int, ...]) -> dict[str, Any]:
+    """Pre-norm Mamba2 blocks stacked over ``lead``."""
+    mixer = {k: ((*lead, *shape), kind)
+             for k, (shape, kind) in mamba2_specs(cfg).items()}
+    return {"ln": ((*lead, cfg.d_model), "ones"), "mixer": mixer}
 
 
 def _mamba_specs(cfg: ModelConfig) -> dict[str, Any]:
@@ -101,13 +122,33 @@ def _mamba_specs(cfg: ModelConfig) -> dict[str, Any]:
     per layer (stacked), the final norm."""
     if not cfg.tie_embeddings:
         raise ValueError(f"{cfg.name}: the port serves tied-embedding Mamba2")
-    n, d = cfg.n_layers, cfg.d_model
-    mixer = {k: ((n, *shape), kind) for k, (shape, kind) in mamba2_specs(cfg).items()}
+    d = cfg.d_model
     return {
         "embed": ((cfg.padded_vocab, d), "matrix"),
         "final_norm": ((d,), "ones"),
-        "layers": {"ln": ((n, d), "ones"), "mixer": mixer},
+        "layers": _mamba_blocks(cfg, (cfg.n_layers,)),
     }
+
+
+def _hybrid_specs(cfg: ModelConfig) -> dict[str, Any]:
+    """``HybridLM``'s tree, as the reference's ``HybridLM.param_specs`` lays
+    it out: the embedding (which also unembeds, whatever
+    ``tie_embeddings`` says), ``G = n_layers // shared_attn_every`` groups of
+    ``K = shared_attn_every`` Mamba2 blocks stacked ``(G, K, ...)``, one
+    shared transformer block, a norm gain per application ``(G, d)``, the
+    final norm and a tail of the ``n_layers - G K`` remaining blocks."""
+    d, k = cfg.d_model, cfg.shared_attn_every
+    g = cfg.n_layers // k
+    spec: dict[str, Any] = {
+        "embed": ((cfg.padded_vocab, d), "matrix"),
+        "groups": _mamba_blocks(cfg, (g, k)),
+        "shared_attn": _block_specs(cfg, (), {"mlp": _mlp_specs((), d, cfg.d_ff)}),
+        "app_norms": ((g, d), "ones"),
+        "final_norm": ((d,), "ones"),
+    }
+    if cfg.n_layers - g * k:
+        spec["tail"] = _mamba_blocks(cfg, (cfg.n_layers - g * k,))
+    return spec
 
 
 def _map_specs(fn, specs: dict, path: tuple[str, ...] = ()) -> dict:
@@ -140,10 +181,10 @@ def init_params(
             w = torch.randn(part, generator=gen, dtype=torch.float32, device=device)
             return w.mul_(std).to(out_dtype)
 
-        if path[0] != "moe_layers":
+        if path[0] != "moe_layers" and math.prod(shape) <= WHOLE_DRAW:
             return draw(shape)
         # a layer at a time: one stacked expert leaf of full-width
-        # qwen3-moe-30b-a3b is 38.7 GB in f32
+        # qwen3-moe-30b-a3b is 38.7 GB in f32, qwen2.5-32b's MLP leaves 36
         out = torch.empty(shape, dtype=out_dtype, device=device)
         for i in range(shape[0]):
             out[i] = draw(shape[1:])
@@ -152,27 +193,30 @@ def init_params(
     return _map_specs(make, param_specs(cfg))
 
 
+#: the port's bias leaves and the JAX kernels they belong to
+_BIAS_OF = {"bq": "wq", "bk": "wk", "bv": "wv"}
+_SCALES = ("ln", "norm", "ln1", "ln2", "q_norm", "k_norm", "app_norms")
+_SSM_KERNELS = ("wz", "wxBC", "wdt", "out_proj")
+
+
 def _jax_path(path: tuple[str, ...], family: str) -> tuple[str, ...]:
     """A port leaf's path in the JAX model's tree: ``TransformerLM``'s
-    (dense, moe) or ``MambaLM``'s (ssm)."""
+    (dense, moe), ``MambaLM``'s (ssm) or ``HybridLM``'s (hybrid)."""
     if path == ("embed",):
         return ("embed", "table")
-    if path == ("final_norm",):
-        return ("final_norm", "scale")
     if path == ("unembed",):
         return ("unembed", "kernel")
-    if family == "ssm":
-        if path[-1] in ("ln", "norm"):
-            return (*path, "scale")
-        if path[-1] in ("wz", "wxBC", "wdt", "out_proj"):
-            return (*path, "kernel")
-        return path  # conv_w, conv_b, A_log, D, dt_bias: bare arrays
-    stack = "dense_layers" if path[0] == "layers" else path[0]
-    inner = path[1:]
-    if inner[0] == "moe" and len(inner) == 2:
-        return (stack, *inner)  # router and stacked experts: bare arrays
-    leaf = "scale" if inner[-1] in ("ln1", "ln2", "q_norm", "k_norm") else "kernel"
-    return (stack, *inner, leaf)
+    if path[0] == "layers" and family in ("dense", "moe"):
+        path = ("dense_layers", *path[1:])
+    leaf = path[-1]
+    if leaf in _BIAS_OF:
+        return (*path[:-1], _BIAS_OF[leaf], "bias")
+    if leaf in _SCALES or path == ("final_norm",):
+        return (*path, "scale")
+    if path[-2] == "moe" or (path[-2] == "mixer" and leaf not in _SSM_KERNELS):
+        # the router and stacked experts; conv_w, conv_b, A_log, D, dt_bias
+        return path
+    return (*path, "kernel")
 
 
 def params_from_jax(
@@ -182,12 +226,14 @@ def params_from_jax(
     device: torch.device | str,
     dtype: torch.dtype = torch.bfloat16,
 ) -> dict[str, Any]:
-    """Convert the JAX package's ``TransformerLM`` or ``MambaLM``
-    parameters, given as numpy arrays (``jax.tree.map(np.asarray,
-    params)``), into the port's tree: layers stay stacked, kernels stay
+    """Convert the JAX package's ``TransformerLM``, ``MambaLM`` or
+    ``HybridLM`` parameters, given as numpy arrays
+    (``jax.tree.map(np.asarray, params)``), into the port's tree: layers
+    stay stacked (the hybrid's groups nested ``(G, K, ...)``), kernels stay
     ``(in, out)``, the embedding keeps its ``padded_vocab`` rows, and the
-    qk-norm scales and MoE router (dense, moe) or the conv, decay, skip and
-    dt-bias parameters (Mamba2) come across in f32 with the norm scales."""
+    q/k/v biases, qk-norm scales and MoE router or the conv, decay, skip
+    and dt-bias parameters (Mamba2) come across in f32 with the norm
+    scales."""
 
     def take(path, spec: Spec) -> torch.Tensor:
         node = tree

@@ -24,7 +24,11 @@ no spill.  The bootstrap partials (kernel 6) are also held at the
 default streaming chunk of 1,024 rows with seven metrics and past 64
 tiles of 64 rows, and BERTScore (kernel 7) at width 1,024 with 512 tokens
 a side and at width 37 (its 4-byte staging); both repeat bit for bit and
-spill nowhere.  Every case carries the ``gpu``
+spill nowhere.  The widened parts are held too: kernel 1 at head_dim 112
+(zamba2's G = 1, both warpgroup launches, the suffix bit-equality),
+kernel 2 at head_dim 112, kernel 8 at state 64 (zamba2's 112 heads), and
+kernels 1-4 at qwen2.5-32b's G = 5 (40 query heads over 8 KV heads), with
+the refusals of widths no kernel is built for.  Every case carries the ``gpu``
 marker and skips where there is no CUDA device.  The file imports no JAX,
 so it runs on a machine with the card and no JAX:
 
@@ -275,10 +279,10 @@ def test_paged_stale_slot_with_an_all_zero_table_at_max_len(cuda):
     assert _rowwise_ok(got, ref, 2**-7, 1e-3)
 
 
-def _ssd_case(cuda, b, slen, h, g, seed):
+def _ssd_case(cuda, b, slen, h, g, seed, n=128):
     """x, B and C as column views of one fused xBC row, as the model slices
-    them (P = 64, N = 128); dt post-softplus; a in [-e, -1]."""
-    p, n = 64, 128
+    them (P = 64, N = ``n``); dt post-softplus; a in [-e, -1]."""
+    p = 64
     gen = torch.Generator(device=cuda).manual_seed(seed)
     xbc = torch.randn((b, slen, h * p + 2 * g * n), generator=gen, device=cuda)
     xbc = xbc.to(torch.bfloat16)
@@ -670,3 +674,127 @@ def test_f32_decode_kernels_span_and_limits(cuda):
         assert lib.repro_decode_kernel_info(
             which, *(ctypes.byref(v) for v in vals)) == 0
         assert vals[1].value == 0 and vals[3].value >= 1
+
+
+# -- the widened parts: head_dim 112, state 64, G = 5 ---------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,kh,sq,sk,off,suffix", [
+    (32, 32, 12, 12, 0, 0), (32, 32, 478, 478, 0, 14), (32, 32, 64, 64, 0, 0),
+    (32, 32, 65, 65, 0, 0), (4, 2, 130, 300, 170, 0), (40, 8, 478, 478, 0, 14)])
+def test_flash_kernel_at_head_dim_112(cuda, h, kh, sq, sk, off, suffix):
+    """zamba2's width through both warpgroup launches, the K/V views of a
+    fused projection as the model slices them, and a suffix's rows
+    bit-equal to the full prefill's."""
+    d = 112
+    g = torch.Generator(device=cuda).manual_seed(sq + h)
+    q = torch.randn((1, sq, h, d), generator=g, device=cuda).to(torch.bfloat16)
+    kv = torch.randn((1, sk, 2, kh, d), generator=g, device=cuda)
+    k, v = kv.to(torch.bfloat16).unbind(2)
+    got = flash_attention(q, k, v, q_offset=off)
+    assert got.shape == q.shape
+    assert _rowwise_ok(got, flash_attention_ref(q, k, v, q_offset=off), 2**-7, 1e-2)
+    if suffix:
+        tail = flash_attention(q[:, sq - suffix:], k, v, q_offset=off + sq - suffix)
+        assert torch.equal(tail, got[:, sq - suffix:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g_heads,kh", [(1, 32), (4, 2), (8, 1)])
+def test_decode_kernel_at_head_dim_112(cuda, g_heads, kh):
+    """Lengths at the span's edges, over a cache of 512 rows of 112; a
+    sequence alone gives its bits among the rest; a repeat the same bits."""
+    s, d = 512, 112
+    lens = torch.tensor([1, s, 11, 45, SPAN - 1, SPAN, SPAN + 1, 2 * SPAN + 45, 479,
+                         509], dtype=torch.int32, device=cuda)
+    b = lens.numel()
+    gen = torch.Generator(device=cuda).manual_seed(100 + g_heads)
+    q = torch.randn((b, 1, kh * g_heads, d), generator=gen, device=cuda)
+    q = q.to(torch.bfloat16)
+    kc = torch.randn((b, s, kh, d), generator=gen, device=cuda)
+    vc = torch.randn((b, s, kh, d), generator=gen, device=cuda)
+    got = decode_attention(q, kc, vc, lens)
+    assert _rowwise_ok(got, decode_attention_ref(q, kc, vc, lens), 2**-7, 1e-3)
+    assert torch.equal(decode_attention(q, kc, vc, lens), got)
+    for i in (0, 4, 7):
+        alone = decode_attention(q[i:i + 1], kc[i:i + 1], vc[i:i + 1], lens[i:i + 1])
+        assert torch.equal(alone, got[i:i + 1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("slen", [1, 12, 256, 478, 1000])
+def test_ssd_kernel_at_state_64(cuda, g, slen):
+    """The gates of the state-128 rows at zamba2's state of 64."""
+    args = _ssd_case(cuda, 2, slen, 8, g, 50 + slen + g, n=64)
+    y, state = ssd(*args, chunk=256)
+    assert state.shape == (2, 8, 64, 64)
+    for ry, rstate in (ssd_chunked(*args, 256), ssd_ref(*args)):
+        assert _rowwise_ok(y, ry, 2**-7, 1e-3)
+        assert _rowwise_ok(state, rstate, 2**-10, 1e-4)
+    x, dt, a, bm, cm = args
+    y1, state1 = ssd(x[1:], dt[1:], a, bm[1:], cm[1:], chunk=256)
+    assert torch.equal(y1, y[1:]) and torch.equal(state1, state[1:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("slen", [12, 478])
+def test_ssd_kernel_at_zamba2_width(cuda, slen):
+    """zamba2-7b's scan (112 heads of 64, one group, state 64) at the
+    shapes ``chip_smoke.py`` holds: within the gates, repeatable."""
+    x, dt, a, bm, cm = _ssd_case(cuda, 2, slen, 112, 1, 9 + slen, n=64)
+    y, state = ssd(x, dt, a, bm, cm, chunk=256)
+    ry, rstate = ssd_chunked(x, dt, a, bm, cm, 256)
+    assert _rowwise_ok(y, ry, 2**-7, 1e-3)
+    assert _rowwise_ok(state, rstate, 2**-10, 1e-4)
+    y2, s2 = ssd(x, dt, a, bm, cm, chunk=256)
+    assert torch.equal(y2, y) and torch.equal(s2, state)
+
+
+@pytest.mark.gpu
+def test_g5_decode_kernels(cuda):
+    """qwen2.5-32b's G = 5 (40 query heads over 8 KV heads) through the GM = 8
+    instantiations: kernel 2 against its plain version, kernel 3 bit-equal
+    to it, kernel 4 against its plain version."""
+    q, kc, vc, lens = _f32_full(cuda, F32_LENS, 5, 512, 55)
+    got = decode_attention(q, kc, vc, lens)
+    assert _rowwise_ok(got, decode_attention_ref(q, kc, vc, lens), 2**-7, 1e-3)
+    kp, vp, tables = _paged_from(cuda, kc, vc, lens, 16, 5)
+    paged = paged_decode_attention(q, kp, vp, tables, lens)
+    assert torch.equal(paged, got)
+    qargs = _quant_full(cuda, MAIN_LENS, 16, g_heads=5, seed=5)
+    got = quant_paged_decode_attention(*qargs)
+    assert _rowwise_ok(got, quant_paged_decode_attention_ref(*qargs), 2**-7, 1e-3)
+
+
+@pytest.mark.gpu
+def test_widened_kernels_refuse_other_widths_and_do_not_spill(cuda):
+    """Widths no kernel is built for raise; the paged kernels stay at 128;
+    the d = 112 and N = 64 instantiations spill nowhere."""
+    import ctypes
+
+    from repro_torch.kernels import _cuda
+
+    lens = torch.ones(1, dtype=torch.int32, device=cuda)
+    for d in (96, 64):
+        q = torch.randn((1, 4, 2, d), device=cuda).to(torch.bfloat16)
+        with pytest.raises(ValueError):
+            flash_attention(q, q, q)
+        with pytest.raises(ValueError):
+            decode_attention(q[:, :1], q.float(), q.float(), lens)
+    q = torch.randn((1, 1, 2, 112), device=cuda).to(torch.bfloat16)
+    pool = torch.zeros((2, 16, 2, 112), device=cuda)
+    table = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        paged_decode_attention(q, pool, pool, table, lens)
+    with pytest.raises(ValueError):
+        ssd(*_ssd_case(cuda, 1, 12, 4, 1, 0, n=32))
+    lib = _cuda.library()
+    for fn, which in (("repro_flash_kernel_info", (3, 4)),
+                      ("repro_decode_kernel_info", (4, 5)),
+                      ("repro_ssd_kernel_info", (3, 4, 5))):
+        for w in which:
+            vals = [ctypes.c_int() for _ in range(4)]
+            assert getattr(lib, fn)(w, *(ctypes.byref(v) for v in vals)) == 0
+            assert vals[1].value == 0 and vals[3].value >= 1, (fn, w)
