@@ -34,7 +34,7 @@ runs the contiguous main path through the user's entry point,
 and checks that its kernels
 launched there, that the greedy tokens of a prompt do not depend on the
 batch around it, and that the logits are finite.  Phase 3 runs the paged
-path: ``run_task`` over few-shot prompts (a ~464-token header of worked
+path: ``run_task`` over 32 few-shot prompts (a ~464-token header of worked
 examples shared by every prompt) with the f32 page pool and prefix
 sharing, then with the int8 pool, and gates through ``infer_batch``: paged
 without sharing and paged under preemption give the contiguous engine's
@@ -67,12 +67,12 @@ test the paired bootstrap over kernel 6's replicates); the response cache
 single-flight over 64 rows of 16 prompts (16 engine calls, 48 coalesced);
 kernels 1, 2, 6, 7 and 8 must launch in the phase.  Phase 7, the harness
 around inference, runs in phase 2's session on its qwen3-4b engine (no new
-weights), over 32 rows (two chunks): (a) phase 2's task on the lock-step
+weights), over 16 rows (one chunk): (a) phase 2's task on the lock-step
 path (``use_service=False``, two workers, two shards a chunk) in memory
 and streaming over 16 rows (one chunk), bit for bit the service path's
 texts, scores, metrics and streaming state on the same rows, with its
 engine calls and cache counts, and the worker pool's counts filled; (b) the RAG task
-(``rag_examples(32)``, ``llm_judge``, the five RAG metrics,
+(``rag_examples(16)``, ``llm_judge``, the five RAG metrics,
 ``exact_match``) with the task's own engine as judge, the judge's launches
 of kernels 1 and 2 counted apart from the task's: every random-weight
 judge answer is unparseable and logged, each judge metric is the
@@ -122,7 +122,7 @@ texts, deadline expiries, hedges and cancelled losing legs, no slot held
 at close.  Phase 10, the MoE family, runs after every earlier session
 has closed: full-width qwen3-moe-30b-a3b (48 layers, 128 experts, top 8;
 56.9 GiB of random bf16 weights from seed 0, made once and shared by every
-engine of the phase, one cache alive at a time), each run_task over 32
+engine of the phase, one cache alive at a time), each run_task over 16
 rows, as in phases 11 and 12.  (a) ``run_task`` over phase 2's first
 rows on the contiguous cache (kernels 1, 2 and 6 launched), then phase 2's gates: batch invariance, finite logits, the
 step breakdowns with the expert products' share; (b) ``run_task`` over
@@ -136,18 +136,30 @@ dense family, runs after phase 10 has freed its weights: full-width
 qwen2.5-32b (64 layers, 40 / 8 heads of 128, untied vocab 152,064; 61
 GiB of random bf16 weights from seed 0, the MLP leaves drawn a layer at a
 time, and seeded random q/k/v biases in place of the reference's zeros,
-gated to move the logits), one cache alive at a time, over 32 rows: (a)
+gated to move the logits), one cache alive at a time, over 16 rows: (a)
 phase 2's task and gates, (b) phase 3's few-shot task on the f32 pool
 with sharing and the ``infer_batch`` gates, (c) the int8 pool.  Phase 12,
-the hybrid family, runs last: full-width zamba2-7b (81 Mamba2 layers, the
+the hybrid family, runs next: full-width zamba2-7b (81 Mamba2 layers, the
 shared attention and MLP block after every 6th: 13 applications and a
-tail of 3; 12.3 GiB of random bf16 weights) over 32 of phase 3's few-shot
+tail of 3; 12.3 GiB of random bf16 weights) over 16 of phase 3's few-shot
 prompts on the contiguous cache, with kernel 1 launched exactly 13 times
 a prompt, kernel 8 81 times and kernel 2 13 times a decode step; then
 phase 4's gates (batch invariance, a reused slot, the hand-off), a paged
 engine refused with the reference's error, and one shared-block
 application and one Mamba2 layer at full width through the kernels
-against the same layers through the plain versions.
+against the same layers through the plain versions.  Phase 13, the MLA
+family, runs last: full-width minicpm3-4b (62 layers, 40 heads, a query
+rank of 768, a KV latent of 256 and a rope key of 32 a token; 7.6 GiB of
+random bf16 weights) on the contiguous compressed cache: (a) ``run_task``
+over 32 of phase 2's rows, kernel 1 at (d_qk, d_v) = (96, 64) launched
+exactly 62 times a prompt and kernel 2 never (the absorbed decode is
+plain f32 products), then phase 2's engine gates; (b) ``run_task`` over 16
+of phase 3's few-shot prompts (kernel 1 at 478 tokens, two warpgroups),
+then a reused slot against a fresh engine; (c) a paged engine refused
+with the reference's error; (d) one MLA layer through kernel 1 against its
+plain version, and 4 decode steps after a prefill against full prefills.
+Phase 1 holds kernel 1 at (96, 64), 40 heads, and kernel 7 at 1,024
+tokens a side.
 
 Standard output: the card's name and power limit first, then log lines,
 then one ``{"kernels": [...]}`` line, and last the
@@ -188,10 +200,14 @@ MOE_HEADS, MOE_KV_HEADS = 32, 4
 N_ROWS, CHUNK, N_SLOTS, MAX_LEN, MAX_TOKENS, N_BOOT = 64, 16, 16, 1024, 32, 1000
 #: a main-path prompt's length (the QA prompts render to 10-13 tokens)
 PROMPT_LEN = 12
-#: the run_tasks of phases 10-12 (the largest models): two chunks, half of
-#: phase 2's rows, so that the script with three models of 7-33 B
-#: parameters stays within its time limit
-BIG_ROWS = 2 * CHUNK
+#: the depth of the later paths, so that the script stays within its time
+#: limit on a slow host (an NVIDIA H100 80GB HBM3 at 700 W whose host took
+#: 1,184.5 s after the build with phases 3-4 at 64 rows, phase 7 at 32 and
+#: phases 10-13 at 32, where another took 915.7 s): phase 3's and 4's
+#: run_tasks and phase 13 (a) run two chunks, half of phase 2's rows;
+#: phases 10-12 (three models of 7-33 B parameters) and phase 13 (b) one
+HALF_ROWS = 2 * CHUNK
+BIG_ROWS = CHUNK
 #: phase 3: tokens per KV page, and the few-shot header's token range
 PAGE_SIZE = 16
 HEADER_TOKENS = (448, 480)
@@ -220,9 +236,16 @@ ZAMBA_SSM_HEADS, ZAMBA_SSM_STATE = 112, 64
 #: prefill; phase 12's QA-length and few-shot prompts
 QWEN25_FLASH_SHAPES = (FLASH_SHAPES[0], (478, 478, 0), FLASH_SHAPES[-1])
 ZAMBA_FLASH_SHAPES = (FLASH_SHAPES[0], (478, 478, 0))
+#: phase 13's model, full-width minicpm3-4b, and its MLA prefill geometry:
+#: 40 heads (G = 1), Q and K of nope 64 + rope 32, V of 64; its QA-length
+#: and few-shot prompts (two consumer warpgroups)
+MINICPM = "minicpm3-4b"
+MLA_HEADS, MLA_QK_DIM, MLA_V_DIM = 40, 96, 64
+MLA_FLASH_SHAPES = (FLASH_SHAPES[0], (478, 478, 0))
 #: phase 5: BERTScore's default max_len and the hash embedder's width, the
-#: seven metrics (name, type), and the statistics API's sample size
-BERT_LEN, BERT_DIM = 64, 256
+#: seven metrics (name, type), and the statistics API's sample size; phase
+#: 1 also holds kernel 7 at ``max_len = BERT_LONG``, past its old limit of 512
+BERT_LEN, BERT_DIM, BERT_LONG = 64, 256, 1024
 METRICS = (("exact_match", "lexical"), ("contains", "lexical"),
            ("token_f1", "lexical"), ("bleu", "lexical"), ("rouge_l", "lexical"),
            ("embedding_similarity", "semantic"), ("bertscore", "semantic"))
@@ -338,14 +361,17 @@ def flash_cases(torch, fs):
                            dtype=torch.float32).to(torch.bfloat16)
 
     out = []
-    for (sq, sk, off), heads, kvh, d in (
-            [(shape, HEADS, KV_HEADS, HEAD_DIM) for shape in FLASH_SHAPES]
-            + [(shape, MOE_HEADS, MOE_KV_HEADS, HEAD_DIM) for shape in MOE_FLASH_SHAPES]
-            + [(shape, QWEN25_HEADS, QWEN25_KV_HEADS, HEAD_DIM)
+    for (sq, sk, off), heads, kvh, d, dv in (
+            [(shape, HEADS, KV_HEADS, HEAD_DIM, HEAD_DIM) for shape in FLASH_SHAPES]
+            + [(shape, MOE_HEADS, MOE_KV_HEADS, HEAD_DIM, HEAD_DIM)
+               for shape in MOE_FLASH_SHAPES]
+            + [(shape, QWEN25_HEADS, QWEN25_KV_HEADS, HEAD_DIM, HEAD_DIM)
                for shape in QWEN25_FLASH_SHAPES]
-            + [(shape, ZAMBA_HEADS, ZAMBA_HEADS, ZAMBA_HEAD_DIM)
-               for shape in ZAMBA_FLASH_SHAPES]):
-        q, k, v = rnd(sq, heads, d), rnd(sk, kvh, d), rnd(sk, kvh, d)
+            + [(shape, ZAMBA_HEADS, ZAMBA_HEADS, ZAMBA_HEAD_DIM, ZAMBA_HEAD_DIM)
+               for shape in ZAMBA_FLASH_SHAPES]
+            + [(shape, MLA_HEADS, MLA_HEADS, MLA_QK_DIM, MLA_V_DIM)
+               for shape in MLA_FLASH_SHAPES]):
+        q, k, v = rnd(sq, heads, d), rnd(sk, kvh, d), rnd(sk, kvh, dv)
         got = flash_attention(q, k, v, q_offset=off)
         ref = flash_attention_ref(q, k, v, q_offset=off)
         torch.cuda.synchronize()
@@ -354,16 +380,20 @@ def flash_cases(torch, fs):
         # value plus 1% of the row's largest output.  A 32-key tile dropped
         # from a 2,048-key row moves the output by ~10x that allowance.
         err, ratio = rowwise(torch, got, ref, 2**-7, 1e-2)
-        shape = (f"B=1 H={heads} K={kvh} d={d} Sq={sq} Sk={sk} "
+        width = f"d={d}" if d == dv else f"d_qk={d} d_v={dv}"
+        shape = (f"B=1 H={heads} K={kvh} {width} Sq={sq} Sk={sk} "
                  f"q_offset={off}")
         require(ratio <= 1.0, f"flash_attention {shape}: error/allowance {ratio:.3g}")
+        # 2 d_qk FLOPs a visible (query head, key) pair for Q K^T and 2 d_v
+        # for P V; Q and K read, V read and O written once, bf16
         pairs = sum(min(sk, off + i + 1) for i in range(sq))
-        nbytes = 2 * d * (2 * sq * heads + 2 * sk * kvh)
-        b_ms, b_by = bound(4 * d * pairs * heads, PEAK_BF16, nbytes)
+        nbytes = 2 * (d * (sq * heads + sk * kvh) + dv * (sk * kvh + sq * heads))
+        b_ms, b_by = bound(2 * (d + dv) * pairs * heads, PEAK_BF16, nbytes)
         kx, vx = (t.repeat_interleave(heads // kvh, dim=2) for t in (k, v))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, kx, vx))
         mask = (torch.arange(sq, device="cuda")[:, None] + off
                 >= torch.arange(sk, device="cuda")[None, :])
+        # SDPA takes a V width other than the Q/K width (E != Ev)
         sdpa = torch.nn.functional.scaled_dot_product_attention
         out.append({
             "name": "flash_attention",
@@ -425,7 +455,9 @@ def flash_cases(torch, fs):
                   {1: "flash_attention, 1 consumer warpgroup",
                    2: "flash_attention, 2 consumer warpgroups",
                    3: "flash_attention d=112, 1 consumer warpgroup",
-                   4: "flash_attention d=112, 2 consumer warpgroups"})
+                   4: "flash_attention d=112, 2 consumer warpgroups",
+                   5: "flash_attention d_qk=96 d_v=64, 1 consumer warpgroup",
+                   6: "flash_attention d_qk=96 d_v=64, 2 consumer warpgroups"})
     return out
 
 
@@ -464,42 +496,88 @@ def decode_cases(torch) -> list[dict]:
 
 
 def device_profile(torch, fn, kernels: int, calls: int = 10,
-                   tries: int = 3) -> float:
+                   tries: int = 6) -> float:
     """Device time (ms) of one call of ``fn``, every kernel it launches
     summed, from a ``torch.profiler`` trace of ``calls`` calls: the kernels
     alone, without the host time that CUDA events around a loop of short
     calls also measure.  ``kernels`` is the device kernels one call
-    launches.  A trace that holds another count is taken again, up to
-    ``tries`` times, and then fails: the profiler has dropped a kernel's
-    record, which reads the call short."""
+    launches.
+
+    The profiler now and then drops records, and sometimes a whole trace
+    comes back empty.  A trace that holds another count is taken again, a
+    moment later, up to ``tries`` times.  If none is whole, the call's time
+    is the sum over kernel names of each name's mean record time, over every
+    record of every trace, times its launches a call (the most records of
+    that name in one trace over ``calls``, rounded); that holds only where
+    those launches add up to ``kernels``, and otherwise the profile fails.
+    Where every trace came back empty, the profiler saw no device time at
+    all, and the time is the median of CUDA events around single calls on
+    an idle stream: the host's launch time is then in it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     counts = []
+    by_name: dict[str, list[float]] = {}
+    most: dict[str, int] = {}
     PROFILE_TRACES["profiles"] += 1
-    for _ in range(tries):
+    for attempt in range(tries):
+        if attempt:
+            time.sleep(0.5)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        spans = [e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA]
-        if len(spans) == kernels * calls:
-            return sum(spans) / 1e3 / calls
-        counts.append(len(spans))
+        records = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+        if len(records) == kernels * calls:
+            return sum(t for _, t in records) / 1e3 / calls
+        counts.append(len(records))
+        trace: dict[str, int] = {}
+        for name, t in records:
+            by_name.setdefault(name, []).append(t)
+            trace[name] = trace.get(name, 0) + 1
+        for name, n in trace.items():
+            most[name] = max(most.get(name, 0), n)
         PROFILE_TRACES["retakes"] += 1
-        log(f"device profile: a trace of {calls} calls held {len(spans)} device "
+        log(f"device profile: a trace of {calls} calls held {len(records)} device "
             f"records, not {kernels * calls}; taken again "
             f"({PROFILE_TRACES['retakes']} retake(s) so far)")
+    per_call = {name: round(n / calls) for name, n in most.items()}
+    if by_name and sum(per_call.values()) == kernels and all(per_call.values()):
+        PROFILE_TRACES["estimated"] += 1
+        ms = sum(per_call[name] * sum(ts) / len(ts)
+                 for name, ts in by_name.items()) / 1e3
+        log(f"device profile: no trace of {tries} was whole ({counts} records); "
+            f"{ms:.4g} ms a call from each kernel's mean record time over "
+            f"{sum(len(ts) for ts in by_name.values())} records "
+            f"({', '.join(f'{n} x {name[:40]}' for name, n in per_call.items())})")
+        return ms
+    if not by_name:
+        PROFILE_TRACES["events"] += 1
+        times = []
+        for _ in range(calls):
+            start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            torch.cuda.synchronize()
+            start.record()
+            fn()
+            stop.record()
+            stop.synchronize()
+            times.append(start.elapsed_time(stop))
+        ms = sorted(times)[calls // 2]
+        log(f"device profile: every one of {tries} traces was empty; {ms:.4g} ms a "
+            f"call from CUDA events around single calls (host launch time included)")
+        return ms
     raise CheckFailed(f"device profile: {counts} device records in {tries} traces "
                       f"of {calls} calls, not {kernels * calls} each")
 
 
-#: device profiles taken, and traces taken again because they were short of
-#: a device record (logged at the end of phase 1)
-PROFILE_TRACES = {"profiles": 0, "retakes": 0}
+#: device profiles taken, traces taken again because they were short of a
+#: device record, profiles read from per-kernel means because no trace was
+#: whole, and from CUDA events because every trace was empty (logged at the
+#: end of phase 1)
+PROFILE_TRACES = {"profiles": 0, "retakes": 0, "estimated": 0, "events": 0}
 
 
 def kernel_limits(lib_fn: str, names: dict[int, str]) -> None:
@@ -938,18 +1016,22 @@ def rel_check(torch, out, ref, rtol: float, atol: float) -> tuple[float, float]:
 def bertscore_cases(torch) -> list[dict]:
     """Kernel 7 at the semantic metric's widths (64 tokens a side, hash
     embeddings of 256) at B = 16 (phase 5's chunk), 1,024 (the reference's
-    default chunk) and 16,384.  Random embeddings stand in for the hash
-    vectors; each example keeps a random prefix of its tokens, and
+    default chunk) and 16,384, and at ``max_len = 1,024`` (B = 16).  Random
+    embeddings stand in for the hash vectors; each example keeps a random
+    prefix of its tokens (at 1,024, whole 64-row tiles past it empty), and
     examples 0-3 are the edges: an empty candidate, an empty reference,
-    both empty, and one pair at cosine -0.995 (F1 ~ 2e9)."""
+    both empty, and one pair at cosine -0.995 (F1 ~ 2e9); at 1,024, example
+    4 also keeps only candidate tokens 0-63 and 960-999."""
     from repro_torch.kernels.bertscore import bertscore, bertscore_pr, bertscore_ref
     from repro_torch.kernels.bertscore.ref import f1_from_pr
 
-    lc = lr = BERT_LEN
     d = BERT_DIM
     out = []
-    for b in (CHUNK, 1024, 16384):
-        g = torch.Generator(device="cuda").manual_seed(20 + b)
+    for b, lc in ((CHUNK, BERT_LEN), (1024, BERT_LEN), (16384, BERT_LEN),
+                  (CHUNK, BERT_LONG)):
+        lr = lc
+        # the 64-token rows keep the seeds they had
+        g = torch.Generator(device="cuda").manual_seed(20 + b + lc - BERT_LEN)
         cand = torch.randn((b, lc, d), generator=g, device="cuda")
         ref = torch.randn((b, lr, d), generator=g, device="cuda")
         nc = torch.randint(1, lc + 1, (b,), generator=g, device="cuda")
@@ -961,6 +1043,10 @@ def bertscore_cases(torch) -> list[dict]:
         ref[3, 0, 0], ref[3, 0, 1] = -0.995, (1 - 0.995**2) ** 0.5
         cm = (torch.arange(lc, device="cuda")[None, :] < nc[:, None]).float()
         rm = (torch.arange(lr, device="cuda")[None, :] < nr[:, None]).float()
+        if lc > 512 and b > 4:
+            cm[4].zero_()
+            cm[4, :64] = 1.0
+            cm[4, 960:1000] = 1.0
         args = (cand, ref, cm, rm)
         got = bertscore(*args)
         want = bertscore_ref(*args)
@@ -974,8 +1060,9 @@ def bertscore_cases(torch) -> list[dict]:
                   for a, w in zip(got[:2], want[:2])]
         require(bool(torch.equal(got[2], f1_from_pr(got[0], got[1]))),
                 "bertscore F1 is not the epilogue of the kernel's P and R")
-        shape = (f"B={b} Lc={lc} Lr={lr} D={d}, random prefix masks, 4 edge rows "
-                 f"(max_abs_err leaves out the -1e30 sentinel rows)")
+        holes = ", example 4 holed (tokens 0-63, 960-999)" if lc > 512 else ""
+        shape = (f"B={b} Lc={lc} Lr={lr} D={d}, random prefix masks, 4 edge rows"
+                 f"{holes} (max_abs_err leaves out the -1e30 sentinel rows)")
         ratio = max(r for _, r in checks)
         require(ratio <= 1.0, f"bertscore_pr {shape}: error/allowance {ratio:.3g}")
         require(1.9e9 < float(got[2][3]) < 2.1e9, f"bertscore_pr: F1 {got[2][3]}")
@@ -1099,7 +1186,9 @@ def kernel_phase(torch, fs) -> list[dict]:
         *bootstrap_means_cases(torch),
     ]
     log(f"phase 1 device profiles: {PROFILE_TRACES['profiles']} taken, "
-        f"{PROFILE_TRACES['retakes']} trace(s) taken again for a missing record")
+        f"{PROFILE_TRACES['retakes']} trace(s) taken again for a missing record, "
+        f"{PROFILE_TRACES['estimated']} read from per-kernel means, "
+        f"{PROFILE_TRACES['events']} from CUDA events")
     return entries
 
 
@@ -1703,10 +1792,11 @@ def paged_phase(torch, fs) -> dict[str, dict[str, int]]:
     log(f"phase 3 weights on the card in {time.perf_counter() - t0:.3f} s")
     torch.cuda.reset_peak_memory_stats()
     f32, _, tok_f32, _ = paged_run(torch, params, fs, "paged f32 path",
-                                   "paged_decode_attention", prefix_cache=True)
+                                   "paged_decode_attention", n_rows=HALF_ROWS,
+                                   prefix_cache=True)
     int8, _, tok_int8, _ = paged_run(torch, params, fs, "paged int8 path",
                                      "quant_paged_decode_attention",
-                                     kv_cache_dtype="int8")
+                                     n_rows=HALF_ROWS, kv_cache_dtype="int8")
     total = same = 0
     for rid, a in tok_f32.items():
         b = tok_int8[rid]
@@ -1772,8 +1862,9 @@ def handoff_gate(torch, b, prompt: list[int], length: int) -> None:
 
 def mamba_phase(torch, fs) -> dict[str, int]:
     """``run_task`` on full-width mamba2-2.7b (random bf16 weights from
-    seed 0) over phase 3's 64 few-shot prompts in chunks of 16, 16 slots,
-    32 new tokens; then the gates: one prefill of each prompt and 64 SSD
+    seed 0) over ``HALF_ROWS`` of phase 3's few-shot prompts in chunks of
+    16, 16 slots, 32 new tokens; then the gates: one prefill of each prompt
+    and 64 SSD
     launches each, finite logits, the greedy tokens of a prompt alone and
     among 16 slots, the prefill-to-decode hand-off at the prompt's length
     and at 2 tokens, and a slot reused for a 1-token prompt."""
@@ -1795,11 +1886,12 @@ def mamba_phase(torch, fs) -> dict[str, int]:
         engine = session.engine_for(task.model, task.inference)
         with Probe() as probe:
             launches, st, *_ = timed_run_task(
-                torch, session, task, ("ssd", "bootstrap_partials"), "mamba2 path")
-        require(st["admissions"] == N_ROWS, f"{st['admissions']} prefills")
-        require(launches["ssd"] == cfg.n_layers * N_ROWS,
+                torch, session, task, ("ssd", "bootstrap_partials"), "mamba2 path",
+                n_rows=HALF_ROWS)
+        require(st["admissions"] == HALF_ROWS, f"{st['admissions']} prefills")
+        require(launches["ssd"] == cfg.n_layers * HALF_ROWS,
                 f"ssd launched {launches['ssd']} times, not "
-                f"{cfg.n_layers} x {N_ROWS}")
+                f"{cfg.n_layers} x {HALF_ROWS}")
         require(int(probe.bad) == 0, "mamba2 path: logits hold NaN or inf")
         b = engine.batcher
         slot_bytes = (b.cache.conv[:, 0].numel() + b.cache.state[:, 0].numel()) * 4
@@ -2234,7 +2326,7 @@ def suite_phase(torch) -> tuple[dict[str, int], dict[str, dict[str, int]]]:
 #: task's metrics (name, type) and those of them that a judge grades; the
 #: sampling temperature; the relative gap under which a sampled slot's top
 #: two scores count as a tie
-PHASE7_ROWS = 32
+PHASE7_ROWS = CHUNK
 LOCKSTEP_WORKERS, LOCKSTEP_SHARD = 2, 8
 #: phase 7 (a)'s rows on both paths: one chunk of two shards (a lock-step
 #: run of 32 rows took ~40 s, which pushed the whole script past 600 s)
@@ -3504,6 +3596,222 @@ def zamba_phase(torch, fs) -> dict[str, int]:
     return launches
 
 
+# -- phase 13: the MLA family ------------------------------------------------------
+
+#: phase 13 (d): one MLA layer of the full-width weights through the prefill
+#: kernel against the same layer through its plain version, both bf16:
+#: phase 12's layer tolerance; the input's seed
+MLA_LAYER_TOL = 2.0**-6
+MLA_LAYER_SEED = 13
+#: phase 13 (d): tokens decoded after a prefill, each step's logits held to a
+#: full prefill of the same tokens.  The prefill attends through the
+#: decompressed K/V in bf16 (the kernel's P rounded to bf16), the decode in
+#: the latent space in f32, so the two round at other points through 62
+#: layers: phase 4's hand-off allowance, 15% of the largest logit, with the
+#: same control (a zeroed slot must move the logits 3x as far)
+MLA_DECODE_STEPS = 4
+
+
+def mla_layer_gate(torch, params, n_tok: int) -> None:
+    """Phase 13 (d), the layer: layer 0's MLA attention over ``n_tok``
+    bf16 hidden states sharing one direction, through kernel 1 at (96, 64)
+    against the same function through ``flash_attention_ref`` on the card;
+    the compressed rows it writes are the same either way."""
+    import repro_torch.models.attention as attn_mod
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.models import layers
+
+    cfg = get_config(MINICPM)
+    p = {k: v[0] for k, v in params["layers"]["attn"].items()}
+    g = torch.Generator(device="cuda").manual_seed(MLA_LAYER_SEED)
+    x = (torch.randn((1, n_tok, cfg.d_model), generator=g, device="cuda")
+         + 2.0 * torch.randn((cfg.d_model,), generator=g, device="cuda"))
+    x = x.to(torch.bfloat16)
+    rope = layers.rope_cos_sin(torch.arange(n_tok, device="cuda")[None, :],
+                               cfg.qk_rope_head_dim, cfg.rope_theta)
+    caches = [(torch.zeros((1, n_tok, cfg.kv_lora_rank), device="cuda"),
+               torch.zeros((1, n_tok, cfg.qk_rope_head_dim), device="cuda"))
+              for _ in range(2)]
+    got = attn_mod.mla_prefill(p, cfg, x, *caches[0], 0, rope)
+    flash = attn_mod.flash_attention_bshd
+    attn_mod.flash_attention_bshd = lambda q, k, v, q_offset=0: flash_attention_ref(
+        q, k, v, q_offset=q_offset)
+    try:
+        want = attn_mod.mla_prefill(p, cfg, x, *caches[1], 0, rope)
+    finally:
+        attn_mod.flash_attention_bshd = flash
+    torch.cuda.synchronize()
+    err, ratio = rowwise(torch, got, want, MLA_LAYER_TOL, MLA_LAYER_TOL)
+    require(ratio <= 1.0, f"phase 13 (d) MLA layer: error/allowance {ratio:.3g}")
+    require(all(bool(torch.equal(a, b)) for a, b in zip(*caches)),
+            "phase 13 (d): the compressed rows depend on the attention path")
+    log(f"phase 13 (d): MLA layer 0 over {n_tok} tokens, kernel 1 at (96, 64) "
+        f"against its plain version: err {err:.3g} (ratio {ratio:.3g}); the "
+        f"compressed rows equal")
+
+
+def mla_consistency_gate(torch, b, prompt: list[int]) -> None:
+    """Phase 13 (d), the decode: slot 0 prefilled with ``prompt``, then
+    ``MLA_DECODE_STEPS`` decode steps of every slot feeding the next
+    tokens; each step's logits of slot 0 against a full prefill of the
+    prompt and the tokens so far (into slot 1), and against the same step
+    from a zeroed slot 0 (the control)."""
+    n = len(prompt)
+    seq = prompt + [int(t) for t in torch.randint(
+        4, b.cfg.vocab_size, (MLA_DECODE_STEPS,),
+        generator=torch.Generator().manual_seed(MLA_LAYER_SEED))]
+    b.model.prefill(b.params, torch.tensor([prompt], device="cuda"), b.cache, 0)
+    worst, worst_cold, argmax_equal = 0.0, float("inf"), 0
+    for i in range(MLA_DECODE_STEPS):
+        toks = torch.zeros((N_SLOTS, 1), dtype=torch.int64, device="cuda")
+        toks[0, 0] = seq[n + i]
+        pos = torch.full((N_SLOTS,), n + i, device="cuda")
+        step = b.model.decode_step(b.params, toks, b.cache, pos)[:1]
+        full = b.model.prefill(b.params, torch.tensor([seq[: n + i + 1]], device="cuda"),
+                               b.cache, 1)
+        require(bool(torch.isfinite(step).all() and torch.isfinite(full).all()),
+                "phase 13 (d): decode-consistency logits hold NaN or inf")
+        scale = float(full.abs().max())
+        diff = float((step - full).abs().max())
+        worst = max(worst, diff / scale)
+        argmax_equal += int(step.argmax()) == int(full.argmax())
+        require(diff <= HANDOFF_TOL * scale,
+                f"phase 13 (d): decode step {i} {diff:.4g} > {HANDOFF_TOL} x {scale:.4g}")
+        if i == MLA_DECODE_STEPS - 1:
+            # the control: the same step from a zeroed slot 0
+            b.cache.c_kv[:, 0].zero_()
+            b.cache.k_rope[:, 0].zero_()
+            cold = b.model.decode_step(b.params, toks, b.cache, pos)[:1]
+            cold_diff = float((cold - full).abs().max())
+            worst_cold = cold_diff / scale
+            require(cold_diff >= HANDOFF_CONTROL * diff,
+                    f"phase 13 (d): a zeroed slot moves the logits by "
+                    f"{cold_diff:.4g}, under {HANDOFF_CONTROL} x {diff:.4g}")
+    log(f"phase 13 (d): {MLA_DECODE_STEPS} decode steps after a {n}-token prefill "
+        f"against full prefills: worst max |decode - prefill| {worst:.4f} of max "
+        f"|logit| (gate {HANDOFF_TOL}); argmax equal in {argmax_equal} of "
+        f"{MLA_DECODE_STEPS}; from a zeroed slot {worst_cold:.4f}")
+
+
+def minicpm_phase(torch, fs) -> dict[str, int]:
+    """Phase 13, the MLA family, after phase 12 has freed its weights:
+    full-width minicpm3-4b (62 layers, 40 heads, query rank 768, KV latent
+    256 + a rope key of 32, tied vocab 73,448) with random bf16 weights
+    (seed 0), one engine alive at a time.  (a) ``run_task`` over
+    ``HALF_ROWS`` of phase 2's QA rows on the contiguous (compressed) cache:
+    kernel 1 launched 62 times a prompt, kernel 2 never (the absorbed
+    decode runs in plain f32 products), kernel 6; then phase 2's engine
+    gates; (b) ``run_task`` over ``BIG_ROWS`` of phase 3's few-shot prompts
+    (kernel 1 at 478 tokens, two warpgroups), then a reused slot against a
+    fresh engine; (c) a paged engine refused with the reference's error;
+    (d) one MLA layer through kernel 1 against its plain version, and
+    decode against full prefills.  Returns (a)'s and (b)'s launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import EvalSession, InferenceRequest, TorchLocalEngine
+    from repro_torch.data import iter_qa_examples, render
+    from repro_torch.models import init_params
+
+    cfg = get_config(MINICPM)
+    log(f"phase 13: {gib(torch.cuda.memory_allocated())} allocated before the weights")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"phase 13 weights on the card in {time.perf_counter() - t0:.3f} s: "
+        f"{n_params / 1e9:.3f} B parameters, "
+        f"{gib(torch.cuda.memory_allocated())} allocated, "
+        f"{gib(torch.cuda.max_memory_allocated())} peak while made")
+    engine_kwargs = {"n_slots": N_SLOTS, "max_len": MAX_LEN, "params": params}
+    launches: dict[str, int] = {}
+    walls = []
+    with EvalSession(device="cuda", engine_kwargs=engine_kwargs) as session:
+        for label, template, n_rows in (("(a) QA prompts", None, HALF_ROWS),
+                                        ("(b) few-shot prompts", fs.template,
+                                         BIG_ROWS)):
+            t_run = time.perf_counter()
+            task = make_task(template, model_name=MINICPM)
+            engine = session.engine_for(task.model, task.inference)
+            with Probe() as probe:
+                got, st, *_ = timed_run_task(
+                    torch, session, task, ("flash_attention", "bootstrap_partials"),
+                    f"phase 13 {label}", n_rows=n_rows)
+            run = engine.serving_stats()
+            require(int(probe.bad) == 0, f"phase 13 {label}: logits hold NaN or inf")
+            prefills = len(probe.prefill_logits)
+            require(got["flash_attention"] == cfg.n_layers * prefills
+                    and prefills == n_rows and got["decode_attention"] == 0,
+                    f"phase 13 {label}: {prefills} prefills, launches {got}: kernel "
+                    f"1 not {cfg.n_layers} a prompt, or kernel 2 launched")
+            log(f"phase 13 {label}: kernel 1 launched {got['flash_attention']} = "
+                f"{cfg.n_layers} x {prefills} prefills, kernel 2 "
+                f"{got['decode_attention']}; {run['admissions']} admissions so far")
+            for name, n in got.items():
+                launches[name] = launches.get(name, 0) + n
+            if template is None:
+                engine_gates(torch, engine, task, "phase 13 (a)")
+            walls.append(time.perf_counter() - t_run)
+        # (b)'s slot reuse: a 1-token prompt in a slot that held a few-shot
+        # prompt against a fresh engine
+        t_reuse = time.perf_counter()
+        short = InferenceRequest("", MAX_TOKENS)
+        (reused,) = engine.infer_batch([short])
+        fresh_engine = TorchLocalEngine(task.model, n_slots=N_SLOTS, max_len=MAX_LEN,
+                                        device="cuda", params=params)
+        fresh_engine.initialize()
+        fresh_engine._tokenizer = engine._tokenizer
+        (fresh,) = fresh_engine.infer_batch([short])
+        require(reused.input_tokens == 1 and reused.text == fresh.text
+                and reused.output_tokens == fresh.output_tokens,
+                f"phase 13 reused slot: {reused.text!r} vs fresh engine {fresh.text!r}")
+        fresh_engine.shutdown()
+        del fresh_engine
+        free_cuda(torch)
+        log(f"phase 13 slot reuse: a 1-token prompt in a slot that held a "
+            f"{fs.prompt_len}-token prompt gives the fresh engine's "
+            f"{fresh.output_tokens} tokens")
+        walls[-1] += time.perf_counter() - t_reuse
+        b = engine.batcher
+        slot = b.cache.c_kv[:, 0].numel() + b.cache.k_rope[:, 0].numel()
+        log(f"phase 13 cache: {slot * 4 / MAX_LEN:.0f} bytes a token, "
+            f"{gib(4 * (b.cache.c_kv.numel() + b.cache.k_rope.numel()))} for "
+            f"{N_SLOTS} slots x {MAX_LEN} rows; {serving_clean(session, 'phase 13')}")
+        t_d = time.perf_counter()
+        rows = list(iter_qa_examples(1, seed=0))
+        prompt = engine._tokenizer.encode(render(fs.template, rows[0]))
+        mla_consistency_gate(torch, b, prompt)
+        del b, engine
+    free_cuda(torch)
+
+    t_c = time.perf_counter()
+    paged = TorchLocalEngine(task.model, n_slots=N_SLOTS, max_len=MAX_LEN,
+                             device="cuda", params=params, kv_page_size=PAGE_SIZE)
+    try:
+        paged.initialize()
+    except ValueError as e:
+        require(str(e) == "paged KV cache supports GQA attention families "
+                "('dense', 'moe'), not dense with MLA",
+                f"phase 13 (c): another error: {e}")
+        log(f"phase 13 (c): a paged engine raises the reference's error: {e}")
+    else:
+        raise CheckFailed("phase 13 (c): a paged MLA engine was built")
+    t_l = time.perf_counter()
+    mla_layer_gate(torch, params, fs.prompt_len)
+    log(f"phase 13 walls: (a) {walls[0]:.1f} s, (b) {walls[1]:.1f} s, (c) "
+        f"{t_l - t_c:.1f} s, (d) {t_c - t_d + time.perf_counter() - t_l:.1f} s; "
+        f"{gib(torch.cuda.max_memory_allocated())} peak allocated")
+    return launches
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
 def main() -> int:
     import torch
 
@@ -3554,6 +3862,7 @@ def main() -> int:
         moe_runs = timed("phase 10", moe_phase, torch, fs)
         qwen25_runs = timed("phase 11", qwen25_phase, torch, fs)
         hybrid = timed("phase 12", zamba_phase, torch, fs)
+        mla = timed("phase 13", minicpm_phase, torch, fs)
     except CheckFailed as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -3575,6 +3884,8 @@ def main() -> int:
                                                     *qwen25_runs.values()))
     for name in ("flash_attention", "decode_attention", "ssd"):
         launches[name] += hybrid[name]
+    # and phase 13's on minicpm3-4b for kernel 1 (kernel 2 launches none)
+    launches["flash_attention"] += mla["flash_attention"]
     for e in entries:
         e["launches"] = launches[e["name"]]
     for e in entries:
@@ -3583,7 +3894,7 @@ def main() -> int:
                 print(f"chip_smoke: FAIL: {e['name']} {key} = {e[key]}",
                       file=sys.stderr)
                 return 1
-    log(f"phases 1-12 took {time.perf_counter() - t_start:.1f} s after the build")
+    log(f"phases 1-13 took {time.perf_counter() - t_start:.1f} s after the build")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

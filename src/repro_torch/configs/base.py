@@ -1,5 +1,5 @@
-"""Model configuration schema: the port's copy of the dense, MoE, SSM and
-hybrid parts of ``repro/configs/base.py`` (the JAX package's
+"""Model configuration schema: the port's copy of the dense, MLA, MoE, SSM
+and hybrid parts of ``repro/configs/base.py`` (the JAX package's
 ``ModelConfig``)."""
 
 from __future__ import annotations
@@ -30,6 +30,14 @@ class ModelConfig:
     tie_embeddings: bool = False
     norm_eps: float = 1e-6
     rope_theta: float = 1_000_000.0
+
+    # --- MLA (multi-head latent attention) ---------------------------------
+    use_mla: bool = False
+    q_lora_rank: int = 0  # 0 -> no q compression
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
 
     # --- MoE ----------------------------------------------------------------
     n_experts: int = 0
@@ -91,4 +99,8 @@ class ModelConfig:
             kw.update(n_experts=8, n_experts_per_token=2, moe_d_ff=64,
                       n_shared_experts=min(self.n_shared_experts, 1),
                       first_k_dense=min(self.first_k_dense, 1), dense_d_ff=128)
+        if self.use_mla:
+            kw.update(q_lora_rank=32 if self.q_lora_rank else 0,
+                      kv_lora_rank=32, qk_nope_head_dim=16,
+                      qk_rope_head_dim=8, v_head_dim=16)
         return self.replace(**kw)

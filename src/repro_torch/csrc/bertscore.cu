@@ -18,7 +18,11 @@
 // blocks and an example's P and R are the same bits alone or in any
 // batch.  It walks (64-row candidate tile, 64-row reference tile) pairs;
 // the running row maxima and column maxima of the whole example live in
-// shared memory, so the (Lc, Lr) matrix never reaches device memory.  What
+// shared memory, so the (Lc, Lr) matrix never reaches device memory.
+// They, the rows' inverse norms and the masks are sized at launch: 9 bytes
+// a token of either side in dynamic shared memory beside the static
+// cp.async ring, so the longest example is what the card's opt-in shared
+// memory leaves over (Lc + Lr <= 21,731 on compute capability 9.0).  What
 // the design does about what held the first version (scalar f32 FMA bound
 // by the shared-memory load rate, every embedding read twice, scalar
 // staging with nothing in flight, maxima through a shared tile scanned by
@@ -32,9 +36,10 @@
 //     all 64 reference rows (8 accumulator tiles of 16 x 8);
 //   - 32-column slices of both tiles are staged by cp.async, 16 bytes a
 //     thread (4 bytes where D % 4 != 0), into a ring of 2 stages, so the
-//     next slice is in flight while this one is multiplied (45 KB of
-//     shared memory, 4 blocks an SM; a ring of 3 at 3 blocks an SM was
-//     slower in a probe);
+//     next slice is in flight while this one is multiplied (a 36 KB
+//     ring; with the per-token arrays 45 KB a block when they were fixed
+//     at 512 tokens a side, 4 blocks an SM; a ring of 3 at 3 blocks an SM
+//     was slower in a probe);
 //   - each row's squared norm is summed from the staged slices, in column
 //     order, the first time its tile is staged (thread t: candidate row t,
 //     reference row t - 64), so no embedding is read twice for it; the dot
@@ -50,16 +55,16 @@
 //     order, then a fixed shuffle tree.
 // Masked pairs and pairs past the edge take exactly -1e30.
 //
-// Limits: 1 <= Lc, Lr <= 512 (the per-example maxima in shared memory) and
-// 1 <= D <= 1024; the wrapper raises outside them.
+// Limits: Lc, Lr >= 1 with 9 (Lc + Lr) bytes within the opt-in shared
+// memory left beside the ring (repro_bertscore_smem), and any D >= 1 (D is
+// walked in 32-column slices); the wrapper raises outside them.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int MAXL = 512;   // tokens per side
-constexpr int MAXD = 1024;  // embedding width
+constexpr int TOKEN_BYTES = 9;  // inverse norm, maximum (4 bytes each), mask
 constexpr int T = 64;       // rows per candidate tile and per reference tile
 constexpr int DK = 32;      // embedding columns a stage
 constexpr int LDS = DK + 4; // a staged row's stride: conflict-free fragments
@@ -157,10 +162,14 @@ bertscore_kernel(const float* __restrict__ cand, const float* __restrict__ ref,
                  int lc, int lr, int d, float* __restrict__ p_out,
                  float* __restrict__ r_out) {
   __shared__ __align__(16) Stage stages[STAGES];
-  __shared__ float inv_c[MAXL], inv_r[MAXL];
-  __shared__ float rowmax[MAXL];
-  __shared__ uint32_t colkey[MAXL];
-  __shared__ bool valid_c[MAXL], valid_r[MAXL];
+  // per token, sized at launch: f32 arrays first, then the byte masks
+  extern __shared__ __align__(16) float per_token[];
+  float* inv_c = per_token;
+  float* inv_r = inv_c + lc;
+  float* rowmax = inv_r + lr;
+  uint32_t* colkey = reinterpret_cast<uint32_t*>(rowmax + lc);
+  bool* valid_c = reinterpret_cast<bool*>(colkey + lr);
+  bool* valid_r = valid_c + lc;
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -309,7 +318,34 @@ const void* kernel_fn(bool vec) {
              : reinterpret_cast<const void*>(bertscore_kernel<false>);
 }
 
+// Dynamic shared memory of an example of lc + lr tokens, in bytes (the
+// tokens counted in int64 so that no length overflows the product).
+int64_t token_bytes(int lc, int lr) {
+  return static_cast<int64_t>(TOKEN_BYTES) * (static_cast<int64_t>(lc) + lr);
+}
+
+// The current device's opt-in shared memory a block, and the ring's.
+cudaError_t smem_limits(int* optin, int* ring) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel_fn(true));
+  if (err == cudaSuccess) *ring = static_cast<int>(attr.sharedSizeBytes);
+  return err;
+}
+
 }  // namespace
+
+// The shared memory of an example of lc + lr tokens on the current device:
+// its dynamic bytes, the static ring's and the card's opt-in limit a block.
+// The kernel takes the example where dynamic + ring <= opt-in.
+extern "C" int repro_bertscore_smem(int lc, int lr, int64_t* dynamic_bytes,
+                                    int* ring_bytes, int* optin_bytes) {
+  *dynamic_bytes = token_bytes(lc, lr);
+  return static_cast<int>(smem_limits(optin_bytes, ring_bytes));
+}
 
 // cand (B, Lc, D), ref (B, Lr, D), cmask (B, Lc), rmask (B, Lr): contiguous
 // f32, masks 0/1.  p, r: (B,) f32 outputs.  Returns the launch's cudaError_t.
@@ -317,27 +353,42 @@ extern "C" int repro_bertscore_pr(const void* cand, const void* ref,
                                   const void* cmask, const void* rmask, int b,
                                   int lc, int lr, int d, void* p, void* r,
                                   void* stream) {
-  if (b <= 0 || lc < 1 || lc > MAXL || lr < 1 || lr > MAXL || d < 1 || d > MAXD)
+  if (b <= 0 || lc < 1 || lr < 1 || d < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  int optin = 0, ring = 0;
+  cudaError_t err = smem_limits(&optin, &ring);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t dyn = token_bytes(lc, lr);
+  if (dyn + ring > optin) return static_cast<int>(cudaErrorInvalidValue);
   const bool vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(cand) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(ref) % 16 == 0;
+  // past the default 48 KB a block the launch needs the opt-in attribute
+  if (dyn + ring > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel_fn(vec),
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(dyn));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* c = static_cast<const float*>(cand);
   const float* rf = static_cast<const float*>(ref);
   const float* cm = static_cast<const float*>(cmask);
   const float* rm = static_cast<const float*>(rmask);
   if (vec)
-    bertscore_kernel<true><<<b, NT, 0, s>>>(c, rf, cm, rm, lc, lr, d,
-                                            static_cast<float*>(p), static_cast<float*>(r));
+    bertscore_kernel<true><<<b, NT, dyn, s>>>(c, rf, cm, rm, lc, lr, d,
+                                              static_cast<float*>(p),
+                                              static_cast<float*>(r));
   else
-    bertscore_kernel<false><<<b, NT, 0, s>>>(c, rf, cm, rm, lc, lr, d,
-                                             static_cast<float*>(p), static_cast<float*>(r));
+    bertscore_kernel<false><<<b, NT, dyn, s>>>(c, rf, cm, rm, lc, lr, d,
+                                               static_cast<float*>(p),
+                                               static_cast<float*>(r));
   return static_cast<int>(cudaGetLastError());
 }
 
-// Registers, local (spill) bytes a thread, shared memory a block and
-// resident blocks an SM of the kernel with 16-byte staging (which = 0) or
-// 4-byte staging (which = 1), as the runtime reports them.
+// Registers, local (spill) bytes a thread, static shared memory a block and
+// resident blocks an SM (at the 64 + 64 tokens of the metric's default) of
+// the kernel with 16-byte staging (which = 0) or 4-byte staging (which =
+// 1), as the runtime reports them.
 extern "C" int repro_bertscore_kernel_info(int which, int* regs, int* local_bytes,
                                            int* smem_bytes, int* blocks_per_sm) {
   if (which < 0 || which > 1) return static_cast<int>(cudaErrorInvalidValue);
@@ -345,7 +396,8 @@ extern "C" int repro_bertscore_kernel_info(int which, int* regs, int* local_byte
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, fn);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, NT, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, fn, NT, static_cast<size_t>(token_bytes(64, 64)));
   if (err != cudaSuccess) return static_cast<int>(err);
   *regs = attr.numRegs;
   *local_bytes = static_cast<int>(attr.localSizeBytes);

@@ -56,6 +56,17 @@
 // writes 14 16-byte chunks a row instead of 16.  The d = 128 instantiation
 // is the code it was.
 //
+// MLA's decompressed heads (minicpm3): Q and K of width 96 (64 nope + 32
+// rope columns), V of width 64.  The kernel is a template on the Q/K width
+// DQK and the V width DV; (128, 128) and (112, 112) compute what the one
+// width did.  At (96, 64) the layout stays that of 128 columns: Q's and K's
+// tensor maps have inner extent 96, so TMA zero-fills columns 96-127 of
+// their second box and Q K^T takes 6 k16 steps.  V's map has inner extent
+// 64 and its second 64-column half is never loaded: those shared-memory
+// columns hold stale bytes, which P V carries only into output columns
+// 64-127 (a column of P V reads only its own column of V), and the store
+// writes 8 16-byte chunks a row, so no such column leaves the block.
+//
 // Numerics: bf16 operands, f32 accumulation and softmax.  The unnormalised
 // probabilities are rounded to bf16 for P V and the row sum adds those
 // same rounded values, so the final division normalises exactly what was
@@ -238,7 +249,7 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], uint32_t a0,
 // column 8j + 2 * (lane % 4) + (e & 1).  The A fragment of one k16 step of
 // P V is the same pattern over 16 columns, so S's elements 8k .. 8k + 7
 // packed in pairs are exactly P's registers for keys 16k .. 16k + 15.
-template <int NWG, int DH>
+template <int NWG, int DQK, int DV>
 __global__ void __launch_bounds__(NWG * 128 + 32, 1)
 flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
@@ -295,9 +306,9 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
         mbar_expect_tx(bar_k + 8 * s, KV_TILE);
         tma_load(kd, &tm_k, bar_k + 8 * s, 0, j * BN, kh, b);
         tma_load(kd + KV_HALF, &tm_k, bar_k + 8 * s, 64, j * BN, kh, b);
-        mbar_expect_tx(bar_v + 8 * s, KV_TILE);
+        mbar_expect_tx(bar_v + 8 * s, DV > 64 ? KV_TILE : KV_HALF);
         tma_load(vd, &tm_v, bar_v + 8 * s, 0, j * BN, kh, b);
-        tma_load(vd + KV_HALF, &tm_v, bar_v + 8 * s, 64, j * BN, kh, b);
+        if (DV > 64) tma_load(vd + KV_HALF, &tm_v, bar_v + 8 * s, 64, j * BN, kh, b);
       }
     }
     return;
@@ -331,11 +342,11 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
     const uint32_t parity = (j / NSTAGE) & 1;
     mbar_wait(bar_k + 8 * s, parity);
     if (j < wg_tiles) {
-      // S = Q K^T: DH / 16 k16 steps over d, 4 in the first 64-column half
+      // S = Q K^T: DQK / 16 k16 steps over d, 4 in the first 64-column half
       const uint32_t k_sm = base + L::k + s * KV_TILE;
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk) {
+      for (int kk = 0; kk < DQK / 16; ++kk) {
         const uint32_t off = (kk % 4) * 32;  // 16 columns = 32 bytes
         wgmma_ss_n128(sacc,
                       sw128_desc(q_sm + (kk / 4) * Q_HALF + off, 16, 1024),
@@ -420,7 +431,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
   uint8_t* stage = smem + L::q + wg * 2 * Q_HALF;
   wg_sync(wg);  // every warp of this warpgroup is done reading Q
 #pragma unroll
-  for (int jn = 0; jn < DH / 8; ++jn) {
+  for (int jn = 0; jn < DV / 8; ++jn) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int r = r0 + 8 * e;
@@ -432,8 +443,8 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
   }
   wg_sync(wg);
-  for (int idx = t; idx < WG_ROWS * (DH / 8); idx += 128) {
-    const int r = idx / (DH / 8), c = idx % (DH / 8);
+  for (int idx = t; idx < WG_ROWS * (DV / 8); idx += 128) {
+    const int r = idx / (DV / 8), c = idx % (DV / 8);
     const int qrow = row0 + r;
     if (qrow < sq)
       *reinterpret_cast<uint4*>(o + b * o_sb + qrow * o_ss + h * o_sh + c * 8) =
@@ -533,7 +544,7 @@ bool make_map(CUtensorMap* map, const void* ptr, int dim, int batch, int seq,
   return true;
 }
 
-template <int NWG, int DH>
+template <int NWG, int DQK, int DV>
 cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
                    const CUtensorMap& tv, void* o, int batch, int sq, int sk,
                    int n_heads, int group, const int64_t* st, int q_offset,
@@ -541,14 +552,14 @@ cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_prefill_kernel<NWG, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_prefill_kernel<NWG, DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         Smem<NWG>::bytes);
     if (err != cudaSuccess) return err;
     configured = true;
   }
   const int n_qtiles = (sq + NWG * WG_ROWS - 1) / (NWG * WG_ROWS);
   const dim3 grid(n_heads * batch, n_qtiles);
-  flash_prefill_kernel<NWG, DH><<<grid, NWG * 128 + 32, Smem<NWG>::bytes, stream>>>(
+  flash_prefill_kernel<NWG, DQK, DV><<<grid, NWG * 128 + 32, Smem<NWG>::bytes, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), sq, sk, n_heads, group,
       n_qtiles, st[9], st[10], st[11], q_offset, scale_log2);
   return cudaGetLastError();
@@ -557,17 +568,21 @@ cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
 }  // namespace
 
 // What limits the kernel with `which` consumer warpgroups at d = 128 (1 or
-// 2), or `which - 2` at d = 112 (3 or 4): registers a thread, local (stack
-// and spill) bytes a thread, dynamic shared memory a block, and blocks
-// resident on one SM.  Returns the queries' cudaError_t.
+// 2), or `which - 2` at d = 112 (3 or 4), or `which - 4` at (d_qk, d_v) =
+// (96, 64) (5 or 6): registers a thread, local (stack and spill) bytes a
+// thread, dynamic shared memory a block, and blocks resident on one SM.
+// Returns the queries' cudaError_t.
 extern "C" int repro_flash_kernel_info(int which, int* regs,
                                        int* local_bytes, int* smem_bytes,
                                        int* blocks_per_sm) {
-  const void* fns[4] = {reinterpret_cast<const void*>(flash_prefill_kernel<1, 128>),
-                        reinterpret_cast<const void*>(flash_prefill_kernel<2, 128>),
-                        reinterpret_cast<const void*>(flash_prefill_kernel<1, 112>),
-                        reinterpret_cast<const void*>(flash_prefill_kernel<2, 112>)};
-  if (which < 1 || which > 4) return static_cast<int>(cudaErrorInvalidValue);
+  const void* fns[6] = {
+      reinterpret_cast<const void*>(flash_prefill_kernel<1, 128, 128>),
+      reinterpret_cast<const void*>(flash_prefill_kernel<2, 128, 128>),
+      reinterpret_cast<const void*>(flash_prefill_kernel<1, 112, 112>),
+      reinterpret_cast<const void*>(flash_prefill_kernel<2, 112, 112>),
+      reinterpret_cast<const void*>(flash_prefill_kernel<1, 96, 64>),
+      reinterpret_cast<const void*>(flash_prefill_kernel<2, 96, 64>)};
+  if (which < 1 || which > 6) return static_cast<int>(cudaErrorInvalidValue);
   const int warpgroups = (which - 1) % 2 + 1;
   const void* fn = fns[which - 1];
   const int smem = warpgroups == 1 ? Smem<1>::bytes : Smem<2>::bytes;
@@ -585,37 +600,40 @@ extern "C" int repro_flash_kernel_info(int which, int* regs,
   return static_cast<int>(cudaSuccess);
 }
 
-// q (B, Sq, H, d), k and v (B, Sk, K, d), o (B, Sq, H, d): bf16, d = 128
-// or 112, unit stride on d, 16-byte aligned rows.  strides[12] holds the (batch,
-// seq, head) strides of q, k, v, o in elements.  Returns the launch's
+// q (B, Sq, H, d_qk), k (B, Sk, K, d_qk), v (B, Sk, K, d_v), o (B, Sq, H,
+// d_v): bf16, (d_qk, d_v) = (128, 128), (112, 112) or (96, 64), unit
+// stride on d, 16-byte aligned rows.  strides[12] holds the (batch, seq,
+// head) strides of q, k, v, o in elements.  Returns the launch's
 // cudaError_t.
 extern "C" int repro_flash_prefill_bf16(const void* q, const void* k,
                                         const void* v, void* o, int batch,
                                         int sq, int sk, int n_heads,
-                                        int n_kv_heads, int head_dim,
+                                        int n_kv_heads, int d_qk, int d_v,
                                         const int64_t* strides, int q_offset,
                                         float scale, void* stream) {
+  const bool widths = (d_qk == 128 && d_v == 128) || (d_qk == 112 && d_v == 112) ||
+                      (d_qk == 96 && d_v == 64);
   if (batch <= 0 || sq <= 0 || sk <= 0 || n_kv_heads <= 0 ||
-      n_heads % n_kv_heads != 0 || q_offset < 0 ||
-      (head_dim != 128 && head_dim != 112))
+      n_heads % n_kv_heads != 0 || q_offset < 0 || !widths)
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t* st = strides;
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, head_dim, batch, sq, n_heads, st[0], st[1], st[2],
-                WG_ROWS) ||
-      !make_map(&tk, k, head_dim, batch, sk, n_kv_heads, st[3], st[4], st[5], BN) ||
-      !make_map(&tv, v, head_dim, batch, sk, n_kv_heads, st[6], st[7], st[8], BN))
+  if (!make_map(&tq, q, d_qk, batch, sq, n_heads, st[0], st[1], st[2], WG_ROWS) ||
+      !make_map(&tk, k, d_qk, batch, sk, n_kv_heads, st[3], st[4], st[5], BN) ||
+      !make_map(&tv, v, d_v, batch, sk, n_kv_heads, st[6], st[7], st[8], BN))
     return static_cast<int>(cudaErrorInvalidValue);
   const int group = n_heads / n_kv_heads;
   const float scale_log2 = scale * LOG2E;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_FLASH_LAUNCH(NWG, DH)                                             \
-  launch<NWG, DH>(tq, tk, tv, o, batch, sq, sk, n_heads, group, st, q_offset, \
-                  scale_log2, s)
+#define REPRO_FLASH_LAUNCH(NWG, DQK, DV)                                            \
+  launch<NWG, DQK, DV>(tq, tk, tv, o, batch, sq, sk, n_heads, group, st, q_offset, \
+                       scale_log2, s)
+  const bool two = sq > WG_ROWS;
   const cudaError_t err =
-      head_dim == 128
-          ? (sq > WG_ROWS ? REPRO_FLASH_LAUNCH(2, 128) : REPRO_FLASH_LAUNCH(1, 128))
-          : (sq > WG_ROWS ? REPRO_FLASH_LAUNCH(2, 112) : REPRO_FLASH_LAUNCH(1, 112));
+      d_qk == 128 ? (two ? REPRO_FLASH_LAUNCH(2, 128, 128) : REPRO_FLASH_LAUNCH(1, 128, 128))
+      : d_qk == 112
+          ? (two ? REPRO_FLASH_LAUNCH(2, 112, 112) : REPRO_FLASH_LAUNCH(1, 112, 112))
+          : (two ? REPRO_FLASH_LAUNCH(2, 96, 64) : REPRO_FLASH_LAUNCH(1, 96, 64));
 #undef REPRO_FLASH_LAUNCH
   return static_cast<int>(err);
 }

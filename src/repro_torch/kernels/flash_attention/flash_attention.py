@@ -9,21 +9,24 @@ import torch
 
 from repro_torch.kernels import _cuda
 
-#: the head widths the kernel is built for: qwen3's and qwen2.5's, zamba2's
-HEAD_DIMS = (128, 112)
+#: the (Q/K width, V width) pairs the kernel is built for: qwen3's and
+#: qwen2.5's, zamba2's, and MLA's decompressed heads (minicpm3: nope 64 +
+#: rope 32 for Q and K, 64 for V)
+HEAD_DIMS = ((128, 128), (112, 112), (96, 64))
 
 
 def flash_attention(
-    q: torch.Tensor,  # (B, Sq, H, d) bf16, CUDA
-    k: torch.Tensor,  # (B, Sk, K, d)
-    v: torch.Tensor,  # (B, Sk, K, d)
+    q: torch.Tensor,  # (B, Sq, H, d_qk) bf16, CUDA
+    k: torch.Tensor,  # (B, Sk, K, d_qk)
+    v: torch.Tensor,  # (B, Sk, K, d_v)
     *,
     q_offset: int = 0,
 ) -> torch.Tensor:
-    """Causal GQA attention on the card: query ``i`` sits at position
-    ``q_offset + i`` and sees keys ``0 .. q_offset + i``.  Any ``Sq`` and
-    ``Sk``; ``d`` in :data:`HEAD_DIMS`; strided (B, S, heads, d) views with
-    unit stride on ``d``.  Returns (B, Sq, H, d) bf16."""
+    """Causal GQA attention on the card at scale ``d_qk ** -0.5``: query
+    ``i`` sits at position ``q_offset + i`` and sees keys ``0 .. q_offset +
+    i``.  Any ``Sq`` and ``Sk``; ``(d_qk, d_v)`` in :data:`HEAD_DIMS`;
+    strided (B, S, heads, d) views with unit stride on ``d``.  Returns (B,
+    Sq, H, d_v) bf16."""
     qs, ks, vs = q.stride(), k.stride(), v.stride()
     for name, t, st in (("q", q, qs), ("k", k, ks), ("v", v, vs)):
         _cuda.require_cuda(t, name, torch.bfloat16)
@@ -34,18 +37,20 @@ def flash_attention(
         ):
             raise ValueError(f"{name} must be 16-byte aligned in every row")
     b, sq, h, d = q.shape
-    sk, kh = k.shape[1], k.shape[2]
-    if k.shape != (b, sk, kh, d) or v.shape != k.shape:
+    sk, kh, dv = k.shape[1], k.shape[2], v.shape[3]
+    if k.shape != (b, sk, kh, d) or v.shape != (b, sk, kh, dv):
         raise ValueError(f"shape mismatch: q {q.shape}, k {k.shape}, v {v.shape}")
-    if h % kh or d not in HEAD_DIMS or q_offset < 0:
-        raise ValueError(f"unsupported: H={h} K={kh} d={d} q_offset={q_offset}")
-    out = q.new_empty((b, sq, h, d))
+    if h % kh or (d, dv) not in HEAD_DIMS or q_offset < 0:
+        raise ValueError(
+            f"unsupported: H={h} K={kh} d_qk={d} d_v={dv} q_offset={q_offset}"
+        )
+    out = q.new_empty((b, sq, h, dv))
     strides = _cuda.int64_array(
-        (*qs[:3], *ks[:3], *vs[:3], sq * h * d, h * d, d)
+        (*qs[:3], *ks[:3], *vs[:3], sq * h * dv, h * dv, dv)
     )
     err = _cuda.library().repro_flash_prefill_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, sq, sk, h, kh, d, strides, q_offset, d**-0.5, _cuda.stream_of(q),
+        b, sq, sk, h, kh, d, dv, strides, q_offset, d**-0.5, _cuda.stream_of(q),
     )
     _cuda.check(err, "flash_attention")
     _cuda.count_launch(flash_attention)

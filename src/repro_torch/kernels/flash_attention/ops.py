@@ -11,9 +11,9 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 
 def flash_attention_bshd(
-    q: torch.Tensor,  # (B, Sq, H, d)
-    k: torch.Tensor,  # (B, Sk, K, d)
-    v: torch.Tensor,  # (B, Sk, K, d)
+    q: torch.Tensor,  # (B, Sq, H, d_qk)
+    k: torch.Tensor,  # (B, Sk, K, d_qk)
+    v: torch.Tensor,  # (B, Sk, K, d_v)
     *,
     q_offset: int = 0,
 ) -> torch.Tensor:

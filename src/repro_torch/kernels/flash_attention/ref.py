@@ -1,6 +1,6 @@
 """Plain PyTorch version of the prefill-attention kernel (the port's oracle
-and its CPU path).  Layout is the model's: q (B, Sq, H, d), k/v
-(B, Sk, K, d), with H = K * G."""
+and its CPU path).  Layout is the model's: q and k (B, Sq or Sk, H or K,
+d_qk), v (B, Sk, K, d_v), with H = K * G."""
 
 from __future__ import annotations
 
@@ -16,9 +16,10 @@ def flash_attention_ref(
     *,
     q_offset: int = 0,
 ) -> torch.Tensor:
-    """Exact causal GQA attention: scores and softmax in f32, probabilities
-    cast to v's dtype before the P V product (as the JAX model's
-    ``naive_attention`` does), output in q's dtype."""
+    """Exact causal GQA attention at scale ``d_qk ** -0.5``: scores and
+    softmax in f32, probabilities cast to v's dtype before the P V product
+    (as the JAX model's ``naive_attention`` does), output (B, Sq, H, d_v)
+    in q's dtype."""
     b, sq, h, d = q.shape
     sk, kh = k.shape[1], k.shape[2]
     g = h // kh
@@ -30,4 +31,4 @@ def flash_attention_ref(
     scores = torch.where(visible, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype), v)
-    return out.reshape(b, sq, h, d).to(q.dtype)
+    return out.reshape(b, sq, h, -1).to(q.dtype)

@@ -124,14 +124,17 @@ def get_metric(cfg: "MetricConfig") -> Scorer:
             f"unknown metric {cfg.name!r}; available: {sorted(_REGISTRY)}"
         )
     base = _REGISTRY[cfg.name]
+    if cfg.name == "bertscore":
+        semantic.check_bertscore(**cfg.params)
     if cfg.params:
         return lambda rows, resp, ctx: base(rows, resp, ctx, **cfg.params)
     return base
 
 
 def resolve_metrics(cfgs: Sequence["MetricConfig"]) -> list[tuple[str, Scorer]]:
-    """Resolve a task's metric configs to bound scorers; unknown ones raise
-    before any inference runs."""
+    """Resolve a task's metric configs to bound scorers; unknown ones, and
+    a BERTScore shape the kernel cannot take, raise before any inference
+    runs."""
     return [(cfg.name, get_metric(cfg)) for cfg in cfgs]
 
 

@@ -16,6 +16,10 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.bertscore import bertscore
+from repro_torch.kernels.bertscore.bertscore import shape_error
+
+#: BERTScore's default tokens a side (``params={"max_len": n}`` sets it)
+BERTSCORE_MAX_LEN = 64
 
 
 class HashEmbedder:
@@ -74,12 +78,22 @@ def embedding_similarity(
     return np.clip(np.sum(p * r, axis=1), -1.0, 1.0).astype(np.float64)
 
 
+def check_bertscore(max_len: int = BERTSCORE_MAX_LEN, **_) -> None:
+    """Refuse a BERTScore config whose shape the kernel cannot take on the
+    card (``max_len`` tokens a side at the default embedder's width), so
+    that it fails when the task's metrics are resolved, before any
+    inference, on the CPU as on the card; raises ``ValueError``."""
+    why = shape_error(max_len, max_len, _DEFAULT.dim)
+    if why is not None:
+        raise ValueError(f"bertscore params max_len={max_len}: {why}")
+
+
 def bertscore_f1(
     preds: list[str],
     refs: list[str],
     embedder: HashEmbedder | None = None,
     *,
-    max_len: int = 64,
+    max_len: int = BERTSCORE_MAX_LEN,
     device: torch.device | str | None,
 ) -> np.ndarray:
     """BERTScore F1 per example.  ``device=None`` is the card."""

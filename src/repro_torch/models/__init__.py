@@ -3,6 +3,7 @@ from repro_torch.models.model import (
     HybridLM,
     KVCache,
     MambaLM,
+    MLACache,
     PagedKVCache,
     PageTables,
     TransformerLM,
@@ -15,6 +16,7 @@ __all__ = [
     "HybridCache",
     "HybridLM",
     "KVCache",
+    "MLACache",
     "MambaLM",
     "PageTables",
     "PagedKVCache",

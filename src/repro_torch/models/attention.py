@@ -1,7 +1,12 @@
-"""GQA attention block of the dense transformer (the GQA path of
-``repro/models/attention.py``): q, k and v projections with a bias where
-the config has ``qkv_bias`` (``bq``, ``bk``, ``bv``), RMS norms of q and k
-where it has ``qk_norm``, then RoPE.
+"""Attention blocks of the transformer (``repro/models/attention.py``).
+GQA: q, k and v projections with a bias where the config has ``qkv_bias``
+(``bq``, ``bk``, ``bv``), RMS norms of q and k where it has ``qk_norm``,
+then RoPE.  MLA (multi-head latent attention, minicpm3 and deepseek-v2):
+the query through a low-rank bottleneck, keys and values compressed into
+one normed latent per token beside a shared rope key; prefill decompresses
+them and runs the flash kernel with Q and K of width ``nope + rope`` and V
+of width ``v_head_dim``, decode keeps the cache compressed and attends in
+the latent space (the reference's absorbed form, in f32).
 
 Prefill runs the port's flash kernel at every prompt length: it is exact
 attention.  (The reference's ``chunked_attention``, which its prefill takes
@@ -34,6 +39,7 @@ from repro_torch.kernels.decode_attention.quant import (
     absmax_quantize,
 )
 from repro_torch.kernels.flash_attention.ops import flash_attention_bshd
+from repro_torch.kernels.flash_attention.ref import NEG_INF
 from repro_torch.models import layers
 
 
@@ -79,8 +85,8 @@ def gqa_prefill(
 
 
 def cache_update(
-    cache: torch.Tensor,      # (B, S, K, dh), updated in place
-    new: torch.Tensor,        # (B, 1, K, dh)
+    cache: torch.Tensor,      # (B, S, ...), updated in place
+    new: torch.Tensor,        # (B, 1, ...)
     positions: torch.Tensor,  # (B,)
 ) -> None:
     """Write each row's new token at its position, in place.  Like the
@@ -91,7 +97,7 @@ def cache_update(
     s = cache.shape[1]
     rows = torch.arange(cache.shape[0], device=cache.device)
     idx = positions.clamp(max=s - 1)
-    keep = (positions < s)[:, None, None]
+    keep = (positions < s).view(-1, *(1,) * (new.dim() - 2))
     cache[rows, idx] = torch.where(keep, new[:, 0].to(cache.dtype), cache[rows, idx])
 
 
@@ -225,4 +231,102 @@ def gqa_decode_paged(
         )
         requantize_write_pages(pool.k, pool.k_scale, k_new, wp, wo)
         requantize_write_pages(pool.v, pool.v_scale, v_new, wp, wo)
+    return layers.dense(p["wo"], out.reshape(b, 1, -1))
+
+
+# -- MLA (minicpm3, deepseek-v2): one layer's compressed cache, c_kv (n_slots,
+# max_len, kv_lora_rank) and k_rope (n_slots, max_len, qk_rope_head_dim) f32 --
+
+
+def mla_q(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The query, (B, S, H, nope + rope), before the rope: through the
+    ``q_lora_rank`` bottleneck and its norm, or one projection."""
+    b, s, _ = x.shape
+    if "wq_a" in p:
+        cq = layers.rms_norm(p["q_a_norm"], layers.dense(p["wq_a"], x), cfg.norm_eps)
+        q = layers.dense(p["wq_b"], cq)
+    else:
+        q = layers.dense(p["wq"], x)
+    return q.view(b, s, cfg.n_heads, -1)
+
+
+def mla_ckv(
+    p: dict, cfg: ModelConfig, x: torch.Tensor, rope: tuple[torch.Tensor, torch.Tensor]
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The normed KV latent (B, S, kv_lora_rank) and the rotated rope key
+    shared by every head (B, S, qk_rope_head_dim), from one projection."""
+    c_kv, k_rope = layers.dense(p["wkv_a"], x).split(
+        [cfg.kv_lora_rank, cfg.qk_rope_head_dim], dim=-1)
+    c_kv = layers.rms_norm(p["kv_a_norm"], c_kv, cfg.norm_eps)
+    return c_kv, layers.apply_rope(k_rope[:, :, None, :], *rope)[:, :, 0]
+
+
+def _mla_q_parts(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                 rope: tuple[torch.Tensor, torch.Tensor]):
+    q_nope, q_rope = mla_q(p, cfg, x).split(
+        [cfg.qk_nope_head_dim, cfg.qk_rope_head_dim], dim=-1)
+    return q_nope, layers.apply_rope(q_rope, *rope)
+
+
+def mla_prefill(
+    p: dict,
+    cfg: ModelConfig,
+    x: torch.Tensor,         # (1, S, D) hidden states of one prompt
+    c_cache: torch.Tensor,   # (n_slots, max_len, kv_lora_rank) f32, this layer
+    r_cache: torch.Tensor,   # (n_slots, max_len, qk_rope_head_dim) f32
+    slot: int,
+    rope: tuple[torch.Tensor, torch.Tensor],
+) -> torch.Tensor:
+    """Causal MLA over the prompt in the decompressed form (the reference's
+    ``mla_full``): K is each head's ``k_nope`` with the shared rope key
+    after it, V each head's value, both from ``wkv_b`` applied to the
+    latent; the flash kernel takes Q and K of width ``nope + rope`` and V
+    of width ``v_head_dim``, at scale ``(nope + rope) ** -0.5``.  The
+    latent and the rope key go to rows ``0 .. S`` of ``slot``, in place."""
+    b, s, _ = x.shape
+    h, nope, dv = cfg.n_heads, cfg.qk_nope_head_dim, cfg.v_head_dim
+    q_nope, q_rope = _mla_q_parts(p, cfg, x, rope)
+    c_kv, k_rope = mla_ckv(p, cfg, x, rope)
+    c_cache[slot, :s] = c_kv[0]
+    r_cache[slot, :s] = k_rope[0]
+    k_nope, v = layers.dense(p["wkv_b"], c_kv).view(b, s, h, nope + dv).split(
+        [nope, dv], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, -1)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    out = flash_attention_bshd(q, k, v)
+    return layers.dense(p["wo"], out.reshape(b, s, -1))
+
+
+def mla_decode(
+    p: dict,
+    cfg: ModelConfig,
+    x: torch.Tensor,          # (B, 1, D)
+    c_cache: torch.Tensor,    # (B, max_len, kv_lora_rank) f32, this layer
+    r_cache: torch.Tensor,    # (B, max_len, qk_rope_head_dim) f32
+    positions: torch.Tensor,  # (B,) position of the new token
+    lengths: torch.Tensor,    # (B,) rows to attend: min(position+1, max_len)
+    rope: tuple[torch.Tensor, torch.Tensor],
+) -> torch.Tensor:
+    """One token a slot in the absorbed form of the reference's
+    ``mla_decode``, in f32: the new latent and rope key are written at each
+    slot's position; ``wkv_b`` viewed (kv_lora, H, nope + dv) gives ``W_uk``
+    and ``W_uv``; the scores are ``(q_nope W_uk) c_kv^T + q_rope
+    k_rope^T``, scaled, masked past each slot's length and softmaxed; the
+    output is ``(p c_kv) W_uv``, cast back and projected by ``wo``."""
+    b = x.shape[0]
+    h, nope, dv = cfg.n_heads, cfg.qk_nope_head_dim, cfg.v_head_dim
+    q_nope, q_rope = _mla_q_parts(p, cfg, x, rope)
+    c_new, r_new = mla_ckv(p, cfg, x, rope)
+    cache_update(c_cache, c_new, positions)
+    cache_update(r_cache, r_new, positions)
+    w = p["wkv_b"].float().view(cfg.kv_lora_rank, h, nope + dv)
+    w_uk, w_uv = w[:, :, :nope], w[:, :, nope:]
+    q_lat = torch.einsum("bhn,lhn->bhl", q_nope[:, 0].float(), w_uk)
+    scores = (torch.einsum("bhl,bsl->bhs", q_lat, c_cache)
+              + torch.einsum("bhr,bsr->bhs", q_rope[:, 0].float(), r_cache))
+    scores = scores * (nope + cfg.qk_rope_head_dim) ** -0.5
+    valid = torch.arange(c_cache.shape[1], device=x.device)[None, :] < lengths[:, None]
+    probs = torch.softmax(torch.where(valid[:, None, :], scores, NEG_INF), dim=-1)
+    o_lat = torch.einsum("bhs,bsl->bhl", probs, c_cache)
+    out = torch.einsum("bhl,lhv->bhv", o_lat, w_uv).to(x.dtype)
     return layers.dense(p["wo"], out.reshape(b, 1, -1))

@@ -1,13 +1,16 @@
-"""The port's model families (``repro/models/model.py``): the GQA
-``TransformerLM`` of the dense and MoE families, the pure-SSM ``MambaLM``
-and the zamba2 ``HybridLM`` (Mamba2 layers and one shared attention
-block), each with a prefill of one prompt into its cache and one decode
-step for every slot; :func:`build_model` picks one by ``cfg.family``.
+"""The port's model families (``repro/models/model.py``): the
+``TransformerLM`` of the dense and MoE families (GQA or MLA attention), the
+pure-SSM ``MambaLM`` and the zamba2 ``HybridLM`` (Mamba2 layers and one
+shared attention block), each with a prefill of one prompt into its cache
+and one decode step for every slot; :func:`build_model` picks one by
+``cfg.family``.
 
-Two caches: the contiguous :class:`KVCache` (one row block per slot) and
-the :class:`PagedKVCache` (a pool of fixed-size pages that slots reach
-through page tables, f32 or int8).  The full-precision caches are f32, as
-the reference's serving caches are.  Caches are updated in place: the
+Three attention caches: the contiguous :class:`KVCache` (one row block per
+slot), the :class:`PagedKVCache` (a pool of fixed-size pages that slots
+reach through page tables, f32 or int8) and MLA's compressed
+:class:`MLACache` (a latent and a rope key a token, contiguous only, as in
+the reference).  The full-precision caches are f32, as the reference's
+serving caches are.  Caches are updated in place: the
 reference returns a new cache from each call, the port writes the rows it
 produces into the one it was given.
 """
@@ -34,6 +37,20 @@ class KVCache:
     @property
     def max_len(self) -> int:
         return self.k.shape[2]
+
+
+@dataclasses.dataclass
+class MLACache:
+    """MLA's per-slot compressed rows: the normed KV latent ``c_kv``
+    (n_layers, n_slots, max_len, kv_lora_rank) and the rotated rope key
+    ``k_rope`` (n_layers, n_slots, max_len, qk_rope_head_dim), f32."""
+
+    c_kv: torch.Tensor
+    k_rope: torch.Tensor
+
+    @property
+    def max_len(self) -> int:
+        return self.c_kv.shape[2]
 
 
 @dataclasses.dataclass
@@ -87,11 +104,13 @@ def _block(p: dict, i: int) -> dict:
 
 
 class TransformerLM:
-    """Pre-norm GQA blocks: the dense stack (``params["layers"]``: every
-    layer of the dense family, the ``first_k_dense`` leading layers of the
-    MoE family), then the MoE stack (``params["moe_layers"]``), then the
-    tied or untied (``params["unembed"]``) unembedding.  The cache's layer
-    axis runs over both stacks in that order."""
+    """Pre-norm blocks, GQA or (``cfg.use_mla``) MLA attention: the dense
+    stack (``params["layers"]``: every layer of the dense family, the
+    ``first_k_dense`` leading layers of the MoE family), then the MoE stack
+    (``params["moe_layers"]``), then the tied or untied
+    (``params["unembed"]``) unembedding.  The cache's layer axis runs over
+    both stacks in that order.  An MLA model keeps an :class:`MLACache`,
+    which neither pages nor takes a suffix prefill, as in the reference."""
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
@@ -117,10 +136,25 @@ class TransformerLM:
             return layers.untied_unembed(params["unembed"], x, dtype)
         return layers.unembed(params["embed"], x, dtype)
 
+    def _rope(self, positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """RoPE tables over the rotated width: the head's, or MLA's rope
+        slice."""
+        cfg = self.cfg
+        width = cfg.qk_rope_head_dim if cfg.use_mla else cfg.head_dim
+        return layers.rope_cos_sin(positions, width, cfg.rope_theta)
+
     def init_cache(
         self, n_slots: int, max_len: int, device: torch.device | str
-    ) -> KVCache:
+    ) -> KVCache | MLACache:
         cfg = self.cfg
+        if cfg.use_mla:
+            lead = (cfg.n_layers, n_slots, max_len)
+            return MLACache(
+                c_kv=torch.zeros((*lead, cfg.kv_lora_rank), dtype=torch.float32,
+                                 device=device),
+                k_rope=torch.zeros((*lead, cfg.qk_rope_head_dim),
+                                   dtype=torch.float32, device=device),
+            )
         shape = (cfg.n_layers, n_slots, max_len, cfg.n_kv_heads, cfg.head_dim)
         # zeros, not empty: a masked lane times NaN garbage would be NaN
         return KVCache(
@@ -137,6 +171,8 @@ class TransformerLM:
         quantized: bool = False,
     ) -> PagedKVCache:
         cfg = self.cfg
+        if cfg.use_mla:
+            raise ValueError(f"{cfg.name}: an MLA cache does not page")
         shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
         dtype = torch.int8 if quantized else torch.float32
         scales = (None, None)
@@ -156,7 +192,7 @@ class TransformerLM:
         self,
         params: dict,
         tokens: torch.Tensor,  # (1, S) one prompt, or its suffix from ``start``
-        cache: KVCache | PagedKVCache,
+        cache: KVCache | PagedKVCache | MLACache,
         target: int | torch.Tensor,
         *,
         start: int = 0,
@@ -168,10 +204,14 @@ class TransformerLM:
         ``target`` holds the prompt's page ids: its first ``start //
         page_size`` pages are a shared prefix already in the pool, and
         ``tokens`` is the suffix from position ``start`` on (suffix
-        prefill); the suffix's K/V fill the remaining, fresh pages."""
+        prefill); the suffix's K/V fill the remaining, fresh pages.  With an
+        :class:`MLACache`, ``target`` is the slot whose rows ``0 .. S``
+        receive the prompt's latents and rope keys."""
         cfg = self.cfg
         if tokens.dim() != 2 or tokens.shape[0] != 1:
             raise ValueError(f"prefill takes one prompt (1, S), got {tokens.shape}")
+        if cfg.use_mla and start:
+            raise ValueError("suffix prefill is not supported for MLA caches")
         s = tokens.shape[1]
         paged = isinstance(cache, PagedKVCache)
         if paged:
@@ -183,11 +223,15 @@ class TransformerLM:
         elif start or s > cache.max_len:
             raise ValueError(f"prompt of {s} tokens exceeds max_len {cache.max_len}")
         positions = torch.arange(start, start + s, device=tokens.device)[None, :]
-        rope = layers.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+        rope = self._rope(positions)
         x = layers.embed(params["embed"], tokens, dtype)
         for i, p in self._layers(params):
             h = layers.rms_norm(p["ln1"], x, cfg.norm_eps)
-            if paged:
+            if cfg.use_mla:
+                a = attn.mla_prefill(
+                    p["attn"], cfg, h, cache.c_kv[i], cache.k_rope[i], target, rope
+                )
+            elif paged:
                 a = attn.gqa_prefill_paged(
                     p["attn"], cfg, h, cache.layer(i), target, start, rope
                 )
@@ -207,7 +251,7 @@ class TransformerLM:
         self,
         params: dict,
         tokens: torch.Tensor,     # (B, 1) one new token per slot
-        cache: KVCache | PagedKVCache,
+        cache: KVCache | PagedKVCache | MLACache,
         positions: torch.Tensor,  # (B,) position of the new token
         pages: PageTables | None = None,  # with a PagedKVCache
         *,
@@ -222,13 +266,18 @@ class TransformerLM:
         if paged != (pages is not None):
             raise ValueError("a PagedKVCache needs PageTables, and only it")
         max_len = pages.tables.shape[1] * cache.page_size if paged else cache.max_len
-        rope = layers.rope_cos_sin(positions[:, None], cfg.head_dim, cfg.rope_theta)
+        rope = self._rope(positions[:, None])
         lengths = (positions + 1).clamp(max=max_len).to(torch.int32)
         new_pos = positions.to(torch.int32)
         x = layers.embed(params["embed"], tokens, dtype)
         for i, p in self._layers(params):
             h = layers.rms_norm(p["ln1"], x, cfg.norm_eps)
-            if paged:
+            if cfg.use_mla:
+                a = attn.mla_decode(
+                    p["attn"], cfg, h, cache.c_kv[i], cache.k_rope[i], positions,
+                    lengths, rope,
+                )
+            elif paged:
                 a = attn.gqa_decode_paged(
                     p["attn"], cfg, h, cache.layer(i), pages, new_pos, lengths, rope
                 )
@@ -448,7 +497,8 @@ class HybridCache:
 
 def build_model(cfg: ModelConfig) -> TransformerLM | MambaLM | HybridLM:
     """The model of ``cfg.family``, as the reference's ``build_model``
-    picks it, for the families the port serves."""
+    picks it, for the families the port serves (dense and MoE with GQA or
+    MLA attention, SSM, hybrid)."""
     if cfg.family in ("dense", "moe"):
         return TransformerLM(cfg)
     if cfg.family == "ssm":

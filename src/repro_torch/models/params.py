@@ -1,5 +1,6 @@
-"""Parameters of the port's models (the GQA ``TransformerLM`` of the dense
-and MoE families, the Mamba2 ``MambaLM`` and the zamba2 ``HybridLM``):
+"""Parameters of the port's models (the ``TransformerLM`` of the dense and
+MoE families, with GQA or MLA attention, the Mamba2 ``MambaLM`` and the
+zamba2 ``HybridLM``):
 random init on the target device from a seeded ``torch.Generator``, and
 the bridge that takes the JAX package's own parameter tree.
 
@@ -14,7 +15,8 @@ stored in the compute dtype (the reference keeps f32 masters and casts
 them to the compute dtype at every use, which rounds the same way); norm
 scales, biases, the MoE router and the SSM's conv, decay, skip and dt-bias
 parameters stay f32, since the reference casts each of them where it uses
-them.  Init is fan-in scaled over ``shape[-2]``, the
+them; so does MLA's ``wkv_b``, which the reference's absorbed decode reads
+in f32 (its prefill casts it to the compute dtype).  Init is fan-in scaled over ``shape[-2]``, the
 reference's convention (``repro/models/params.py:57-68``); ``jax.random``
 cannot be reproduced in torch, so parity tests go through
 :func:`params_from_jax` instead.
@@ -46,12 +48,38 @@ def _mlp_specs(lead: tuple[int, ...], d: int, f: int) -> dict[str, Spec]:
             "wo": ((*lead, f, d), "matrix")}
 
 
+def _mla_specs(cfg: ModelConfig, lead: tuple[int, ...]) -> dict[str, Spec]:
+    """MLA attention (the reference's ``mla_specs``): the query through the
+    ``q_lora_rank`` bottleneck (``wq_a``, ``q_a_norm``, ``wq_b``), or one
+    ``wq`` where the rank is 0; the compressed KV with its rope slice
+    (``wkv_a``), its norm and its decompression (``wkv_b``, kept f32);
+    the output projection."""
+    d, h = cfg.d_model, cfg.n_heads
+    nope, rope, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    qlr, kvlr = cfg.q_lora_rank, cfg.kv_lora_rank
+    spec: dict[str, Spec] = {}
+    if qlr:
+        spec.update(wq_a=((*lead, d, qlr), "matrix"), q_a_norm=((*lead, qlr), "ones"),
+                    wq_b=((*lead, qlr, h * (nope + rope)), "matrix"))
+    else:
+        spec["wq"] = ((*lead, d, h * (nope + rope)), "matrix")
+    spec.update(wkv_a=((*lead, d, kvlr + rope), "matrix"),
+                kv_a_norm=((*lead, kvlr), "ones"),
+                wkv_b=((*lead, kvlr, h * (nope + dv)), "f32"),
+                wo=((*lead, h * dv, d), "matrix"))
+    return spec
+
+
 def _block_specs(cfg: ModelConfig, lead: tuple[int, ...],
                  mlp: dict[str, Any]) -> dict[str, Any]:
     """Pre-norm blocks stacked over ``lead`` (``(n,)``, or ``()`` for one
-    block): GQA attention, with q/k/v biases where ``cfg.qkv_bias`` and q/k
-    norms where ``cfg.qk_norm``, then ``mlp`` (``{"mlp": ...}`` or
-    ``{"moe": ...}``)."""
+    block): MLA attention where ``cfg.use_mla``, else GQA attention, with
+    q/k/v biases where ``cfg.qkv_bias`` and q/k norms where
+    ``cfg.qk_norm``; then ``mlp`` (``{"mlp": ...}`` or ``{"moe": ...}``)."""
+    if cfg.use_mla:
+        return {"ln1": ((*lead, cfg.d_model), "ones"),
+                "attn": _mla_specs(cfg, lead),
+                "ln2": ((*lead, cfg.d_model), "ones"), **mlp}
     d, dh = cfg.d_model, cfg.head_dim
     hq, hk = cfg.n_heads * dh, cfg.n_kv_heads * dh
     attn: dict[str, Spec] = {
@@ -91,7 +119,8 @@ def param_specs(cfg: ModelConfig) -> dict[str, Any]:
         return _hybrid_specs(cfg)
     if cfg.family not in ("dense", "moe"):
         raise ValueError(
-            f"{cfg.name}: the port serves GQA (dense, MoE), Mamba2 and hybrid"
+            f"{cfg.name}: the port serves dense and MoE (GQA or MLA), Mamba2 "
+            f"and hybrid"
         )
     n_moe = cfg.n_layers - cfg.first_k_dense if cfg.n_experts else 0
     n_dense = cfg.n_layers - n_moe
@@ -195,7 +224,8 @@ def init_params(
 
 #: the port's bias leaves and the JAX kernels they belong to
 _BIAS_OF = {"bq": "wq", "bk": "wk", "bv": "wv"}
-_SCALES = ("ln", "norm", "ln1", "ln2", "q_norm", "k_norm", "app_norms")
+_SCALES = ("ln", "norm", "ln1", "ln2", "q_norm", "k_norm", "app_norms",
+           "q_a_norm", "kv_a_norm")
 _SSM_KERNELS = ("wz", "wxBC", "wdt", "out_proj")
 
 
@@ -231,9 +261,9 @@ def params_from_jax(
     (``jax.tree.map(np.asarray, params)``), into the port's tree: layers
     stay stacked (the hybrid's groups nested ``(G, K, ...)``), kernels stay
     ``(in, out)``, the embedding keeps its ``padded_vocab`` rows, and the
-    q/k/v biases, qk-norm scales and MoE router or the conv, decay, skip
-    and dt-bias parameters (Mamba2) come across in f32 with the norm
-    scales."""
+    q/k/v biases, qk-norm scales, MLA's ``wkv_b`` and MoE router or the
+    conv, decay, skip and dt-bias parameters (Mamba2) come across in f32
+    with the norm scales."""
 
     def take(path, spec: Spec) -> torch.Tensor:
         node = tree

@@ -1,6 +1,7 @@
 """Continuous-batching scheduler over a model's per-slot cache: a contiguous
-or a paged KV cache for the dense and MoE families, the SSM state for
-Mamba2 (the ``ContinuousBatcher`` of ``repro/serve/scheduler.py``).
+or a paged KV cache for the dense and MoE families with GQA attention, the
+contiguous compressed cache of MLA, the SSM state for Mamba2 and the hybrid
+(the ``ContinuousBatcher`` of ``repro/serve/scheduler.py``).
 
 A fixed pool of ``n_slots`` decode slots steps in lock-step.  Each step:
 
@@ -59,8 +60,8 @@ from repro_torch.serve.paged_cache import (
 )
 
 
-#: model families whose caches are pure attention KV, so that they page (the
-#: reference's ``_PAGEABLE_FAMILIES``)
+#: model families whose caches are pure attention KV, so that they page
+#: unless their attention is MLA (the reference's ``_PAGEABLE_FAMILIES``)
 PAGEABLE_FAMILIES = ("dense", "moe")
 
 
@@ -179,10 +180,11 @@ class ContinuousBatcher:
         temperature: float = 0.0,
     ):
         check_kv_cache(page_size, kv_cache_dtype)
-        if page_size and cfg.family not in PAGEABLE_FAMILIES:
+        if page_size and (cfg.family not in PAGEABLE_FAMILIES or cfg.use_mla):
             raise ValueError(
                 f"paged KV cache supports GQA attention families "
                 f"{PAGEABLE_FAMILIES}, not {cfg.family}"
+                + (" with MLA" if cfg.use_mla else "")
             )
         self.model, self.cfg, self.params = model, cfg, params
         self.n_slots, self.max_len, self.eos_id = n_slots, max_len, eos_id

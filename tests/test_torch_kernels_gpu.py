@@ -28,7 +28,11 @@ spill nowhere.  The widened parts are held too: kernel 1 at head_dim 112
 (zamba2's G = 1, both warpgroup launches, the suffix bit-equality),
 kernel 2 at head_dim 112, kernel 8 at state 64 (zamba2's 112 heads), and
 kernels 1-4 at qwen2.5-32b's G = 5 (40 query heads over 8 KV heads), with
-the refusals of widths no kernel is built for.  Every case carries the ``gpu``
+the refusals of widths no kernel is built for; kernel 1 at MLA's widths
+(Q and K of 96, V of 64: minicpm3-4b's 40 heads, both warpgroup launches,
+the suffix bit-equality, V as a view of the decompressed K/V), and kernel
+7 past its old 512-token limit (1,024 tokens a side, whole empty 64-row
+tiles; any width) up to the card's shared memory.  Every case carries the ``gpu``
 marker and skips where there is no CUDA device.  The file imports no JAX,
 so it runs on a machine with the card and no JAX:
 
@@ -378,18 +382,24 @@ def test_bertscore_kernel_matches_plain_version(cuda, b, lc, lr, d):
 @pytest.mark.gpu
 def test_bertscore_kernel_is_batch_invariant_and_takes_its_limits(cuda):
     """An example's P and R are the same bits alone as among 16; 512
-    tokens a side and width 1,024 run, one more of either raises."""
+    tokens a side and width 1,024 run, and so do 513 tokens, width 1,025
+    and the most tokens the card's opt-in shared memory holds; one token
+    more raises."""
+    from repro_torch.kernels.bertscore.bertscore import device_smem_optin, max_tokens
+
     args = _bert_case(cuda, 16, 64, 37, 256, 3)
     p, r = bertscore_pr(*args)
     for i in (0, 5, 15):
         pi, ri = bertscore_pr(*(t[i:i + 1].contiguous() for t in args))
         assert torch.equal(pi, p[i:i + 1]) and torch.equal(ri, r[i:i + 1])
-    big = _bert_case(cuda, 2, 512, 300, 1024, 4)
-    for a, b in zip(bertscore_pr(*big), bertscore_ref(*big)[:2]):
-        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
-    for lc, lr, d in ((513, 8, 8), (8, 513, 8), (8, 8, 1025)):
-        with pytest.raises(ValueError, match="takes"):
-            bertscore_pr(*_bert_case(cuda, 1, lc, lr, d, 5))
+    most = max_tokens(device_smem_optin(torch.cuda.current_device()))
+    for lc, lr, d in ((512, 300, 1024), (513, 8, 8), (8, 513, 8), (8, 8, 1025),
+                      (most - 5000, 5000, 8)):
+        big = _bert_case(cuda, 2, lc, lr, d, 4)
+        for a, b in zip(bertscore_pr(*big), bertscore_ref(*big)[:2]):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    with pytest.raises(ValueError, match="takes"):
+        bertscore_pr(*_bert_case(cuda, 1, most - 5000 + 1, 5000, 8, 5))
     cand, ref, cm, rm = args
     with pytest.raises(TypeError):
         bertscore_pr(cand.double(), ref, cm, rm)
@@ -798,3 +808,82 @@ def test_widened_kernels_refuse_other_widths_and_do_not_spill(cuda):
             vals = [ctypes.c_int() for _ in range(4)]
             assert getattr(lib, fn)(w, *(ctypes.byref(v) for v in vals)) == 0
             assert vals[1].value == 0 and vals[3].value >= 1, (fn, w)
+
+
+# -- MLA's widths (kernel 1) and BERTScore past 512 tokens (kernel 7) ------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq,sk,off,suffix", [
+    (12, 12, 0, 0), (478, 478, 0, 14), (64, 64, 0, 0), (65, 65, 0, 0),
+    (130, 300, 170, 0), (1, 1, 0, 0)])
+def test_flash_kernel_at_mla_widths(cuda, sq, sk, off, suffix):
+    """minicpm3-4b's decompressed heads (40 / 40, Q and K of 96, V of 64)
+    through both warpgroup launches: V a view of the decompressed (nope +
+    v) rows and K the concatenation the model builds; (B, Sq, H, 64) out,
+    within the gate; a suffix's rows bit-equal to the full prefill's."""
+    h, nope, rope, dv = 40, 64, 32, 64
+    g = torch.Generator(device=cuda).manual_seed(sq + 96)
+    q = torch.randn((1, sq, h, nope + rope), generator=g, device=cuda)
+    q = q.to(torch.bfloat16)
+    kv = torch.randn((1, sk, h, nope + dv), generator=g, device=cuda)
+    k_nope, v = kv.to(torch.bfloat16).split([nope, dv], dim=-1)
+    k_rope = torch.randn((1, sk, 1, rope), generator=g, device=cuda)
+    k = torch.cat([k_nope, k_rope.to(torch.bfloat16).expand(1, sk, h, rope)], -1)
+    got = flash_attention(q, k, v, q_offset=off)
+    assert got.shape == (1, sq, h, dv)
+    assert _rowwise_ok(got, flash_attention_ref(q, k, v, q_offset=off), 2**-7, 1e-2)
+    assert torch.equal(flash_attention(q, k, v.contiguous(), q_offset=off), got)
+    if suffix:
+        tail = flash_attention(q[:, sq - suffix:], k, v, q_offset=off + sq - suffix)
+        assert torch.equal(tail, got[:, sq - suffix:])
+    # the pair is (96, 64): neither width alone, nor (96, 96), is built
+    with pytest.raises(ValueError):
+        flash_attention(q, k, k, q_offset=off)
+    with pytest.raises(ValueError):
+        flash_attention(q[..., :64], k[..., :64], v, q_offset=off)
+
+
+@pytest.mark.gpu
+def test_flash_kernel_mla_instantiations_do_not_spill(cuda):
+    import ctypes
+
+    from repro_torch.kernels import _cuda
+
+    lib = _cuda.library()
+    for w in (5, 6):
+        vals = [ctypes.c_int() for _ in range(4)]
+        assert lib.repro_flash_kernel_info(w, *(ctypes.byref(v) for v in vals)) == 0
+        assert vals[1].value == 0 and vals[3].value >= 1, w
+    vals = [ctypes.c_int() for _ in range(4)]
+    assert lib.repro_flash_kernel_info(7, *(ctypes.byref(v) for v in vals)) != 0
+
+
+def _long_bert_case(cuda, b, n, d, seed):
+    """``b`` examples of ``n`` tokens a side: ragged prefix masks (whole
+    64-row tiles empty past each), ``_bert_case``'s four edge examples
+    (example 1 an empty reference), and example 4 keeping only tokens
+    0-63 and 960-999 of its candidate (masked 64-row tiles in between)."""
+    cand, ref, cm, rm = _bert_case(cuda, b, n, n, d, seed)
+    cm[4].zero_()
+    cm[4, :64] = 1.0
+    cm[4, 960:1000] = 1.0
+    return cand, ref, cm, rm
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d", [(1024, 256), (2048, 256), (1024, 37)])
+def test_bertscore_kernel_past_512_tokens(cuda, n, d):
+    """BERTScore at 1,024 and 2,048 tokens a side (the default embedder's
+    width; 37 for the 4-byte staging) against the plain version, with
+    whole 64-row tiles masked out; batch-invariant and repeatable."""
+    args = _long_bert_case(cuda, 16, n, d, n + d)
+    got = bertscore_pr(*args)
+    want = bertscore_ref(*args)
+    for a, r in zip(got, want[:2]):
+        torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-6)
+    assert float(got[0][1]) < -0.9e30
+    for i in (1, 4):
+        alone = bertscore_pr(*(t[i:i + 1].contiguous() for t in args))
+        assert all(torch.equal(a, g[i:i + 1]) for a, g in zip(alone, got))
+    assert all(torch.equal(a, g) for a, g in zip(bertscore_pr(*args), got))
