@@ -30,7 +30,8 @@ heads).  Every task of phases
 2-5 streams (``StreamingConfig(enabled=True)``) unless it says otherwise.
 Phase 2
 runs the contiguous main path through the user's entry point,
-``EvalSession.run_task``, on full-width qwen3-4b with random bf16 weights,
+``EvalSession.run_task``, on full-width qwen3-4b with random bf16 weights
+over 32 QA rows (phases 2, 5 and 6 run two chunks),
 and checks that its kernels
 launched there, that the greedy tokens of a prompt do not depend on the
 batch around it, and that the logits are finite.  Phase 3 runs the paged
@@ -64,8 +65,9 @@ recommendations and tests equal to ``recommend_test`` and
 test the paired bootstrap over kernel 6's replicates); the response cache
 (a second run with no engine call, ``CacheMiss`` under ``REPLAY``);
 ``rescore_stages`` with BERTScore (no engine call, kernel 7 launched);
-single-flight over 64 rows of 16 prompts (16 engine calls, 48 coalesced);
-kernels 1, 2, 6, 7 and 8 must launch in the phase.  Phase 7, the harness
+single-flight over 32 rows of 16 prompts (16 engine calls, 16 coalesced);
+kernels 1, 2, 6, 7 and 8 must launch in the phase; then the engines'
+tokenizers encode all 64 of phase 8's prompts.  Phase 7, the harness
 around inference, runs in phase 2's session on its qwen3-4b engine (no new
 weights), over 16 rows (one chunk): (a) phase 2's task on the lock-step
 path (``use_service=False``, two workers, two shards a chunk) in memory
@@ -148,7 +150,7 @@ phase 4's gates (batch invariance, a reused slot, the hand-off), a paged
 engine refused with the reference's error, and one shared-block
 application and one Mamba2 layer at full width through the kernels
 against the same layers through the plain versions.  Phase 13, the MLA
-family, runs last: full-width minicpm3-4b (62 layers, 40 heads, a query
+family, runs next: full-width minicpm3-4b (62 layers, 40 heads, a query
 rank of 768, a KV latent of 256 and a rope key of 32 a token; 7.6 GiB of
 random bf16 weights) on the contiguous compressed cache: (a) ``run_task``
 over 32 of phase 2's rows, kernel 1 at (d_qk, d_v) = (96, 64) launched
@@ -159,7 +161,22 @@ then a reused slot against a fresh engine; (c) a paged engine refused
 with the reference's error; (d) one MLA layer through kernel 1 against its
 plain version, and 4 decode steps after a prefill against full prefills.
 Phase 1 holds kernel 1 at (96, 64), 40 heads, and kernel 7 at 1,024
-tokens a side.
+tokens a side.  Phase 14, the enc-dec family, runs last: full-width
+whisper-large-v3 (32 encoder and 32 decoder layers, 20 heads of 64, 1,500
+frames; 2.9 GiB of random bf16 weights) through the port's
+``ContinuousBatcher``, each request's (1,500, 1,280) frames in
+``Request.extras``: (a) 8 QA prompts, 32 new tokens each, kernel 1 launched
+exactly 96 times a prompt (the encoder's 32 self-attentions, not causal;
+the decoder's 32 causal ones and 32 cross-attentions over the frames, not
+causal) and kernel 2 exactly 64 times a decode step (32 over the self
+rows, 32 over all 1,500 cross rows); (b) a request alone in a reused slot
+and in a fresh batcher gives its tokens among 8, 4 decode steps after a
+prefill against full prefills, one encoder and one decoder layer (prefill
+and a decode step) through kernels 1 and 2 against their plain versions,
+the breakdowns of a prefill and a decode step; (c) a paged batcher refused
+with the reference's words and the local engine refusing whisper.  Phase
+1 holds kernel 1 at (64, 64) causal and not, and kernel 2 at 64 over
+phase 14's cross rows and main-path lengths.
 
 Standard output: the card's name and power limit first, then log lines,
 then one ``{"kernels": [...]}`` line, and last the
@@ -196,16 +213,22 @@ MOE = "qwen3-moe-30b-a3b"
 MOE_HEADS, MOE_KV_HEADS = 32, 4
 
 #: the main path of phase 2: QA rows, rows per chunk, batcher slots, cache
-#: positions per slot, new tokens per prompt, bootstrap replicates
-N_ROWS, CHUNK, N_SLOTS, MAX_LEN, MAX_TOKENS, N_BOOT = 64, 16, 16, 1024, 32, 1000
+#: positions per slot, new tokens per prompt, bootstrap replicates.  Phases
+#: 2, 5 and 6 ran 64 rows until a host took 1,149.1 s after the build for
+#: the script (NVIDIA H100 80GB HBM3, 700 W; another took 668.5 s before
+#: phase 14 was added)
+N_ROWS, CHUNK, N_SLOTS, MAX_LEN, MAX_TOKENS, N_BOOT = 32, 16, 16, 1024, 32, 1000
+#: the QA rows behind phase 3's few-shot prompts (their longest sets phase
+#: 1's suffix shape) and phase 8's longest run
+QA_ROWS = 4 * CHUNK
 #: a main-path prompt's length (the QA prompts render to 10-13 tokens)
 PROMPT_LEN = 12
 #: the depth of the later paths, so that the script stays within its time
 #: limit on a slow host (an NVIDIA H100 80GB HBM3 at 700 W whose host took
 #: 1,184.5 s after the build with phases 3-4 at 64 rows, phase 7 at 32 and
 #: phases 10-13 at 32, where another took 915.7 s): phase 3's and 4's
-#: run_tasks and phase 13 (a) run two chunks, half of phase 2's rows;
-#: phases 10-12 (three models of 7-33 B parameters) and phase 13 (b) one
+#: run_tasks and phase 13 (a) run two chunks, as phase 2 does; phases 10-12
+#: (three models of 7-33 B parameters) and phase 13 (b) one
 HALF_ROWS = 2 * CHUNK
 BIG_ROWS = CHUNK
 #: phase 3: tokens per KV page, and the few-shot header's token range
@@ -242,6 +265,14 @@ ZAMBA_FLASH_SHAPES = (FLASH_SHAPES[0], (478, 478, 0))
 MINICPM = "minicpm3-4b"
 MLA_HEADS, MLA_QK_DIM, MLA_V_DIM = 40, 96, 64
 MLA_FLASH_SHAPES = (FLASH_SHAPES[0], (478, 478, 0))
+#: phase 14's model, full-width whisper-large-v3: 20 heads of 64 over 20 KV
+#: heads (G = 1), 1,500 encoder frames; its prefill rows (Sq, Sk, causal):
+#: the encoder over the frames, the cross-attention of a QA prompt over
+#: them, the decoder's causal prompt
+WHISPER = "whisper-large-v3"
+WHISPER_HEADS, WHISPER_HEAD_DIM, WHISPER_FRAMES = 20, 64, 1500
+WHISPER_FLASH_SHAPES = ((WHISPER_FRAMES, WHISPER_FRAMES, False),
+                        (PROMPT_LEN, WHISPER_FRAMES, False), (PROMPT_LEN, PROMPT_LEN, True))
 #: phase 5: BERTScore's default max_len and the hash embedder's width, the
 #: seven metrics (name, type), and the statistics API's sample size; phase
 #: 1 also holds kernel 7 at ``max_len = BERT_LONG``, past its old limit of 512
@@ -361,19 +392,21 @@ def flash_cases(torch, fs):
                            dtype=torch.float32).to(torch.bfloat16)
 
     out = []
-    for (sq, sk, off), heads, kvh, d, dv in (
-            [(shape, HEADS, KV_HEADS, HEAD_DIM, HEAD_DIM) for shape in FLASH_SHAPES]
-            + [(shape, MOE_HEADS, MOE_KV_HEADS, HEAD_DIM, HEAD_DIM)
+    for (sq, sk, off), heads, kvh, d, dv, causal in (
+            [(shape, HEADS, KV_HEADS, HEAD_DIM, HEAD_DIM, True) for shape in FLASH_SHAPES]
+            + [(shape, MOE_HEADS, MOE_KV_HEADS, HEAD_DIM, HEAD_DIM, True)
                for shape in MOE_FLASH_SHAPES]
-            + [(shape, QWEN25_HEADS, QWEN25_KV_HEADS, HEAD_DIM, HEAD_DIM)
+            + [(shape, QWEN25_HEADS, QWEN25_KV_HEADS, HEAD_DIM, HEAD_DIM, True)
                for shape in QWEN25_FLASH_SHAPES]
-            + [(shape, ZAMBA_HEADS, ZAMBA_HEADS, ZAMBA_HEAD_DIM, ZAMBA_HEAD_DIM)
+            + [(shape, ZAMBA_HEADS, ZAMBA_HEADS, ZAMBA_HEAD_DIM, ZAMBA_HEAD_DIM, True)
                for shape in ZAMBA_FLASH_SHAPES]
-            + [(shape, MLA_HEADS, MLA_HEADS, MLA_QK_DIM, MLA_V_DIM)
-               for shape in MLA_FLASH_SHAPES]):
+            + [(shape, MLA_HEADS, MLA_HEADS, MLA_QK_DIM, MLA_V_DIM, True)
+               for shape in MLA_FLASH_SHAPES]
+            + [((sq, sk, 0), WHISPER_HEADS, WHISPER_HEADS, WHISPER_HEAD_DIM,
+                WHISPER_HEAD_DIM, causal) for sq, sk, causal in WHISPER_FLASH_SHAPES]):
         q, k, v = rnd(sq, heads, d), rnd(sk, kvh, d), rnd(sk, kvh, dv)
-        got = flash_attention(q, k, v, q_offset=off)
-        ref = flash_attention_ref(q, k, v, q_offset=off)
+        got = flash_attention(q, k, v, q_offset=off, causal=causal)
+        ref = flash_attention_ref(q, k, v, q_offset=off, causal=causal)
         torch.cuda.synchronize()
         # P is rounded to bf16 unnormalised in the kernel and normalised in
         # the plain version, and both round the output to bf16: 2^-7 of the
@@ -382,17 +415,19 @@ def flash_cases(torch, fs):
         err, ratio = rowwise(torch, got, ref, 2**-7, 1e-2)
         width = f"d={d}" if d == dv else f"d_qk={d} d_v={dv}"
         shape = (f"B=1 H={heads} K={kvh} {width} Sq={sq} Sk={sk} "
-                 f"q_offset={off}")
+                 + (f"q_offset={off}" if causal else "not causal"))
         require(ratio <= 1.0, f"flash_attention {shape}: error/allowance {ratio:.3g}")
         # 2 d_qk FLOPs a visible (query head, key) pair for Q K^T and 2 d_v
         # for P V; Q and K read, V read and O written once, bf16
-        pairs = sum(min(sk, off + i + 1) for i in range(sq))
+        pairs = (sum(min(sk, off + i + 1) for i in range(sq)) if causal
+                 else sq * sk)
         nbytes = 2 * (d * (sq * heads + sk * kvh) + dv * (sk * kvh + sq * heads))
         b_ms, b_by = bound(2 * (d + dv) * pairs * heads, PEAK_BF16, nbytes)
         kx, vx = (t.repeat_interleave(heads // kvh, dim=2) for t in (k, v))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, kx, vx))
+        # no mask tensor where every key is visible
         mask = (torch.arange(sq, device="cuda")[:, None] + off
-                >= torch.arange(sk, device="cuda")[None, :])
+                >= torch.arange(sk, device="cuda")[None, :]) if causal else None
         # SDPA takes a V width other than the Q/K width (E != Ev)
         sdpa = torch.nn.functional.scaled_dot_product_attention
         out.append({
@@ -402,23 +437,25 @@ def flash_cases(torch, fs):
             "replaces": "src/repro/kernels/flash_attention/flash_attention.py:93",
             "shape": shape,
             "max_abs_err": err,
-            "ms": time_ms(torch, lambda: flash_attention(q, k, v, q_offset=off)),
+            "ms": time_ms(torch, lambda: flash_attention(q, k, v, q_offset=off,
+                                                         causal=causal)),
             "device_ms": device_profile(
-                torch, lambda: flash_attention(q, k, v, q_offset=off), 1),
+                torch, lambda: flash_attention(q, k, v, q_offset=off, causal=causal), 1),
             "plain_ms": time_ms(
-                torch, lambda: flash_attention_ref(q, k, v, q_offset=off), iters=5),
+                torch, lambda: flash_attention_ref(q, k, v, q_offset=off, causal=causal),
+                iters=5),
             "library_ms": time_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask)),
             "bound_ms": b_ms,
             "bound_by": b_by,
         })
-        causal = ""
-        if sq == sk:
+        is_causal = ""
+        if sq == sk and causal:
             causal_ms = time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True))
-            causal = f", sdpa is_causal (no mask tensor) {causal_ms:.4g} ms"
+            is_causal = f", sdpa is_causal (no mask tensor) {causal_ms:.4g} ms"
         log(f"flash_attention {shape}: err {err:.3g} (ratio {ratio:.3g}) "
             f"{out[-1]['ms']:.4g} ms (device {out[-1]['device_ms']:.4g} ms), plain "
             f"{out[-1]['plain_ms']:.4g} ms, sdpa {out[-1]['library_ms']:.4g} ms"
-            f"{causal}, bound {b_ms:.4g} ms ({b_by})")
+            f"{is_causal}, bound {b_ms:.4g} ms ({b_by})")
 
     # a row's bits do not depend on its tile, on Sq or on q_offset: the last
     # rows of phase 3's (and phase 10's, and 11's) full prefill against the
@@ -457,14 +494,17 @@ def flash_cases(torch, fs):
                    3: "flash_attention d=112, 1 consumer warpgroup",
                    4: "flash_attention d=112, 2 consumer warpgroups",
                    5: "flash_attention d_qk=96 d_v=64, 1 consumer warpgroup",
-                   6: "flash_attention d_qk=96 d_v=64, 2 consumer warpgroups"})
+                   6: "flash_attention d_qk=96 d_v=64, 2 consumer warpgroups",
+                   7: "flash_attention d=64, 1 consumer warpgroup",
+                   8: "flash_attention d=64, 2 consumer warpgroups"})
     return out
 
 
 def decode_cases(torch) -> list[dict]:
     """Kernel 2 over phase 2's cache (16 slots of 1,024 f32 rows) at ragged
     lengths 1..1,024 and at the main path's: a 10-13-token prompt plus up
-    to 32 new tokens, 11..45."""
+    to 32 new tokens, 11..45; and at phase 14's head width of 64 over its
+    cross cache (16 slots of 1,500 rows, every length 1,500)."""
     g = torch.Generator(device="cuda").manual_seed(1)
     ragged = torch.randint(2, MAX_LEN, (N_SLOTS,), generator=g, device="cuda",
                            dtype=torch.int32)
@@ -474,6 +514,9 @@ def decode_cases(torch) -> list[dict]:
     main = main.to(torch.int32)
     # phase 12's few-shot prompts (478 tokens) plus up to 32 new tokens
     few = (479 + 2 * torch.arange(N_SLOTS, device="cuda")).to(torch.int32)
+    # phase 14's cross decode (every slot over all 1,500 encoder rows) and
+    # its self decode (a QA prompt plus up to 32 new tokens)
+    frames = torch.full((N_SLOTS,), WHISPER_FRAMES, dtype=torch.int32, device="cuda")
     out = [decode_case(torch, g, ragged, f"lengths 1..{MAX_LEN}"),
            decode_case(torch, g, main, f"main-path lengths {lo}..{hi} (phase 2)"),
            decode_case(torch, g, main, f"main-path lengths {lo}..{hi} (phase 10)",
@@ -483,7 +526,12 @@ def decode_cases(torch) -> list[dict]:
            decode_case(torch, g, main, f"lengths {lo}..{hi}", ZAMBA_HEADS,
                        ZAMBA_HEADS, ZAMBA_HEAD_DIM),
            decode_case(torch, g, few, "main-path lengths 479..509 (phase 12)",
-                       ZAMBA_HEADS, ZAMBA_HEADS, ZAMBA_HEAD_DIM)]
+                       ZAMBA_HEADS, ZAMBA_HEADS, ZAMBA_HEAD_DIM),
+           decode_case(torch, g, frames, f"cross lengths all {WHISPER_FRAMES} "
+                       "(phase 14)", WHISPER_HEADS, WHISPER_HEADS, WHISPER_HEAD_DIM,
+                       s=WHISPER_FRAMES),
+           decode_case(torch, g, main, f"main-path lengths {lo}..{hi} (phase 14)",
+                       WHISPER_HEADS, WHISPER_HEADS, WHISPER_HEAD_DIM)]
     # kernels 2 and 3 are one span-split template, six instantiations
     kernel_limits("repro_decode_kernel_info",
                   {0: "decode_attention split, G <= 4",
@@ -491,7 +539,9 @@ def decode_cases(torch) -> list[dict]:
                    2: "paged_decode_attention split, G <= 4",
                    3: "paged_decode_attention split, G <= 8",
                    4: "decode_attention split d=112, G <= 4",
-                   5: "decode_attention split d=112, G <= 8"})
+                   5: "decode_attention split d=112, G <= 8",
+                   6: "decode_attention split d=64, G <= 4",
+                   7: "decode_attention split d=64, G <= 8"})
     return out
 
 
@@ -600,13 +650,13 @@ def kernel_limits(lib_fn: str, names: dict[int, str]) -> None:
 
 
 def decode_case(torch, g, lens, label: str, heads: int = HEADS,
-                kvh: int = KV_HEADS, d: int = HEAD_DIM) -> dict:
+                kvh: int = KV_HEADS, d: int = HEAD_DIM, s: int = MAX_LEN) -> dict:
     from repro_torch.kernels.decode_attention import (
         decode_attention,
         decode_attention_ref,
     )
 
-    b, s = N_SLOTS, MAX_LEN
+    b = N_SLOTS
     q = torch.randn((b, 1, heads, d), generator=g, device="cuda").to(
         torch.bfloat16)
     kc = torch.randn((b, s, kvh, d), generator=g, device="cuda")
@@ -1335,7 +1385,7 @@ def metric_range(name: str, mv) -> None:
 
 
 def metrics_phase(torch, session, base_task) -> dict[str, int]:
-    """Phase 5: ``run_task`` over the 64 QA rows with the seven metrics and
+    """Phase 5: ``run_task`` over phase 2's QA rows with the seven metrics and
     the default ``ci_method`` (bca) in phase 2's session, BERTScore through
     kernel 7 once per 16-row chunk; the same task in memory (the default
     ``StreamingConfig()``) and streaming under ``analytical``; then the
@@ -1621,7 +1671,7 @@ class FewShot:
                 f"header of {self.header_tokens} tokens")
         self.template = header + " Q: {question} A:"
         prompts = [tok.encode(render(self.template, r))
-                   for r in iter_qa_examples(N_ROWS, seed=0)]
+                   for r in iter_qa_examples(QA_ROWS, seed=0)]
         lens = [len(p) for p in prompts]
         require(max(lens) <= MAX_LEN // 2, f"prompts of up to {max(lens)} tokens")
         self.prompt_len = max(lens)
@@ -1652,9 +1702,9 @@ class Probe:
         self.bad = torch.zeros((), dtype=torch.int64, device="cuda")
         self.prefill_logits: list = []
 
-        def flash(q, k, v, *, q_offset=0):
+        def flash(q, k, v, *, q_offset=0, causal=True):
             self.suffix_prefills += q_offset > 0
-            return self._flash(q, k, v, q_offset=q_offset)
+            return self._flash(q, k, v, q_offset=q_offset, causal=causal)
 
         def sample(logits, vocab_size):
             self.bad += (~torch.isfinite(logits)).sum()
@@ -2125,7 +2175,7 @@ def suite_phase(torch) -> tuple[dict[str, int], dict[str, dict[str, int]]]:
         StatisticsConfig,
         rescore_stages,
     )
-    from repro_torch.data import iter_qa_examples
+    from repro_torch.data import iter_qa_examples, render
 
     t_phase = time.perf_counter()
     models = [EngineModelConfig(provider="torch_local", model_name=name,
@@ -2311,6 +2361,13 @@ def suite_phase(torch) -> tuple[dict[str, int], dict[str, dict[str, int]]]:
             require(phase_launches[name] > 0, f"phase 6: {name} was not launched")
         log(f"phase 6 took {time.perf_counter() - t_phase:.1f} s")
 
+        # phase 8 compares runs over up to QA_ROWS prompts bit for bit, which
+        # holds once the engines' tokenizers have encoded every one of them
+        # (a text is the decode of its tokens through the words encoded)
+        for m in models:
+            tok = session.engine_for(m, mem.inference).tokenizer
+            for r in iter_qa_examples(QA_ROWS, seed=0):
+                tok.encode(render(mem.data.prompt_template, r))
         t0 = time.perf_counter()
         streaming = streaming_phase(torch, session, models, metrics)
         log(f"phase 8 took {time.perf_counter() - t0:.1f} s; "
@@ -2713,9 +2770,9 @@ def harness_phase(torch, session, task):
 # -- phase 8: streaming at scale -------------------------------------------------
 
 #: phase 8's sources: (a) and (b) three chunks, (c) four; (d) draws from
-#: phase 6's N_ROWS; the budget of (d) in scored examples, its seed round
+#: QA_ROWS; the budget of (d) in scored examples, its seed round
 #: and its round size
-STREAM_ROWS, STOP_ROWS = 3 * CHUNK, 4 * CHUNK
+STREAM_ROWS, STOP_ROWS = 3 * CHUNK, QA_ROWS
 BUDGET_TOTAL, BUDGET_MIN, BUDGET_ROUND = 6 * CHUNK, CHUNK, CHUNK
 #: kernel 6 launches a live chunk: one per group of 8 metric columns
 PARTIALS_PER_CHUNK = -(-len(SUITE_METRICS) // 8)
@@ -2964,7 +3021,7 @@ def adaptive_phase(torch, session, models, metrics, tmp: str) -> dict[str, int]:
         statistics=StatisticsConfig(bootstrap_iterations=N_BOOT,
                                     ci_method="percentile", backend="device"),
     ).with_streaming(max_memory_rows=CHUNK, spill_dir=f"{tmp}/adaptive")
-    suite = (EvalSuite("phase-8").add_task(task, lambda: iter_qa_examples(N_ROWS, seed=0))
+    suite = (EvalSuite("phase-8").add_task(task, lambda: iter_qa_examples(QA_ROWS, seed=0))
              .sweep_models(models))
     budget = BudgetConfig(total_examples=BUDGET_TOTAL, min_examples=BUDGET_MIN,
                           round_examples=BUDGET_ROUND)
@@ -3804,6 +3861,323 @@ def minicpm_phase(torch, fs) -> dict[str, int]:
     return launches
 
 
+# -- phase 14: the enc-dec family ---------------------------------------------------
+
+#: phase 14: the seed of the requests' frames (each (1,500, 1,280) f32 at
+#: 0.02 scale, as the reference's tests draw them) and of the layer gates'
+#: inputs; kernel 1's launches a prompt (every encoder layer's
+#: self-attention, every decoder layer's self- and cross-attention) and
+#: kernel 2's a decode step (the decoder's self and cross decode)
+WHISPER_SEED = 14
+#: phase 14 (a)'s requests: half a chunk, to keep the script within its time
+#: limit on a slow host
+WHISPER_ROWS = CHUNK // 2
+WHISPER_PREFILL_LAUNCHES = 96
+WHISPER_STEP_LAUNCHES = 64
+
+
+def whisper_frames(n: int, d_model: int, seed: int = WHISPER_SEED) -> list:
+    """``n`` requests' frames, (1,500, d_model) f32 each, from ``seed``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [(0.02 * rng.standard_normal((WHISPER_FRAMES, d_model))).astype(np.float32)
+            for _ in range(n)]
+
+
+def whisper_batcher(cfg, params, eos_id: int):
+    """Phase 14's batcher: ``N_SLOTS`` slots of ``MAX_LEN`` self rows."""
+    from repro_torch.models import EncDecLM
+    from repro_torch.serve import ContinuousBatcher
+
+    return ContinuousBatcher(EncDecLM(cfg), cfg, params, n_slots=N_SLOTS,
+                             max_len=MAX_LEN, eos_id=eos_id)
+
+
+def whisper_serve(torch, b, reqs, label: str) -> tuple[dict, dict[str, int]]:
+    """Submit ``reqs`` to batcher ``b`` and run them to completion with
+    every launch count set to 0 just before and read just after: each
+    request completes ("length" or "eos"), kernel 1 launches exactly
+    ``WHISPER_PREFILL_LAUNCHES`` a prefill and kernel 2
+    ``WHISPER_STEP_LAUNCHES`` a decode step, no other attention kernel
+    launches, no logit is NaN or inf.  Logs the launches and the prefill
+    and decode-step ms; returns each request's tokens and the launches."""
+    before = dict(b.stats.as_dict())
+    for fn in counters().values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with Probe() as probe:
+        for r in reqs:
+            b.submit(r)
+        done = b.run_to_completion()
+        b.completions = []
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters().items()}
+    st = b.stats.as_dict()
+    run = {k: st[k] - before[k] for k in ("admissions", "steps", "prefill_s",
+                                           "decode_s", "tokens_generated")}
+    want = {"flash_attention": WHISPER_PREFILL_LAUNCHES * run["admissions"],
+            "decode_attention": WHISPER_STEP_LAUNCHES * run["steps"],
+            "paged_decode_attention": 0, "quant_paged_decode_attention": 0, "ssd": 0}
+    got = {k: launches[k] for k in want}
+    require(len(done) == len(reqs) and run["admissions"] == len(reqs)
+            and all(c.finished_reason in ("length", "eos") for c in done),
+            f"{label}: {len(done)} of {len(reqs)} completed, reasons "
+            f"{sorted({c.finished_reason for c in done})}")
+    require(got == want, f"{label}: {run['admissions']} prefills, {run['steps']} decode "
+            f"steps, launches {got}, not {want}")
+    require(int(probe.bad) == 0, f"{label}: logits hold NaN or inf")
+    log(f"{label}: {len(done)} requests in {wall:.3f} s; launches {launches} = "
+        f"{WHISPER_PREFILL_LAUNCHES} x {run['admissions']} prefills and "
+        f"{WHISPER_STEP_LAUNCHES} x {run['steps']} decode steps; "
+        f"{run['prefill_s'] * 1e3 / run['admissions']:.2f} ms a prefill, "
+        f"{run['decode_s'] * 1e3 / max(run['steps'], 1):.2f} ms a decode step "
+        f"(batch {N_SLOTS}), {run['tokens_generated']} decoded tokens")
+    return {c.request_id: c.tokens for c in done}, launches
+
+
+def whisper_layer_gate(torch, params, enc_frames, prompt: list[int]) -> None:
+    """Phase 14 (b), the layers: encoder layer 0 over the 1,500 frames
+    (kernel 1 not causal), decoder layer 0's prefill over ``prompt`` (kernel
+    1 causal, then not causal over the encoder's output) and one decode
+    step of it over 16 slots (kernel 2 over the self and the cross rows),
+    each through the kernels against the same code through their plain
+    versions on the card, both bf16.  The decoder layer attends over the
+    kernels' encoder output on both paths, so the self and cross rows it
+    writes are the same either way, and are gated so."""
+    import repro_torch.models.attention as attn_mod
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import decode_attention_ref
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.models import layers
+    from repro_torch.models.model import _block
+
+    cfg = get_config(WHISPER)
+    enc = _block(params["encoder"], 0)
+    dec = _block(params["decoder"], 0)
+    x = (torch.from_numpy(enc_frames).cuda()[None].to(torch.bfloat16)
+         + params["enc_pos"].to(torch.bfloat16))
+    n = len(prompt)
+    toks = torch.tensor([prompt], device="cuda")
+    y = layers.embed(params["embed"], toks, torch.bfloat16) + params["dec_pos"][:n]
+    g = torch.Generator(device="cuda").manual_seed(WHISPER_SEED)
+    step_x = torch.randn((N_SLOTS, 1, cfg.d_model), generator=g, device="cuda").to(
+        torch.bfloat16)
+    pos = torch.arange(n, n + N_SLOTS, device="cuda")
+    lengths = (pos + 1).to(torch.int32)
+    cross_len = torch.full_like(lengths, WHISPER_FRAMES)
+
+    def encoder_layer():
+        h = layers.layer_norm(enc["ln1"], x, cfg.norm_eps)
+        e = x + attn_mod.gqa_full_noncausal(enc["attn"], cfg, h)
+        return e + layers.mlp(enc["mlp"], layers.layer_norm(enc["ln2"], e, cfg.norm_eps),
+                              cfg.act)
+
+    enc_out = encoder_layer()
+
+    def run():
+        kv = torch.zeros((4, N_SLOTS, MAX_LEN, cfg.n_kv_heads, cfg.head_dim),
+                         device="cuda")
+        cross = torch.zeros((2, N_SLOTS, WHISPER_FRAMES, cfg.n_kv_heads, cfg.head_dim),
+                            device="cuda")
+        e = encoder_layer()
+        h = layers.layer_norm(dec["ln1"], y, cfg.norm_eps)
+        d = y + attn_mod.gqa_prefill(dec["attn"], cfg, h, kv[0], kv[1], 0, None)
+        h = layers.layer_norm(dec["ln_cross"], d, cfg.norm_eps)
+        d = d + attn_mod.cross_prefill(dec["cross"], cfg, h, enc_out, cross[0], cross[1],
+                                       0)
+        # the decode step: every slot's self rows and cross rows random
+        kv[2:].normal_(generator=g)
+        cross[:, 1:].copy_(cross[:, :1].expand(-1, N_SLOTS - 1, -1, -1, -1))
+        h = layers.layer_norm(dec["ln1"], step_x, cfg.norm_eps)
+        s_out = attn_mod.gqa_decode(dec["attn"], cfg, h, kv[2], kv[3], pos, lengths, None)
+        c_out = attn_mod.cross_decode(dec["cross"], cfg, h, cross[0], cross[1], cross_len)
+        return e, d, s_out, c_out, kv, cross
+
+    g.manual_seed(WHISPER_SEED + 1)
+    got = run()
+    flash, dec_fn = attn_mod.flash_attention_bshd, attn_mod.decode_attention_bshd
+    attn_mod.flash_attention_bshd = lambda q, k, v, q_offset=0, causal=True: (
+        flash_attention_ref(q, k, v, q_offset=q_offset, causal=causal))
+    attn_mod.decode_attention_bshd = decode_attention_ref
+    try:
+        g.manual_seed(WHISPER_SEED + 1)
+        want = run()
+    finally:
+        attn_mod.flash_attention_bshd, attn_mod.decode_attention_bshd = flash, dec_fn
+    torch.cuda.synchronize()
+    ratios = []
+    for name, a, b in zip(("encoder layer", "decoder layer prefill", "self decode",
+                           "cross decode"), got, want):
+        err, ratio = rowwise(torch, a, b, HYBRID_LAYER_TOL, HYBRID_LAYER_TOL)
+        require(ratio <= 1.0, f"phase 14 (b) {name}: error/allowance {ratio:.3g}")
+        ratios.append(f"{name} err {err:.3g} (ratio {ratio:.3g})")
+    require(bool(torch.equal(got[4], want[4]) and torch.equal(got[5], want[5])),
+            "phase 14 (b): the cache rows depend on the attention path")
+    log(f"phase 14 (b): layer 0 of the encoder over {WHISPER_FRAMES} frames and of "
+        f"the decoder over {n} tokens and one {N_SLOTS}-slot decode step, kernels 1 and 2 "
+        f"at d = 64 against their plain versions: " + "; ".join(ratios))
+
+
+def whisper_consistency_gate(torch, b, prompt: list[int], frames) -> None:
+    """Phase 14 (b), the decode: slot 0 prefilled with ``prompt`` and
+    ``frames``, then ``MLA_DECODE_STEPS`` decode steps of every slot
+    feeding the next tokens; each step's logits of slot 0 against a full
+    prefill of the prompt and the tokens so far (into slot 1, the same
+    frames), and against the same step from a zeroed slot 0 (the
+    control)."""
+    n = len(prompt)
+    fr = torch.from_numpy(frames).cuda()[None]
+    seq = prompt + [int(t) for t in torch.randint(
+        4, b.cfg.vocab_size, (MLA_DECODE_STEPS,),
+        generator=torch.Generator().manual_seed(WHISPER_SEED))]
+    b.model.prefill(b.params, torch.tensor([prompt], device="cuda"), b.cache, 0,
+                    frames=fr)
+    worst, worst_cold, argmax_equal = 0.0, float("inf"), 0
+    for i in range(MLA_DECODE_STEPS):
+        toks = torch.zeros((N_SLOTS, 1), dtype=torch.int64, device="cuda")
+        toks[0, 0] = seq[n + i]
+        pos = torch.full((N_SLOTS,), n + i, device="cuda")
+        step = b.model.decode_step(b.params, toks, b.cache, pos)[:1]
+        full = b.model.prefill(b.params, torch.tensor([seq[: n + i + 1]], device="cuda"),
+                               b.cache, 1, frames=fr)
+        require(bool(torch.isfinite(step).all() and torch.isfinite(full).all()),
+                "phase 14 (b): decode-consistency logits hold NaN or inf")
+        scale = float(full.abs().max())
+        diff = float((step - full).abs().max())
+        worst = max(worst, diff / scale)
+        argmax_equal += int(step.argmax()) == int(full.argmax())
+        require(diff <= HANDOFF_TOL * scale,
+                f"phase 14 (b): decode step {i} {diff:.4g} > {HANDOFF_TOL} x {scale:.4g}")
+        if i == MLA_DECODE_STEPS - 1:
+            for t in (b.cache.self_kv.k, b.cache.self_kv.v, b.cache.cross.k,
+                      b.cache.cross.v):
+                t[:, 0].zero_()
+            cold = b.model.decode_step(b.params, toks, b.cache, pos)[:1]
+            cold_diff = float((cold - full).abs().max())
+            worst_cold = cold_diff / scale
+            require(cold_diff >= HANDOFF_CONTROL * diff,
+                    f"phase 14 (b): a zeroed slot moves the logits by "
+                    f"{cold_diff:.4g}, under {HANDOFF_CONTROL} x {diff:.4g}")
+    log(f"phase 14 (b): {MLA_DECODE_STEPS} decode steps after a {n}-token prefill "
+        f"against full prefills: worst max |decode - prefill| {worst:.4f} of max "
+        f"|logit| (gate {HANDOFF_TOL}); argmax equal in {argmax_equal} of "
+        f"{MLA_DECODE_STEPS}; from a zeroed slot {worst_cold:.4f}")
+
+
+def whisper_phase(torch) -> dict[str, int]:
+    """Phase 14, the enc-dec family, after phase 13 has freed its weights:
+    full-width whisper-large-v3 (32 encoder and 32 decoder layers, 20
+    heads of 64, 1,500 frames, tied vocab 51,866) with random bf16 weights
+    (seed 0), served through the port's ``ContinuousBatcher`` with each
+    request's frames in ``Request.extras`` (16 slots of 1,024 self rows
+    and 1,500 cross rows).  (a) ``WHISPER_ROWS`` of phase 2's QA prompts,
+    32 new tokens each, greedy: every request completes, kernel 1 launches
+    96 times a prompt and kernel 2 64 times a decode step, exactly; (b) a
+    request alone in a reused slot and in a fresh batcher gives its tokens
+    among the rest; 4 decode steps after a prefill against full prefills; one
+    encoder and one decoder layer through the kernels against their plain
+    versions; the breakdowns of a prefill and a decode step; (c) a paged
+    batcher refused with the reference's words, and the local engine
+    refusing whisper.  Returns (a)'s launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import DataConfig, EngineModelConfig, TorchLocalEngine
+    from repro_torch.data import HashTokenizer, iter_qa_examples, render
+    from repro_torch.models import EncDecLM, init_params
+    from repro_torch.serve import ContinuousBatcher, Request
+
+    cfg = get_config(WHISPER)
+    log(f"phase 14: {gib(torch.cuda.memory_allocated())} allocated before the weights")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"phase 14 weights on the card in {time.perf_counter() - t0:.3f} s: "
+        f"{n_params / 1e9:.3f} B parameters, "
+        f"{gib(sum(t.numel() * t.element_size() for t in _leaves(params)))} of "
+        f"weights, {gib(torch.cuda.max_memory_allocated())} peak while made")
+    tok = HashTokenizer(cfg.vocab_size)
+    rows = list(iter_qa_examples(WHISPER_ROWS, seed=0))
+    prompts = [tok.encode(render(DataConfig().prompt_template, r)) for r in rows]
+    frames = whisper_frames(WHISPER_ROWS, cfg.d_model)
+
+    def requests(ids):
+        return [Request(i, prompts[i], MAX_TOKENS, {"frames": frames[i]}) for i in ids]
+
+    t_a = time.perf_counter()
+    b = whisper_batcher(cfg, params, tok.eos_id)
+    cache_bytes = 4 * sum(t.numel() for t in (b.cache.self_kv.k, b.cache.self_kv.v,
+                                              b.cache.cross.k, b.cache.cross.v))
+    log(f"phase 14 caches: {gib(cache_bytes)} for {N_SLOTS} slots x ({MAX_LEN} self + "
+        f"{WHISPER_FRAMES} cross rows); prompts {min(map(len, prompts))}-"
+        f"{max(map(len, prompts))} tokens")
+    tokens, launches = whisper_serve(torch, b, requests(range(WHISPER_ROWS)),
+                                     "phase 14 (a) enc-dec path")
+    log(f"phase 14 (a): {gib(torch.cuda.max_memory_allocated())} peak allocated")
+
+    t_b = time.perf_counter()
+    probe_id = WHISPER_ROWS - 3
+    alone, _ = whisper_serve(torch, b, requests([probe_id]), "phase 14 (b) alone")
+    require(alone[probe_id] == tokens[probe_id],
+            f"phase 14 (b): request {probe_id} alone in slot 0 gives other tokens "
+            f"than among {WHISPER_ROWS}: {alone[probe_id]} vs {tokens[probe_id]}")
+    fresh_b = whisper_batcher(cfg, params, tok.eos_id)
+    fresh, _ = whisper_serve(torch, fresh_b, requests([probe_id]),
+                             "phase 14 (b) fresh batcher")
+    require(fresh[probe_id] == tokens[probe_id],
+            f"phase 14 (b): a fresh batcher gives other tokens: {fresh[probe_id]}")
+    del fresh_b
+    free_cuda(torch)
+    log(f"phase 14 (b) batch invariance and slot reuse: request {probe_id}'s "
+        f"{len(tokens[probe_id])} tokens equal alone in a reused slot (slot 0 held "
+        f"request 0), in a fresh batcher and among {WHISPER_ROWS}")
+    whisper_consistency_gate(torch, b, prompts[0], frames[0])
+    fr = torch.from_numpy(frames[0]).cuda()[None]
+    toks = torch.tensor([prompts[0]], device="cuda")
+    step_breakdown(torch, f"phase 14 prefill ({len(prompts[0])} tokens and "
+                   f"{WHISPER_FRAMES} frames into slot 0)",
+                   lambda: b.model.prefill(b.params, toks, b.cache, 0, frames=fr),
+                   kernel="flash")
+    nxt = torch.full((N_SLOTS, 1), 7, dtype=torch.int64, device="cuda")
+    pos = torch.full((N_SLOTS,), PROMPT_LEN, dtype=torch.int64, device="cuda")
+    step_breakdown(torch, f"phase 14 decode step (batch {N_SLOTS}, positions "
+                   f"{PROMPT_LEN})",
+                   lambda: b.model.decode_step(b.params, nxt, b.cache, pos),
+                   kernel=DEVICE_KERNEL["decode_attention"])
+    del b
+    free_cuda(torch)
+    whisper_layer_gate(torch, params, frames[0], prompts[0])
+
+    t_c = time.perf_counter()
+    try:
+        ContinuousBatcher(EncDecLM(cfg), cfg, params, n_slots=N_SLOTS, max_len=MAX_LEN,
+                          page_size=PAGE_SIZE)
+    except ValueError as e:
+        require(str(e) == "paged KV cache supports GQA attention families "
+                "('dense', 'moe'), not encdec", f"phase 14 (c): another error: {e}")
+        log(f"phase 14 (c): a paged batcher raises the reference's error: {e}")
+    else:
+        raise CheckFailed("phase 14 (c): a paged enc-dec batcher was built")
+    engine = TorchLocalEngine(EngineModelConfig(provider="torch_local",
+                                                model_name=WHISPER, reduced=False),
+                              n_slots=N_SLOTS, max_len=MAX_LEN, device="cuda",
+                              params=params)
+    try:
+        engine.initialize()
+    except ValueError as e:
+        require("cannot carry the encoder frames" in str(e),
+                f"phase 14 (c): another engine error: {e}")
+        log(f"phase 14 (c): the local engine refuses whisper: {e}")
+    else:
+        raise CheckFailed("phase 14 (c): the local engine took whisper")
+    log(f"phase 14 walls: (a) {t_b - t_a:.1f} s, (b) {t_c - t_b:.1f} s, "
+        f"(c) {time.perf_counter() - t_c:.1f} s; "
+        f"{gib(torch.cuda.max_memory_allocated())} peak allocated")
+    return launches
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -3863,6 +4237,7 @@ def main() -> int:
         qwen25_runs = timed("phase 11", qwen25_phase, torch, fs)
         hybrid = timed("phase 12", zamba_phase, torch, fs)
         mla = timed("phase 13", minicpm_phase, torch, fs)
+        whisper = timed("phase 14", whisper_phase, torch)
     except CheckFailed as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -3884,8 +4259,11 @@ def main() -> int:
                                                     *qwen25_runs.values()))
     for name in ("flash_attention", "decode_attention", "ssd"):
         launches[name] += hybrid[name]
-    # and phase 13's on minicpm3-4b for kernel 1 (kernel 2 launches none)
+    # and phase 13's on minicpm3-4b for kernel 1 (kernel 2 launches none);
+    # phase 14's on whisper-large-v3 for kernels 1 and 2
     launches["flash_attention"] += mla["flash_attention"]
+    for name in ("flash_attention", "decode_attention"):
+        launches[name] += whisper[name]
     for e in entries:
         e["launches"] = launches[e["name"]]
     for e in entries:
@@ -3894,7 +4272,7 @@ def main() -> int:
                 print(f"chip_smoke: FAIL: {e['name']} {key} = {e[key]}",
                       file=sys.stderr)
                 return 1
-    log(f"phases 1-13 took {time.perf_counter() - t_start:.1f} s after the build")
+    log(f"phases 1-14 took {time.perf_counter() - t_start:.1f} s after the build")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -10,6 +10,7 @@ from repro_torch.configs.qwen3_4b import CONFIG as QWEN3_4B
 from repro_torch.configs.qwen3_moe_30b_a3b import CONFIG as QWEN3_MOE_30B_A3B
 from repro_torch.configs.qwen15_110b import CONFIG as QWEN15_110B
 from repro_torch.configs.qwen25_32b import CONFIG as QWEN25_32B
+from repro_torch.configs.whisper_large_v3 import CONFIG as WHISPER_LARGE_V3
 from repro_torch.configs.zamba2_7b import CONFIG as ZAMBA2_7B
 
 ARCHS: dict[str, ModelConfig] = {
@@ -21,6 +22,7 @@ ARCHS: dict[str, ModelConfig] = {
     ZAMBA2_7B.name: ZAMBA2_7B,
     MINICPM3_4B.name: MINICPM3_4B,
     DEEPSEEK_V2_236B.name: DEEPSEEK_V2_236B,
+    WHISPER_LARGE_V3.name: WHISPER_LARGE_V3,
 }
 
 

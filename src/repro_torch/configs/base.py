@@ -1,5 +1,5 @@
-"""Model configuration schema: the port's copy of the dense, MLA, MoE, SSM
-and hybrid parts of ``repro/configs/base.py`` (the JAX package's
+"""Model configuration schema: the port's copy of the dense, MLA, MoE, SSM,
+hybrid and enc-dec parts of ``repro/configs/base.py`` (the JAX package's
 ``ModelConfig``)."""
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ def _round_up(x: int, m: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | moe | ssm | hybrid
+    family: str  # dense | moe | ssm | hybrid | encdec
 
     n_layers: int
     d_model: int
@@ -25,11 +25,13 @@ class ModelConfig:
     vocab_size: int
 
     head_dim: int = 0  # 0 -> d_model // n_heads
+    act: str = "silu"  # silu | gelu
     qkv_bias: bool = False
     qk_norm: bool = False
     tie_embeddings: bool = False
     norm_eps: float = 1e-6
     rope_theta: float = 1_000_000.0
+    pos_emb: str = "rope"  # rope | learned
 
     # --- MLA (multi-head latent attention) ---------------------------------
     use_mla: bool = False
@@ -58,6 +60,10 @@ class ModelConfig:
 
     # --- hybrid (zamba2) ------------------------------------------------------
     shared_attn_every: int = 0  # apply the shared attention block every N layers
+
+    # --- enc-dec (whisper) -----------------------------------------------------
+    n_encoder_layers: int = 0
+    encoder_seq: int = 0        # frontend-stub frame count
 
     def __post_init__(self) -> None:
         if self.head_dim == 0 and self.n_heads:
@@ -103,4 +109,6 @@ class ModelConfig:
             kw.update(q_lora_rank=32 if self.q_lora_rank else 0,
                       kv_lora_rank=32, qk_nope_head_dim=16,
                       qk_rope_head_dim=8, v_head_dim=16)
+        if self.family == "encdec":
+            kw.update(n_encoder_layers=2, encoder_seq=32)
         return self.replace(**kw)

@@ -8,10 +8,14 @@
 // split_decode.cuh, shared with the paged kernel (paged_decode_attention.cu),
 // with position p of sequence b at row b * k_sb + p * k_ss + kh * k_sh.
 //
-// Head widths 128 (qwen3, qwen2.5, the MoE family) and 112 (zamba2's
-// shared attention block, which runs G = 1: 32 query heads over 32 KV
-// heads).  G = 1 takes the GM = 4 instantiation, whose query rows 1-3 are
-// idle: their registers and FMAs are spent for nothing (not tuned yet).
+// Head widths 128 (qwen3, qwen2.5, the MoE family), 112 (zamba2's shared
+// attention block, which runs G = 1: 32 query heads over 32 KV heads) and
+// 64 (whisper's decoder, G = 1: 20 over 20, over its self cache and over
+// its cross cache of 1,500 encoder rows at lengths = 1,500).  G = 1 takes
+// the GM = 4 instantiation, whose query rows 1-3 are idle: their registers
+// and FMAs are spent for nothing (not tuned yet).  At d = 64 a row is 16
+// float4s, so lanes 16-31 copy no column of a row and threads 64-127 own
+// no output column (split_decode.cuh).
 //
 // Inputs: q (B, 1, H, d) bf16, cache (B, S, K, d) f32 (the serving cache
 // holds bf16-rounded values in f32, as the JAX package's does), lengths (B,)
@@ -37,11 +41,12 @@ using split_decode::Args;
 
 // q (B, 1, H, d) bf16; k_cache and v_cache (B, S, K, d) f32 with 16-byte
 // aligned rows; lengths (B,) int32 in [1, S]; out (B, 1, H, d) bf16; d =
-// 128 or 112, unit stride on d everywhere.  strides[10] = q (batch, head), k
+// 128, 112 or 64, unit stride on d everywhere.  strides[10] = q (batch, head), k
 // (batch, seq, head), v (batch, seq, head), out (batch, head), in
 // elements.  scratch: at least B * K * ceil(S / span) * G * (d + 2) f32,
 // 16-byte aligned; arrivals: at least B * K uint32, zero (the kernel leaves
-// them zero).  One launch on `stream`; returns its cudaError_t.
+// them zero).  One launch on `stream`; returns its cudaError_t, and
+// cudaErrorInvalidValue for a head_dim no instantiation is built for.
 extern "C" int repro_decode_attention_f32cache(
     const void* q, const void* k_cache, const void* v_cache,
     const void* lengths, void* out, int batch, int n_heads, int n_kv_heads,
@@ -64,19 +69,29 @@ extern "C" int repro_decode_attention_f32cache(
   a.v_s0 = st[5]; a.v_s1 = st[6]; a.v_s2 = st[7];
   a.o_sb = st[8]; a.o_sh = st[9];
   a.scale = scale;
-  return head_dim == 112
-             ? split_decode::launch<false, 112>(a, batch, n_heads, head_dim, scratch,
-                                                scratch_floats, arrivals, n_arrivals,
-                                                stream)
-             : split_decode::launch<false, 128>(a, batch, n_heads, head_dim, scratch,
-                                                scratch_floats, arrivals, n_arrivals,
-                                                stream);
+  switch (head_dim) {
+    case 128:
+      return split_decode::launch<false, 128>(a, batch, n_heads, head_dim, scratch,
+                                              scratch_floats, arrivals, n_arrivals,
+                                              stream);
+    case 112:
+      return split_decode::launch<false, 112>(a, batch, n_heads, head_dim, scratch,
+                                              scratch_floats, arrivals, n_arrivals,
+                                              stream);
+    case 64:
+      return split_decode::launch<false, 64>(a, batch, n_heads, head_dim, scratch,
+                                             scratch_floats, arrivals, n_arrivals,
+                                             stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // Registers, local (spill) bytes a thread, shared memory a block and
 // resident blocks an SM of the split kernel `which`, as the runtime
 // reports them: 0 and 1 the contiguous kernel for G <= 4 and G <= 8, 2 and
-// 3 the paged kernel's, 4 and 5 the contiguous kernel's at d = 112.
+// 3 the paged kernel's, 4 and 5 the contiguous kernel's at d = 112, 6 and 7
+// at d = 64.
 extern "C" int repro_decode_kernel_info(int which, int* regs, int* local_bytes,
                                         int* smem_bytes, int* blocks_per_sm) {
   switch (which) {
@@ -96,6 +111,12 @@ extern "C" int repro_decode_kernel_info(int which, int* regs, int* local_bytes,
     case 5:
       return split_decode::kernel_info<false, 8, 112>(regs, local_bytes, smem_bytes,
                                                       blocks_per_sm);
+    case 6:
+      return split_decode::kernel_info<false, 4, 64>(regs, local_bytes, smem_bytes,
+                                                     blocks_per_sm);
+    case 7:
+      return split_decode::kernel_info<false, 8, 64>(regs, local_bytes, smem_bytes,
+                                                     blocks_per_sm);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

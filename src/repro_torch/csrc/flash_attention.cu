@@ -1,4 +1,4 @@
-// Causal GQA prefill attention for Hopper (sm_90a), bf16 in and out.
+// GQA prefill attention for Hopper (sm_90a), causal or not, bf16 in and out.
 //
 // Replaces the Pallas TPU kernel
 //   src/repro/kernels/flash_attention/flash_attention.py:flash_attention
@@ -66,6 +66,17 @@
 // columns hold stale bytes, which P V carries only into output columns
 // 64-127 (a column of P V reads only its own column of V), and the store
 // writes 8 16-byte chunks a row, so no such column leaves the block.
+//
+// whisper's heads: (d_qk, d_v) = (64, 64).  Q's and K's tensor maps have
+// inner extent 64, so only their first 64-column box is loaded (the second
+// would be all zeros) and Q K^T takes 4 k16 steps; V is as at (96, 64).
+//
+// Causal or not (the TPU kernel's `causal` flag).  A non-causal call (the
+// encoder's self-attention, the decoder's cross-attention) visits every key
+// tile of Sk and masks only the keys past Sk (TMA fills those rows of the
+// last tile with zeros, which would score 0, not -inf); q_offset then
+// plays no part.  The causal path is the arithmetic it was: the flag only
+// selects the tile count and the mask's diagonal test.
 //
 // Numerics: bf16 operands, f32 accumulation and softmax.  The unnormalised
 // probabilities are rounded to bf16 for P V and the row sum adds those
@@ -256,7 +267,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_v,
                      __nv_bfloat16* __restrict__ o, int sq, int sk,
                      int n_heads, int group, int n_qtiles, int64_t o_sb,
-                     int64_t o_ss, int64_t o_sh, int q_offset,
+                     int64_t o_ss, int64_t o_sh, int q_offset, int causal,
                      float scale_log2) {
   using L = Smem<NWG>;
   extern __shared__ uint8_t smem_raw[];
@@ -272,7 +283,8 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int b = blockIdx.x / n_heads;
   const int q0 = (n_qtiles - 1 - static_cast<int>(blockIdx.y)) * NWG * WG_ROWS;
   const int q_last = min(q0 + NWG * WG_ROWS, sq) - 1;
-  const int n_tiles = (min(sk, q_offset + q_last + 1) + BN - 1) / BN;
+  // the keys any row of the block sees: up to the last row's diagonal, or all
+  const int n_tiles = ((causal ? min(sk, q_offset + q_last + 1) : sk) + BN - 1) / BN;
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
@@ -293,9 +305,10 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (lane == 0) {
       const int kh = h / group;
       const int q_wgs = (q_last - q0) / WG_ROWS + 1;  // warpgroups with rows
-      mbar_expect_tx(bar_q, q_wgs * 2 * Q_HALF);
+      constexpr int QK_HALVES = DQK > 64 ? 2 : 1;      // 64-column boxes of Q, K
+      mbar_expect_tx(bar_q, q_wgs * QK_HALVES * Q_HALF);
       for (int wg = 0; wg < q_wgs; ++wg)
-        for (int half = 0; half < 2; ++half)
+        for (int half = 0; half < QK_HALVES; ++half)
           tma_load(base + L::q + (2 * wg + half) * Q_HALF, &tm_q, bar_q,
                    64 * half, q0 + wg * WG_ROWS, h, b);
       for (int j = 0; j < n_tiles; ++j) {
@@ -303,9 +316,9 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
         if (j >= NSTAGE) mbar_wait(bar_free + 8 * s, ((j / NSTAGE) - 1) & 1);
         const uint32_t kd = base + L::k + s * KV_TILE;
         const uint32_t vd = base + L::v + s * KV_TILE;
-        mbar_expect_tx(bar_k + 8 * s, KV_TILE);
+        mbar_expect_tx(bar_k + 8 * s, QK_HALVES * KV_HALF);
         tma_load(kd, &tm_k, bar_k + 8 * s, 0, j * BN, kh, b);
-        tma_load(kd + KV_HALF, &tm_k, bar_k + 8 * s, 64, j * BN, kh, b);
+        if (DQK > 64) tma_load(kd + KV_HALF, &tm_k, bar_k + 8 * s, 64, j * BN, kh, b);
         mbar_expect_tx(bar_v + 8 * s, DV > 64 ? KV_TILE : KV_HALF);
         tma_load(vd, &tm_v, bar_v + 8 * s, 0, j * BN, kh, b);
         if (DV > 64) tma_load(vd + KV_HALF, &tm_v, bar_v + 8 * s, 64, j * BN, kh, b);
@@ -324,7 +337,9 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int qpos1 = qpos0 + 8;
   const int wg_last = min(row0 + WG_ROWS, sq) - 1;
   const int wg_tiles =
-      wg_last < row0 ? 0 : (min(sk, q_offset + wg_last + 1) + BN - 1) / BN;
+      wg_last < row0
+          ? 0
+          : ((causal ? min(sk, q_offset + wg_last + 1) : sk) + BN - 1) / BN;
   const uint32_t q_sm = base + L::q + wg * 2 * Q_HALF;
 
   float oacc[D / 2];
@@ -358,11 +373,12 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
       reg_fence(sacc);
 
       const int k0 = j * BN;
-      if (k0 + BN - 1 > q_offset + row0 || k0 + BN > sk) {
+      if ((causal && k0 + BN - 1 > q_offset + row0) || k0 + BN > sk) {
 #pragma unroll
         for (int i = 0; i < BN / 2; ++i) {
           const int key = k0 + 8 * (i / 4) + c0 + (i & 1);
-          if (key >= sk || key > ((i & 2) ? qpos1 : qpos0)) sacc[i] = -INFINITY;
+          if (key >= sk || (causal && key > ((i & 2) ? qpos1 : qpos0)))
+            sacc[i] = -INFINITY;
         }
       }
       float mx0 = m_0, mx1 = m_1;
@@ -548,7 +564,7 @@ template <int NWG, int DQK, int DV>
 cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
                    const CUtensorMap& tv, void* o, int batch, int sq, int sk,
                    int n_heads, int group, const int64_t* st, int q_offset,
-                   float scale_log2, cudaStream_t stream) {
+                   int causal, float scale_log2, cudaStream_t stream) {
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -561,7 +577,7 @@ cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
   const dim3 grid(n_heads * batch, n_qtiles);
   flash_prefill_kernel<NWG, DQK, DV><<<grid, NWG * 128 + 32, Smem<NWG>::bytes, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), sq, sk, n_heads, group,
-      n_qtiles, st[9], st[10], st[11], q_offset, scale_log2);
+      n_qtiles, st[9], st[10], st[11], q_offset, causal, scale_log2);
   return cudaGetLastError();
 }
 
@@ -569,20 +585,22 @@ cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
 
 // What limits the kernel with `which` consumer warpgroups at d = 128 (1 or
 // 2), or `which - 2` at d = 112 (3 or 4), or `which - 4` at (d_qk, d_v) =
-// (96, 64) (5 or 6): registers a thread, local (stack and spill) bytes a
+// (96, 64) (5 or 6), or `which - 6` at d = 64 (7 or 8): registers a thread, local (stack and spill) bytes a
 // thread, dynamic shared memory a block, and blocks resident on one SM.
 // Returns the queries' cudaError_t.
 extern "C" int repro_flash_kernel_info(int which, int* regs,
                                        int* local_bytes, int* smem_bytes,
                                        int* blocks_per_sm) {
-  const void* fns[6] = {
+  const void* fns[8] = {
       reinterpret_cast<const void*>(flash_prefill_kernel<1, 128, 128>),
       reinterpret_cast<const void*>(flash_prefill_kernel<2, 128, 128>),
       reinterpret_cast<const void*>(flash_prefill_kernel<1, 112, 112>),
       reinterpret_cast<const void*>(flash_prefill_kernel<2, 112, 112>),
       reinterpret_cast<const void*>(flash_prefill_kernel<1, 96, 64>),
-      reinterpret_cast<const void*>(flash_prefill_kernel<2, 96, 64>)};
-  if (which < 1 || which > 6) return static_cast<int>(cudaErrorInvalidValue);
+      reinterpret_cast<const void*>(flash_prefill_kernel<2, 96, 64>),
+      reinterpret_cast<const void*>(flash_prefill_kernel<1, 64, 64>),
+      reinterpret_cast<const void*>(flash_prefill_kernel<2, 64, 64>)};
+  if (which < 1 || which > 8) return static_cast<int>(cudaErrorInvalidValue);
   const int warpgroups = (which - 1) % 2 + 1;
   const void* fn = fns[which - 1];
   const int smem = warpgroups == 1 ? Smem<1>::bytes : Smem<2>::bytes;
@@ -601,18 +619,19 @@ extern "C" int repro_flash_kernel_info(int which, int* regs,
 }
 
 // q (B, Sq, H, d_qk), k (B, Sk, K, d_qk), v (B, Sk, K, d_v), o (B, Sq, H,
-// d_v): bf16, (d_qk, d_v) = (128, 128), (112, 112) or (96, 64), unit
-// stride on d, 16-byte aligned rows.  strides[12] holds the (batch, seq,
-// head) strides of q, k, v, o in elements.  Returns the launch's
-// cudaError_t.
+// d_v): bf16, (d_qk, d_v) = (128, 128), (112, 112), (96, 64) or (64, 64),
+// unit stride on d, 16-byte aligned rows.  strides[12] holds the (batch,
+// seq, head) strides of q, k, v, o in elements.  causal != 0: query i sits
+// at position q_offset + i and sees keys 0 .. q_offset + i; causal == 0:
+// every query sees every key.  Returns the launch's cudaError_t.
 extern "C" int repro_flash_prefill_bf16(const void* q, const void* k,
                                         const void* v, void* o, int batch,
                                         int sq, int sk, int n_heads,
                                         int n_kv_heads, int d_qk, int d_v,
                                         const int64_t* strides, int q_offset,
-                                        float scale, void* stream) {
+                                        int causal, float scale, void* stream) {
   const bool widths = (d_qk == 128 && d_v == 128) || (d_qk == 112 && d_v == 112) ||
-                      (d_qk == 96 && d_v == 64);
+                      (d_qk == 96 && d_v == 64) || (d_qk == 64 && d_v == 64);
   if (batch <= 0 || sq <= 0 || sk <= 0 || n_kv_heads <= 0 ||
       n_heads % n_kv_heads != 0 || q_offset < 0 || !widths)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -627,13 +646,15 @@ extern "C" int repro_flash_prefill_bf16(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define REPRO_FLASH_LAUNCH(NWG, DQK, DV)                                            \
   launch<NWG, DQK, DV>(tq, tk, tv, o, batch, sq, sk, n_heads, group, st, q_offset, \
-                       scale_log2, s)
+                       causal != 0, scale_log2, s)
   const bool two = sq > WG_ROWS;
   const cudaError_t err =
       d_qk == 128 ? (two ? REPRO_FLASH_LAUNCH(2, 128, 128) : REPRO_FLASH_LAUNCH(1, 128, 128))
       : d_qk == 112
           ? (two ? REPRO_FLASH_LAUNCH(2, 112, 112) : REPRO_FLASH_LAUNCH(1, 112, 112))
-          : (two ? REPRO_FLASH_LAUNCH(2, 96, 64) : REPRO_FLASH_LAUNCH(1, 96, 64));
+      : d_qk == 96
+          ? (two ? REPRO_FLASH_LAUNCH(2, 96, 64) : REPRO_FLASH_LAUNCH(1, 96, 64))
+          : (two ? REPRO_FLASH_LAUNCH(2, 64, 64) : REPRO_FLASH_LAUNCH(1, 64, 64));
 #undef REPRO_FLASH_LAUNCH
   return static_cast<int>(err);
 }

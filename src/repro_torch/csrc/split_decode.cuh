@@ -35,11 +35,13 @@
 // and its gap to every decode call, also where each sequence has one span
 // (the contiguous main path's lengths 11..45).
 //
-// Head widths D = 128 and (the contiguous kernel only) 112.  A row is D / 4
-// float4s: at D = 112, lanes 28-31 own no column of a row and threads
-// 112-127 no output column, so they copy, score, sum and store nothing;
-// every such test is on the template's D and folds away at D = 128, whose
-// instantiations are the code they were.
+// Head widths D = 128 and (the contiguous kernel only) 112 and 64.  A row
+// is D / 4 float4s: at D = 112, lanes 28-31 own no column of a row and
+// threads 112-127 no output column, so they copy, score, sum and store
+// nothing; at D = 64 the same holds for lanes 16-31 and threads 64-127 (a
+// row is scored by 8 lanes of two float4s for G <= 4, 16 lanes of one for
+// G <= 8).  Every such test is on the template's D and folds away at D =
+// 128, whose instantiations are the code they were.
 //
 // SPAN is a constant, never derived from S, the batch, the occupancy or
 // the page size, and the tile order and every reduction order depend on
@@ -135,7 +137,7 @@ __device__ __forceinline__ void row_offsets(const Args& a, int b, int kh, int po
 }
 
 // GM: the most query heads per KV head it serves (4 or 8); D: the head
-// width (128 or 112).
+// width (128, 112 or 64).
 template <bool PAGED, int GM, int D>
 __global__ void __launch_bounds__(NTHREADS, 3) split_kernel(const Args a) {
   static_assert(D <= NTHREADS && D <= 4 * 32 && D % 16 == 0,

@@ -10,9 +10,9 @@ import torch
 from repro_torch.kernels import _cuda
 
 #: the (Q/K width, V width) pairs the kernel is built for: qwen3's and
-#: qwen2.5's, zamba2's, and MLA's decompressed heads (minicpm3: nope 64 +
-#: rope 32 for Q and K, 64 for V)
-HEAD_DIMS = ((128, 128), (112, 112), (96, 64))
+#: qwen2.5's, zamba2's, MLA's decompressed heads (minicpm3: nope 64 + rope
+#: 32 for Q and K, 64 for V) and whisper's
+HEAD_DIMS = ((128, 128), (112, 112), (96, 64), (64, 64))
 
 
 def flash_attention(
@@ -21,10 +21,12 @@ def flash_attention(
     v: torch.Tensor,  # (B, Sk, K, d_v)
     *,
     q_offset: int = 0,
+    causal: bool = True,
 ) -> torch.Tensor:
-    """Causal GQA attention on the card at scale ``d_qk ** -0.5``: query
-    ``i`` sits at position ``q_offset + i`` and sees keys ``0 .. q_offset +
-    i``.  Any ``Sq`` and ``Sk``; ``(d_qk, d_v)`` in :data:`HEAD_DIMS`;
+    """GQA attention on the card at scale ``d_qk ** -0.5``.  Causal:
+    query ``i`` sits at position ``q_offset + i`` and sees keys ``0 ..
+    q_offset + i``; not causal: every query sees all ``Sk`` keys (the
+    encoder's and the cross-attention's).  Any ``Sq`` and ``Sk``; ``(d_qk, d_v)`` in :data:`HEAD_DIMS`;
     strided (B, S, heads, d) views with unit stride on ``d``.  Returns (B,
     Sq, H, d_v) bf16."""
     qs, ks, vs = q.stride(), k.stride(), v.stride()
@@ -50,7 +52,8 @@ def flash_attention(
     )
     err = _cuda.library().repro_flash_prefill_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, sq, sk, h, kh, d, dv, strides, q_offset, d**-0.5, _cuda.stream_of(q),
+        b, sq, sk, h, kh, d, dv, strides, q_offset, int(causal), d**-0.5,
+        _cuda.stream_of(q),
     )
     _cuda.check(err, "flash_attention")
     _cuda.count_launch(flash_attention)

@@ -16,9 +16,10 @@ def flash_attention_bshd(
     v: torch.Tensor,  # (B, Sk, K, d_v)
     *,
     q_offset: int = 0,
+    causal: bool = True,
 ) -> torch.Tensor:
     if q.is_cuda:
-        return flash_attention(q, k, v, q_offset=q_offset)
+        return flash_attention(q, k, v, q_offset=q_offset, causal=causal)
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, q_offset=q_offset)
+        return flash_attention_ref(q, k, v, q_offset=q_offset, causal=causal)
     raise ValueError(f"no prefill attention for device {q.device}")

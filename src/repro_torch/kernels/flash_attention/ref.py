@@ -15,8 +15,10 @@ def flash_attention_ref(
     v: torch.Tensor,
     *,
     q_offset: int = 0,
+    causal: bool = True,
 ) -> torch.Tensor:
-    """Exact causal GQA attention at scale ``d_qk ** -0.5``: scores and
+    """Exact GQA attention at scale ``d_qk ** -0.5``, causal (query ``i``
+    at position ``q_offset + i``) or over every key: scores and
     softmax in f32, probabilities cast to v's dtype before the P V product
     (as the JAX model's ``naive_attention`` does), output (B, Sq, H, d_v)
     in q's dtype."""
@@ -25,10 +27,11 @@ def flash_attention_ref(
     g = h // kh
     qg = q.reshape(b, sq, kh, g, d).float()
     scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * d**-0.5
-    q_pos = torch.arange(sq, device=q.device) + q_offset
-    k_pos = torch.arange(sk, device=q.device)
-    visible = q_pos[:, None] >= k_pos[None, :]
-    scores = torch.where(visible, scores, NEG_INF)
+    if causal:
+        q_pos = torch.arange(sq, device=q.device) + q_offset
+        k_pos = torch.arange(sk, device=q.device)
+        visible = q_pos[:, None] >= k_pos[None, :]
+        scores = torch.where(visible, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype), v)
     return out.reshape(b, sq, h, -1).to(q.dtype)

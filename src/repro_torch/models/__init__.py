@@ -1,4 +1,6 @@
 from repro_torch.models.model import (
+    EncDecCache,
+    EncDecLM,
     HybridCache,
     HybridLM,
     KVCache,
@@ -13,6 +15,8 @@ from repro_torch.models.params import init_params, params_from_jax
 from repro_torch.models.ssm import SSMCache
 
 __all__ = [
+    "EncDecCache",
+    "EncDecLM",
     "HybridCache",
     "HybridLM",
     "KVCache",

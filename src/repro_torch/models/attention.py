@@ -1,7 +1,11 @@
 """Attention blocks of the transformer (``repro/models/attention.py``).
 GQA: q, k and v projections with a bias where the config has ``qkv_bias``
 (``bq``, ``bk``, ``bv``), RMS norms of q and k where it has ``qk_norm``,
-then RoPE.  MLA (multi-head latent attention, minicpm3 and deepseek-v2):
+then RoPE (none where ``rope`` is None: whisper's learned positions).
+Enc-dec (whisper): the encoder's self-attention over the frames and the
+decoder's cross-attention over the encoder's output are GQA without a
+causal mask; the cross K/V are projected once a prompt into the slot's f32
+cross cache, and a decode step attends over all of its rows.  MLA (multi-head latent attention, minicpm3 and deepseek-v2):
 the query through a low-rank bottleneck, keys and values compressed into
 one normed latent per token beside a shared rope key; prefill decompresses
 them and runs the flash kernel with Q and K of width ``nope + rope`` and V
@@ -43,25 +47,27 @@ from repro_torch.kernels.flash_attention.ref import NEG_INF
 from repro_torch.models import layers
 
 
-def gqa_project_q(
-    p: dict, cfg: ModelConfig, x: torch.Tensor, rope: tuple[torch.Tensor, torch.Tensor]
-) -> torch.Tensor:
+#: RoPE's (cos, sin) tables, or None where the model has no rotary positions
+Rope = tuple[torch.Tensor, torch.Tensor] | None
+
+
+def gqa_project_q(p: dict, cfg: ModelConfig, x: torch.Tensor, rope: Rope) -> torch.Tensor:
     b, s, _ = x.shape
     q = layers.dense(p["wq"], x, p.get("bq")).view(b, s, cfg.n_heads, cfg.head_dim)
     if "q_norm" in p:
         q = layers.rms_norm(p["q_norm"], q, cfg.norm_eps)
-    return layers.apply_rope(q, *rope)
+    return q if rope is None else layers.apply_rope(q, *rope)
 
 
 def gqa_project_kv(
-    p: dict, cfg: ModelConfig, x: torch.Tensor, rope: tuple[torch.Tensor, torch.Tensor]
+    p: dict, cfg: ModelConfig, x: torch.Tensor, rope: Rope
 ) -> tuple[torch.Tensor, torch.Tensor]:
     b, s, _ = x.shape
     k = layers.dense(p["wk"], x, p.get("bk")).view(b, s, cfg.n_kv_heads, cfg.head_dim)
     v = layers.dense(p["wv"], x, p.get("bv")).view(b, s, cfg.n_kv_heads, cfg.head_dim)
     if "k_norm" in p:
         k = layers.rms_norm(p["k_norm"], k, cfg.norm_eps)
-    return layers.apply_rope(k, *rope), v
+    return (k if rope is None else layers.apply_rope(k, *rope)), v
 
 
 def gqa_prefill(
@@ -71,7 +77,7 @@ def gqa_prefill(
     k_cache: torch.Tensor,  # (n_slots, max_len, K, dh) f32, this layer
     v_cache: torch.Tensor,
     slot: int,
-    rope: tuple[torch.Tensor, torch.Tensor],
+    rope: Rope,
 ) -> torch.Tensor:
     """Causal self-attention over the prompt.  Its K/V rows are written
     straight into rows ``0 .. S`` of ``slot`` in the f32 cache, in place."""
@@ -109,13 +115,66 @@ def gqa_decode(
     v_cache: torch.Tensor,
     positions: torch.Tensor,  # (B,) position of the new token
     lengths: torch.Tensor,    # (B,) int32 rows to attend: min(position+1, max_len)
-    rope: tuple[torch.Tensor, torch.Tensor],
+    rope: Rope,
 ) -> torch.Tensor:
     b = x.shape[0]
     q = gqa_project_q(p, cfg, x, rope)
     k_new, v_new = gqa_project_kv(p, cfg, x, rope)
     cache_update(k_cache, k_new, positions)
     cache_update(v_cache, v_new, positions)
+    out = decode_attention_bshd(q, k_cache, v_cache, lengths)
+    return layers.dense(p["wo"], out.reshape(b, 1, -1))
+
+
+# -- enc-dec (whisper): no rotary positions, no causal mask across ----------------
+
+
+def gqa_full_noncausal(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The encoder's self-attention: every frame sees every frame (the
+    flash kernel without the causal mask)."""
+    b, s, _ = x.shape
+    q = gqa_project_q(p, cfg, x, None)
+    k, v = gqa_project_kv(p, cfg, x, None)
+    out = flash_attention_bshd(q, k, v, causal=False)
+    return layers.dense(p["wo"], out.reshape(b, s, -1))
+
+
+def cross_prefill(
+    p: dict,
+    cfg: ModelConfig,
+    x: torch.Tensor,        # (1, S, D) the prompt's hidden states, normed
+    enc_out: torch.Tensor,  # (1, T, D) the encoder's output
+    k_cache: torch.Tensor,  # (n_slots, T, K, dh) f32, this layer's cross cache
+    v_cache: torch.Tensor,
+    slot: int,
+) -> torch.Tensor:
+    """Cross-attention over the prompt: K/V projected from the encoder's
+    output (with their biases) in the compute dtype, stored whole into
+    ``slot``'s cross rows in f32 (the reference's ``ck.astype`` of the
+    cache), and every query attends over all T of them (the flash kernel,
+    not causal)."""
+    b, s, _ = x.shape
+    ck, cv = gqa_project_kv(p, cfg, enc_out, None)
+    k_cache[slot] = ck[0]
+    v_cache[slot] = cv[0]
+    q = gqa_project_q(p, cfg, x, None)
+    out = flash_attention_bshd(q, ck, cv, causal=False)
+    return layers.dense(p["wo"], out.reshape(b, s, -1))
+
+
+def cross_decode(
+    p: dict,
+    cfg: ModelConfig,
+    x: torch.Tensor,        # (B, 1, D) normed
+    k_cache: torch.Tensor,  # (B, T, K, dh) f32, this layer's cross cache
+    v_cache: torch.Tensor,
+    lengths: torch.Tensor,  # (B,) int32, T for every slot
+) -> torch.Tensor:
+    """One token a slot over all T cross rows: the reference's unmasked
+    ``naive_attention`` over the f32 cross cache, which is the decode
+    kernel at ``lengths = T``."""
+    b = x.shape[0]
+    q = gqa_project_q(p, cfg, x, None)
     out = decode_attention_bshd(q, k_cache, v_cache, lengths)
     return layers.dense(p["wo"], out.reshape(b, 1, -1))
 

@@ -1,6 +1,6 @@
-"""Layers of the transformer: RMSNorm, NeoX half-rotation RoPE, the SwiGLU
-MLP, dense projections (with an optional bias), the embedding and the tied
-or untied unembedding.
+"""Layers of the transformer: RMSNorm and LayerNorm, NeoX half-rotation
+RoPE, the SwiGLU MLP and the plain biased two-layer MLP, dense projections
+(with an optional bias), the embedding and the tied or untied unembedding.
 Each follows the arithmetic of its ``repro/models/layers.py`` counterpart:
 where the reference computes in f32 and rounds to the compute dtype, so
 does this."""
@@ -16,6 +16,17 @@ def rms_norm(scale: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
     var = xf.square().mean(dim=-1, keepdim=True)
     xf = xf * torch.rsqrt(var + eps)
     return (xf * scale.float()).to(dtype)
+
+
+def layer_norm(p: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """LayerNorm with ``p["scale"]`` and ``p["bias"]``, in f32 (the
+    population variance), rounded to x's dtype once at the end."""
+    dtype = x.dtype
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    xf = (xf - mean) * torch.rsqrt(var + eps)
+    return (xf * p["scale"].float() + p["bias"].float()).to(dtype)
 
 
 def rope_cos_sin(
@@ -50,6 +61,23 @@ def dense(
     ``layers.dense`` adds it."""
     y = x @ w.to(x.dtype)
     return y if b is None else y + b.to(y.dtype)
+
+
+def activation(name: str, x: torch.Tensor) -> torch.Tensor:
+    """The reference's activations.  ``jax.nn.gelu`` is the tanh
+    approximation by default, and so is this one; the exact erf form
+    differs from it by up to ~5e-4."""
+    if name == "silu":
+        return torch.nn.functional.silu(x)
+    if name == "gelu":
+        return torch.nn.functional.gelu(x, approximate="tanh")
+    raise ValueError(f"unknown activation {name!r}")
+
+
+def mlp(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
+    """The plain two-layer MLP with biases (whisper's): ``wo(act(wi x + bi))
+    + bo``."""
+    return dense(p["wo"], activation(act, dense(p["wi"], x, p["bi"])), p["bo"])
 
 
 def gated_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:

@@ -1,15 +1,17 @@
 """The port's model families (``repro/models/model.py``): the
 ``TransformerLM`` of the dense and MoE families (GQA or MLA attention), the
-pure-SSM ``MambaLM`` and the zamba2 ``HybridLM`` (Mamba2 layers and one
-shared attention block), each with a prefill of one prompt into its cache
-and one decode step for every slot; :func:`build_model` picks one by
-``cfg.family``.
+pure-SSM ``MambaLM``, the zamba2 ``HybridLM`` (Mamba2 layers and one
+shared attention block) and the whisper ``EncDecLM`` (an encoder over
+frame embeddings and a decoder with cross-attention), each with a prefill
+of one prompt into its cache and one decode step for every slot;
+:func:`build_model` picks one by ``cfg.family``.
 
 Three attention caches: the contiguous :class:`KVCache` (one row block per
 slot), the :class:`PagedKVCache` (a pool of fixed-size pages that slots
 reach through page tables, f32 or int8) and MLA's compressed
 :class:`MLACache` (a latent and a rope key a token, contiguous only, as in
-the reference).  The full-precision caches are f32, as the reference's
+the reference); the enc-dec's :class:`EncDecCache` pairs a self
+:class:`KVCache` with a cross one of ``encoder_seq`` rows a slot.  The full-precision caches are f32, as the reference's
 serving caches are.  Caches are updated in place: the
 reference returns a new cache from each call, the port writes the rows it
 produces into the one it was given.
@@ -495,14 +497,149 @@ class HybridCache:
     ssm: SSMCache
 
 
-def build_model(cfg: ModelConfig) -> TransformerLM | MambaLM | HybridLM:
+@dataclasses.dataclass
+class EncDecCache:
+    """An :class:`EncDecLM`'s per-slot state: the decoder's self-attention
+    rows ``self_kv`` (n_layers, n_slots, max_len, K, dh) and the cross rows
+    ``cross`` (n_layers, n_slots, encoder_seq, K, dh) that a prefill
+    projects from the encoder's output, both f32."""
+
+    self_kv: KVCache
+    cross: KVCache
+
+    @property
+    def max_len(self) -> int:
+        return self.self_kv.max_len
+
+
+class EncDecLM:
+    """whisper (the reference's ``EncDecLM``): pre-LayerNorm encoder
+    blocks over the frame embeddings plus learned positions (no causal
+    mask, the frontend stubbed: a request brings its frames), then decoder
+    blocks of causal self-attention, cross-attention over the encoder's
+    output and the biased gelu MLP, over token embeddings plus learned
+    positions; the embedding also unembeds.  Its prefill encodes the
+    request's frames and fills the slot's cross rows whole and its self
+    rows ``0 .. S``; its decode step attends over the self rows up to each
+    slot's position and over every cross row."""
+
+    def __init__(self, cfg: ModelConfig):
+        if cfg.pos_emb != "learned":
+            raise ValueError(f"{cfg.name}: the enc-dec family has learned positions")
+        self.cfg = cfg
+
+    def init_cache(
+        self, n_slots: int, max_len: int, device: torch.device | str
+    ) -> EncDecCache:
+        cfg = self.cfg
+
+        def kv(rows: int) -> KVCache:
+            shape = (cfg.n_layers, n_slots, rows, cfg.n_kv_heads, cfg.head_dim)
+            return KVCache(k=torch.zeros(shape, dtype=torch.float32, device=device),
+                           v=torch.zeros(shape, dtype=torch.float32, device=device))
+
+        return EncDecCache(self_kv=kv(max_len), cross=kv(cfg.encoder_seq))
+
+    def encode(
+        self,
+        params: dict,
+        frames: torch.Tensor,  # (1, encoder_seq, d_model) frame embeddings
+        *,
+        dtype: torch.dtype = torch.bfloat16,
+    ) -> torch.Tensor:
+        """The encoder's output (1, T, d_model) in the compute dtype."""
+        cfg = self.cfg
+        if frames.dim() != 3 or frames.shape[1:] != (cfg.encoder_seq, cfg.d_model):
+            raise ValueError(
+                f"frames must be (1, {cfg.encoder_seq}, {cfg.d_model}), got "
+                f"{tuple(frames.shape)}")
+        x = frames.to(dtype) + params["enc_pos"][: frames.shape[1]].to(dtype)
+        for i in range(cfg.n_encoder_layers):
+            p = _block(params["encoder"], i)
+            h = layers.layer_norm(p["ln1"], x, cfg.norm_eps)
+            x = x + attn.gqa_full_noncausal(p["attn"], cfg, h)
+            h = layers.layer_norm(p["ln2"], x, cfg.norm_eps)
+            x = x + layers.mlp(p["mlp"], h, cfg.act)
+        return layers.layer_norm(params["enc_norm"], x, cfg.norm_eps)
+
+    def prefill(
+        self,
+        params: dict,
+        tokens: torch.Tensor,  # (1, S) one prompt
+        cache: EncDecCache,
+        target: int,
+        *,
+        frames: torch.Tensor,  # (1, encoder_seq, d_model)
+        dtype: torch.dtype = torch.bfloat16,
+    ) -> torch.Tensor:
+        """Encode ``frames``, run the prompt through the decoder and return
+        its last position's logits, (1, Vp) f32.  Slot ``target``'s cross
+        rows are overwritten whole with this request's, its self rows ``0
+        .. S`` with the prompt's K/V."""
+        cfg = self.cfg
+        if tokens.dim() != 2 or tokens.shape[0] != 1:
+            raise ValueError(f"prefill takes one prompt (1, S), got {tokens.shape}")
+        s = tokens.shape[1]
+        if s > cache.max_len:
+            raise ValueError(f"prompt of {s} tokens exceeds max_len {cache.max_len}")
+        enc_out = self.encode(params, frames, dtype=dtype)
+        x = layers.embed(params["embed"], tokens, dtype) + params["dec_pos"][:s].to(dtype)
+        kv, cross = cache.self_kv, cache.cross
+        for i in range(cfg.n_layers):
+            p = _block(params["decoder"], i)
+            h = layers.layer_norm(p["ln1"], x, cfg.norm_eps)
+            x = x + attn.gqa_prefill(p["attn"], cfg, h, kv.k[i], kv.v[i], target, None)
+            h = layers.layer_norm(p["ln_cross"], x, cfg.norm_eps)
+            x = x + attn.cross_prefill(p["cross"], cfg, h, enc_out, cross.k[i],
+                                       cross.v[i], target)
+            h = layers.layer_norm(p["ln2"], x, cfg.norm_eps)
+            x = x + layers.mlp(p["mlp"], h, cfg.act)
+        x = layers.layer_norm(params["final_norm"], x[:, -1:], cfg.norm_eps)
+        return layers.unembed(params["embed"], x, dtype)[:, 0]
+
+    def decode_step(
+        self,
+        params: dict,
+        tokens: torch.Tensor,     # (B, 1) one new token per slot
+        cache: EncDecCache,
+        positions: torch.Tensor,  # (B,) position of the new token
+        pages: PageTables | None = None,
+        *,
+        dtype: torch.dtype = torch.bfloat16,
+    ) -> torch.Tensor:
+        """Advance every slot by one token; returns (B, Vp) f32 logits."""
+        if pages is not None:
+            raise ValueError("an enc-dec cache is not paged")
+        cfg = self.cfg
+        kv, cross = cache.self_kv, cache.cross
+        lengths = (positions + 1).clamp(max=kv.max_len).to(torch.int32)
+        cross_len = torch.full_like(lengths, cross.max_len)
+        x = (layers.embed(params["embed"], tokens, dtype)
+             + params["dec_pos"][positions].to(dtype)[:, None])
+        for i in range(cfg.n_layers):
+            p = _block(params["decoder"], i)
+            h = layers.layer_norm(p["ln1"], x, cfg.norm_eps)
+            x = x + attn.gqa_decode(p["attn"], cfg, h, kv.k[i], kv.v[i], positions,
+                                    lengths, None)
+            h = layers.layer_norm(p["ln_cross"], x, cfg.norm_eps)
+            x = x + attn.cross_decode(p["cross"], cfg, h, cross.k[i], cross.v[i],
+                                      cross_len)
+            h = layers.layer_norm(p["ln2"], x, cfg.norm_eps)
+            x = x + layers.mlp(p["mlp"], h, cfg.act)
+        x = layers.layer_norm(params["final_norm"], x, cfg.norm_eps)
+        return layers.unembed(params["embed"], x, dtype)[:, 0]
+
+
+def build_model(cfg: ModelConfig) -> TransformerLM | MambaLM | HybridLM | EncDecLM:
     """The model of ``cfg.family``, as the reference's ``build_model``
     picks it, for the families the port serves (dense and MoE with GQA or
-    MLA attention, SSM, hybrid)."""
+    MLA attention, SSM, hybrid, enc-dec)."""
     if cfg.family in ("dense", "moe"):
         return TransformerLM(cfg)
     if cfg.family == "ssm":
         return MambaLM(cfg)
     if cfg.family == "hybrid":
         return HybridLM(cfg)
+    if cfg.family == "encdec":
+        return EncDecLM(cfg)
     raise ValueError(f"the port does not serve the {cfg.family!r} family yet")

@@ -1,6 +1,6 @@
 """Parameters of the port's models (the ``TransformerLM`` of the dense and
-MoE families, with GQA or MLA attention, the Mamba2 ``MambaLM`` and the
-zamba2 ``HybridLM``):
+MoE families, with GQA or MLA attention, the Mamba2 ``MambaLM``, the
+zamba2 ``HybridLM`` and the whisper ``EncDecLM``):
 random init on the target device from a seeded ``torch.Generator``, and
 the bridge that takes the JAX package's own parameter tree.
 
@@ -8,9 +8,11 @@ Layout: one tensor per weight with the layers stacked on a leading axis, as
 the reference stacks them for its scan (the MoE family's leading dense
 layers in ``layers``, its MoE layers in ``moe_layers``; the hybrid's
 grouped Mamba2 layers ``(G, K, ...)`` in ``groups``, its unstacked
-``shared_attn`` block, its ``tail``); dense kernels are stored ``(in,
-out)``, experts ``(E, in, out)``, q/k/v biases as ``bq``, ``bk``, ``bv``
-beside their kernels.  Matmul weights, experts and the embeddings are
+``shared_attn`` block, its ``tail``; the enc-dec's ``encoder`` and
+``decoder`` stacks); dense kernels are stored ``(in, out)``, experts ``(E,
+in, out)``, q/k/v biases as ``bq``, ``bk``, ``bv`` beside their kernels and
+the plain MLP's as ``bi``, ``bo``; a LayerNorm is a ``{"scale", "bias"}``
+pair, as in the reference's tree.  Matmul weights, experts and the embeddings are
 stored in the compute dtype (the reference keeps f32 masters and casts
 them to the compute dtype at every use, which rounds the same way); norm
 scales, biases, the MoE router and the SSM's conv, decay, skip and dt-bias
@@ -76,10 +78,15 @@ def _block_specs(cfg: ModelConfig, lead: tuple[int, ...],
     block): MLA attention where ``cfg.use_mla``, else GQA attention, with
     q/k/v biases where ``cfg.qkv_bias`` and q/k norms where
     ``cfg.qk_norm``; then ``mlp`` (``{"mlp": ...}`` or ``{"moe": ...}``)."""
-    if cfg.use_mla:
-        return {"ln1": ((*lead, cfg.d_model), "ones"),
-                "attn": _mla_specs(cfg, lead),
-                "ln2": ((*lead, cfg.d_model), "ones"), **mlp}
+    d = cfg.d_model
+    attn = _mla_specs(cfg, lead) if cfg.use_mla else _gqa_specs(cfg, lead)
+    return {"ln1": ((*lead, d), "ones"), "attn": attn,
+            "ln2": ((*lead, d), "ones"), **mlp}
+
+
+def _gqa_specs(cfg: ModelConfig, lead: tuple[int, ...]) -> dict[str, Spec]:
+    """GQA attention stacked over ``lead``: q, k, v and output projections,
+    q/k/v biases where ``cfg.qkv_bias``, q/k norms where ``cfg.qk_norm``."""
     d, dh = cfg.d_model, cfg.head_dim
     hq, hk = cfg.n_heads * dh, cfg.n_kv_heads * dh
     attn: dict[str, Spec] = {
@@ -94,8 +101,7 @@ def _block_specs(cfg: ModelConfig, lead: tuple[int, ...],
                     bv=((*lead, hk), "zeros"))
     if cfg.qk_norm:
         attn.update(q_norm=((*lead, dh), "ones"), k_norm=((*lead, dh), "ones"))
-    return {"ln1": ((*lead, d), "ones"), "attn": attn,
-            "ln2": ((*lead, d), "ones"), **mlp}
+    return attn
 
 
 def _moe_specs(cfg: ModelConfig, n: int) -> dict[str, Any]:
@@ -117,10 +123,12 @@ def param_specs(cfg: ModelConfig) -> dict[str, Any]:
         return _mamba_specs(cfg)
     if cfg.family == "hybrid":
         return _hybrid_specs(cfg)
+    if cfg.family == "encdec":
+        return _encdec_specs(cfg)
     if cfg.family not in ("dense", "moe"):
         raise ValueError(
-            f"{cfg.name}: the port serves dense and MoE (GQA or MLA), Mamba2 "
-            f"and hybrid"
+            f"{cfg.name}: the port serves dense and MoE (GQA or MLA), Mamba2, "
+            f"hybrid and enc-dec"
         )
     n_moe = cfg.n_layers - cfg.first_k_dense if cfg.n_experts else 0
     n_dense = cfg.n_layers - n_moe
@@ -180,6 +188,48 @@ def _hybrid_specs(cfg: ModelConfig) -> dict[str, Any]:
     return spec
 
 
+#: the reference's learned decoder positions (``repro/models/model.py:41``)
+MAX_LEARNED_POS = 32_768
+
+
+def _layer_norm(lead: tuple[int, ...], d: int) -> dict[str, Spec]:
+    return {"scale": ((*lead, d), "ones"), "bias": ((*lead, d), "zeros")}
+
+
+def _encdec_block(cfg: ModelConfig, n: int, cross: bool) -> dict[str, Any]:
+    """Whisper's pre-LayerNorm blocks stacked over ``n``: self-attention
+    with q/k/v biases, the biased two-layer MLP, and (the decoder) a
+    cross-attention with its own norm, as the reference's
+    ``_eblock_specs``."""
+    d, f = cfg.d_model, cfg.d_ff
+    spec: dict[str, Any] = {
+        "ln1": _layer_norm((n,), d), "attn": _gqa_specs(cfg, (n,)),
+        "ln2": _layer_norm((n,), d),
+        "mlp": {"wi": ((n, d, f), "matrix"), "bi": ((n, f), "zeros"),
+                "wo": ((n, f, d), "matrix"), "bo": ((n, d), "zeros")},
+    }
+    if cross:
+        spec.update(ln_cross=_layer_norm((n,), d), cross=_gqa_specs(cfg, (n,)))
+    return spec
+
+
+def _encdec_specs(cfg: ModelConfig) -> dict[str, Any]:
+    """``EncDecLM``'s tree, as the reference's ``EncDecLM.param_specs``: the
+    tied embedding, learned encoder (``encoder_seq`` rows) and decoder
+    (``MAX_LEARNED_POS`` rows) positions in the compute dtype, the encoder
+    and decoder stacks, and their final LayerNorms."""
+    d = cfg.d_model
+    return {
+        "embed": ((cfg.padded_vocab, d), "matrix"),
+        "enc_pos": ((cfg.encoder_seq, d), "matrix"),
+        "dec_pos": ((MAX_LEARNED_POS, d), "matrix"),
+        "encoder": _encdec_block(cfg, cfg.n_encoder_layers, cross=False),
+        "enc_norm": _layer_norm((), d),
+        "decoder": _encdec_block(cfg, cfg.n_layers, cross=True),
+        "final_norm": _layer_norm((), d),
+    }
+
+
 def _map_specs(fn, specs: dict, path: tuple[str, ...] = ()) -> dict:
     return {
         k: _map_specs(fn, v, path + (k,)) if isinstance(v, dict) else fn(path + (k,), v)
@@ -223,7 +273,7 @@ def init_params(
 
 
 #: the port's bias leaves and the JAX kernels they belong to
-_BIAS_OF = {"bq": "wq", "bk": "wk", "bv": "wv"}
+_BIAS_OF = {"bq": "wq", "bk": "wk", "bv": "wv", "bi": "wi", "bo": "wo"}
 _SCALES = ("ln", "norm", "ln1", "ln2", "q_norm", "k_norm", "app_norms",
            "q_a_norm", "kv_a_norm")
 _SSM_KERNELS = ("wz", "wxBC", "wdt", "out_proj")
@@ -231,9 +281,12 @@ _SSM_KERNELS = ("wz", "wxBC", "wdt", "out_proj")
 
 def _jax_path(path: tuple[str, ...], family: str) -> tuple[str, ...]:
     """A port leaf's path in the JAX model's tree: ``TransformerLM``'s
-    (dense, moe), ``MambaLM``'s (ssm) or ``HybridLM``'s (hybrid)."""
-    if path == ("embed",):
-        return ("embed", "table")
+    (dense, moe), ``MambaLM``'s (ssm), ``HybridLM``'s (hybrid) or
+    ``EncDecLM``'s (encdec, whose LayerNorm leaves keep their paths)."""
+    if path in (("embed",), ("enc_pos",), ("dec_pos",)):
+        return (path[0], "table")
+    if family == "encdec" and path[-1] in ("scale", "bias"):
+        return path
     if path == ("unembed",):
         return ("unembed", "kernel")
     if path[0] == "layers" and family in ("dense", "moe"):
@@ -256,19 +309,23 @@ def params_from_jax(
     device: torch.device | str,
     dtype: torch.dtype = torch.bfloat16,
 ) -> dict[str, Any]:
-    """Convert the JAX package's ``TransformerLM``, ``MambaLM`` or
-    ``HybridLM`` parameters, given as numpy arrays
+    """Convert the JAX package's ``TransformerLM``, ``MambaLM``,
+    ``HybridLM`` or ``EncDecLM`` parameters, given as numpy arrays
     (``jax.tree.map(np.asarray, params)``), into the port's tree: layers
     stay stacked (the hybrid's groups nested ``(G, K, ...)``), kernels stay
     ``(in, out)``, the embedding keeps its ``padded_vocab`` rows, and the
-    q/k/v biases, qk-norm scales, MLA's ``wkv_b`` and MoE router or the
-    conv, decay, skip and dt-bias parameters (Mamba2) come across in f32
-    with the norm scales."""
+    q/k/v and MLP biases, qk-norm scales, MLA's ``wkv_b`` and MoE router or
+    the conv, decay, skip and dt-bias parameters (Mamba2) come across in f32
+    with the norm scales and biases.  Every leaf of ``tree`` must be taken:
+    one the port has no place for (a bias it would drop, say) raises."""
+    taken: set[tuple[str, ...]] = set()
 
     def take(path, spec: Spec) -> torch.Tensor:
         node = tree
-        for key in _jax_path(path, cfg.family):
+        jpath = _jax_path(path, cfg.family)
+        for key in jpath:
             node = node[key]
+        taken.add(jpath)
         arr = np.array(node, np.float32)  # a writable copy for torch
         shape, kind = spec
         if arr.shape != shape:
@@ -276,4 +333,16 @@ def params_from_jax(
         out_dtype = dtype if kind == "matrix" else torch.float32
         return torch.from_numpy(arr).to(device=device, dtype=out_dtype)
 
-    return _map_specs(take, param_specs(cfg))
+    out = _map_specs(take, param_specs(cfg))
+    left = sorted("/".join(p) for p in _leaf_paths(tree) if p not in taken)
+    if left:
+        raise ValueError(f"{cfg.name}: JAX leaves the port does not take: {left}")
+    return out
+
+
+def _leaf_paths(tree: dict, path: tuple[str, ...] = ()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaf_paths(v, path + (k,))
+        else:
+            yield path + (k,)

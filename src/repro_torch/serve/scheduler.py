@@ -1,7 +1,11 @@
 """Continuous-batching scheduler over a model's per-slot cache: a contiguous
 or a paged KV cache for the dense and MoE families with GQA attention, the
-contiguous compressed cache of MLA, the SSM state for Mamba2 and the hybrid
-(the ``ContinuousBatcher`` of ``repro/serve/scheduler.py``).
+contiguous compressed cache of MLA, the SSM state for Mamba2 and the
+hybrid, the self and cross caches of the enc-dec family (the
+``ContinuousBatcher`` of ``repro/serve/scheduler.py``).  A request's
+``extras`` go to the model's prefill as keyword arguments: an enc-dec
+request carries its encoder frames there (``{"frames": (encoder_seq,
+d_model) array}``), as the reference merges them into its prefill batch.
 
 A fixed pool of ``n_slots`` decode slots steps in lock-step.  Each step:
 
@@ -70,6 +74,7 @@ class Request:
     request_id: int
     prompt_tokens: list[int]
     max_new_tokens: int = 32
+    extras: dict | None = None  # e.g. {"frames": ...} for enc-dec archs
 
 
 @dataclasses.dataclass
@@ -155,6 +160,14 @@ def paged_page_bytes(cfg: ModelConfig, page_size: int, kv_cache_dtype: str) -> i
             page_size, cfg.n_kv_heads, cfg.head_dim, cfg.n_layers, "int8"
         )
     return 2 * cfg.n_layers * cfg.n_kv_heads * page_size * cfg.head_dim * 4
+
+
+def _batched(value: Any, device: torch.device) -> torch.Tensor:
+    """A request extra as the reference's batch dict holds it
+    (``jnp.asarray(v)[None]``): on the batcher's device, with a batch axis
+    in front, float64 narrowed to f32 as JAX narrows it."""
+    t = torch.as_tensor(value, device=device)
+    return (t.float() if t.dtype == torch.float64 else t)[None]
 
 
 class ContinuousBatcher:
@@ -294,7 +307,10 @@ class ContinuousBatcher:
             )
         else:
             tokens = torch.tensor([ptoks], device=self.device)
-            logits = self.model.prefill(self.params, tokens, self.cache, slot)
+            extras = {k: _batched(v, self.device)
+                      for k, v in (req.extras or {}).items()}
+            logits = self.model.prefill(self.params, tokens, self.cache, slot,
+                                        **extras)
         first = int(steps_lib.greedy_sample(logits, self.cfg.vocab_size)[0])
         if self.page_size:
             self.manager.register(slot, ptoks)

@@ -32,7 +32,11 @@ the refusals of widths no kernel is built for; kernel 1 at MLA's widths
 (Q and K of 96, V of 64: minicpm3-4b's 40 heads, both warpgroup launches,
 the suffix bit-equality, V as a view of the decompressed K/V), and kernel
 7 past its old 512-token limit (1,024 tokens a side, whole empty 64-row
-tiles; any width) up to the card's shared memory.  Every case carries the ``gpu``
+tiles; any width) up to the card's shared memory; kernel 1 at whisper's
+(64, 64), causal and not (the encoder's 1,500 frames, the cross prefill's
+12 queries over them), and kernel 2 at head_dim 64 over the cross cache
+(every length 1,500) and at ragged lengths, with a width no kernel is
+built for refused by the wrapper and by the C entry.  Every case carries the ``gpu``
 marker and skips where there is no CUDA device.  The file imports no JAX,
 so it runs on a machine with the card and no JAX:
 
@@ -787,7 +791,7 @@ def test_widened_kernels_refuse_other_widths_and_do_not_spill(cuda):
     from repro_torch.kernels import _cuda
 
     lens = torch.ones(1, dtype=torch.int32, device=cuda)
-    for d in (96, 64):
+    for d in (96, 80):
         q = torch.randn((1, 4, 2, d), device=cuda).to(torch.bfloat16)
         with pytest.raises(ValueError):
             flash_attention(q, q, q)
@@ -837,11 +841,11 @@ def test_flash_kernel_at_mla_widths(cuda, sq, sk, off, suffix):
     if suffix:
         tail = flash_attention(q[:, sq - suffix:], k, v, q_offset=off + sq - suffix)
         assert torch.equal(tail, got[:, sq - suffix:])
-    # the pair is (96, 64): neither width alone, nor (96, 96), is built
+    # the pair is (96, 64): neither (96, 96) nor (64, 96) is built
     with pytest.raises(ValueError):
         flash_attention(q, k, k, q_offset=off)
     with pytest.raises(ValueError):
-        flash_attention(q[..., :64], k[..., :64], v, q_offset=off)
+        flash_attention(q[..., :64], k[..., :64], k, q_offset=off)
 
 
 @pytest.mark.gpu
@@ -856,7 +860,7 @@ def test_flash_kernel_mla_instantiations_do_not_spill(cuda):
         assert lib.repro_flash_kernel_info(w, *(ctypes.byref(v) for v in vals)) == 0
         assert vals[1].value == 0 and vals[3].value >= 1, w
     vals = [ctypes.c_int() for _ in range(4)]
-    assert lib.repro_flash_kernel_info(7, *(ctypes.byref(v) for v in vals)) != 0
+    assert lib.repro_flash_kernel_info(9, *(ctypes.byref(v) for v in vals)) != 0
 
 
 def _long_bert_case(cuda, b, n, d, seed):
@@ -887,3 +891,96 @@ def test_bertscore_kernel_past_512_tokens(cuda, n, d):
         alone = bertscore_pr(*(t[i:i + 1].contiguous() for t in args))
         assert all(torch.equal(a, g[i:i + 1]) for a, g in zip(alone, got))
     assert all(torch.equal(a, g) for a, g in zip(bertscore_pr(*args), got))
+
+
+# -- whisper's widths: kernel 1 at (64, 64), causal and not; kernel 2 at 64 ----------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,kh,sq,sk,causal", [
+    # chip_smoke.py phase 1's rows: the encoder, the cross prefill, the
+    # decoder's causal prompt; Sk = 1,500 is not a multiple of the tile
+    (20, 20, 1500, 1500, False), (20, 20, 12, 1500, False), (20, 20, 12, 12, True),
+    (20, 20, 1, 1500, False), (20, 20, 65, 300, False), (20, 20, 200, 200, True),
+    (8, 2, 130, 1500, False), (20, 20, 64, 64, False)])
+def test_flash_kernel_at_whisper_width(cuda, h, kh, sq, sk, causal):
+    """(d_qk, d_v) = (64, 64) through both warpgroup launches: within the
+    gate; not causal, the same bits as causal with every query past the
+    last key (q_offset = Sk - 1); a batch row alone gives its bits among
+    others; the cross K/V as views of one fused projection."""
+    d = 64
+    g = torch.Generator(device=cuda).manual_seed(sq + sk + h)
+    q = torch.randn((2, sq, h, d), generator=g, device=cuda).to(torch.bfloat16)
+    kv = torch.randn((2, sk, 2, kh, d), generator=g, device=cuda)
+    k, v = kv.to(torch.bfloat16).unbind(2)
+    got = flash_attention(q, k, v, causal=causal)
+    assert got.shape == q.shape
+    ref = flash_attention_ref(q, k, v, causal=causal)
+    assert _rowwise_ok(got, ref, 2**-7, 1e-2)
+    if not causal:
+        assert torch.equal(flash_attention(q, k, v, q_offset=sk - 1), got)
+        assert not torch.equal(flash_attention(q, k, v), got)
+    alone = flash_attention(q[1:], k[1:].contiguous(), v[1:].contiguous(), causal=causal)
+    assert torch.equal(alone, got[1:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g_heads,kh,s", [(1, 20, 1500), (1, 20, 1024), (4, 2, 512),
+                                          (8, 1, 300)])
+def test_decode_kernel_at_head_dim_64(cuda, g_heads, kh, s):
+    """whisper's decode: lengths = S for every sequence (the cross cache)
+    and ragged lengths at the span's edges (the self cache); within the
+    gate, repeatable, a sequence alone as among the rest."""
+    d = 64
+    gen = torch.Generator(device=cuda).manual_seed(64 + g_heads + s)
+    ragged = torch.tensor([1, s, 11, 45, SPAN - 1, SPAN, SPAN + 1, s - 1],
+                          dtype=torch.int32, device=cuda)
+    for lens in (torch.full((16,), s, dtype=torch.int32, device=cuda), ragged):
+        b = lens.numel()
+        q = torch.randn((b, 1, kh * g_heads, d), generator=gen, device=cuda)
+        q = q.to(torch.bfloat16)
+        kc = torch.randn((b, s, kh, d), generator=gen, device=cuda)
+        vc = torch.randn((b, s, kh, d), generator=gen, device=cuda)
+        got = decode_attention(q, kc, vc, lens)
+        assert _rowwise_ok(got, decode_attention_ref(q, kc, vc, lens), 2**-7, 1e-3)
+        assert torch.equal(decode_attention(q, kc, vc, lens), got)
+        for i in (0, b - 1):
+            alone = decode_attention(q[i:i + 1], kc[i:i + 1], vc[i:i + 1],
+                                     lens[i:i + 1])
+            assert torch.equal(alone, got[i:i + 1])
+
+
+@pytest.mark.gpu
+def test_decode_kernel_refuses_unbuilt_widths_at_both_entries(cuda):
+    """d = 96 has no contiguous decode instantiation: the wrapper raises,
+    and the C entry, called directly, returns an error rather than running
+    another width's kernel; the d = 64 instantiations spill nowhere."""
+    import ctypes
+
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.decode_attention.decode_attention import workspace
+
+    lens = torch.ones(2, dtype=torch.int32, device=cuda)
+    q = torch.randn((2, 1, 4, 96), device=cuda).to(torch.bfloat16)
+    kc = torch.randn((2, 8, 4, 96), device=cuda)
+    with pytest.raises(ValueError):
+        decode_attention(q, kc, kc, lens)
+    out = torch.empty_like(q)
+    stream = _cuda.stream_of(q)
+    scratch, arrivals = workspace(q, stream, 8, 4)
+    strides = [q.stride(0), q.stride(2), *kc.stride()[:3], *kc.stride()[:3],
+               out.stride(0), out.stride(2)]
+    lib = _cuda.library()
+    err = lib.repro_decode_attention_f32cache(
+        q.data_ptr(), kc.data_ptr(), kc.data_ptr(), lens.data_ptr(), out.data_ptr(),
+        2, 4, 4, 96, 8, _cuda.int64_array(strides), 96**-0.5, scratch.data_ptr(),
+        scratch.numel(), arrivals.data_ptr(), arrivals.numel(), stream)
+    assert err != 0
+    for fn, which in (("repro_decode_kernel_info", (6, 7)),
+                      ("repro_flash_kernel_info", (7, 8))):
+        for w in which:
+            vals = [ctypes.c_int() for _ in range(4)]
+            assert getattr(lib, fn)(w, *(ctypes.byref(v) for v in vals)) == 0
+            assert vals[1].value == 0 and vals[3].value >= 1, (fn, w)
+    vals = [ctypes.c_int() for _ in range(4)]
+    assert lib.repro_decode_kernel_info(8, *(ctypes.byref(v) for v in vals)) != 0

@@ -425,4 +425,4 @@ def test_configs_match_the_reference():
     assert (full.d_inner, full.ssm_nheads, full.padded_vocab) == (5120, 80, 50_432)
     assert isinstance(build_model(full), MambaLM)
     with pytest.raises(ValueError, match="family"):
-        build_model(full.replace(family="encdec"))
+        build_model(full.replace(family="vlm"))
