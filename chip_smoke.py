@@ -176,7 +176,24 @@ and a decode step) through kernels 1 and 2 against their plain versions,
 the breakdowns of a prefill and a decode step; (c) a paged batcher refused
 with the reference's words and the local engine refusing whisper.  Phase
 1 holds kernel 1 at (64, 64) causal and not, and kernel 2 at 64 over
-phase 14's cross rows and main-path lengths.
+phase 14's cross rows and main-path lengths.  Phase 15, the VLM family,
+runs last: full-width paligemma-3b (18 layers, 8 heads of 256 over 1 KV
+head, d_ff 16,384 with the tanh-gelu GeGLU, a tied vocab of 257,216,
+token embeddings times sqrt(d_model) rounded to bf16; 4.7 GiB of random
+bf16 weights) through the port's ``ContinuousBatcher``, each request's
+(256, 2,048) bf16 patch embeddings (seeded, on the card, at 0.02 scale) in
+``Request.extras``: (a) 8 QA prompts, 32 new tokens each, kernel 1
+launched exactly 18 times a prompt (one a layer, under the prefix-LM mask
+with ``prefix_len`` 256) and kernel 2 exactly 18 times a decode step; (b)
+a request alone in a reused slot and in a fresh batcher gives its tokens
+among 8, 4 decode steps after a prefill against full prefills, the
+breakdowns of a prefill and a decode step, layer 0's prefill and one
+decode step through kernels 1 and 2 against their plain versions; (c) a
+paged batcher and a suffix prefill refused with the reference's words and
+the local engine refusing paligemma.  Phase 1 holds kernel 1 at d = 256,
+8 heads over 1 KV head, with ``prefix_len`` 256 at 268 and 512 tokens and
+causal at 12, and kernel 2 at d = 256, G = 8 at phase 15's lengths; SDPA
+gets K and V expanded to 8 heads and the boolean prefix-LM mask.
 
 Standard output: the card's name and power limit first, then log lines,
 then one ``{"kernels": [...]}`` line, and last the
@@ -273,6 +290,15 @@ WHISPER = "whisper-large-v3"
 WHISPER_HEADS, WHISPER_HEAD_DIM, WHISPER_FRAMES = 20, 64, 1500
 WHISPER_FLASH_SHAPES = ((WHISPER_FRAMES, WHISPER_FRAMES, False),
                         (PROMPT_LEN, WHISPER_FRAMES, False), (PROMPT_LEN, PROMPT_LEN, True))
+#: phase 15's model, full-width paligemma-3b: 8 heads of 256 over 1 KV head
+#: (G = 8), 256 patch positions ahead of each prompt; its cache rows a slot;
+#: its prefill rows (Sq = Sk, prefix_len): a QA prompt after the patches,
+#: 512 tokens under the same mask, a 12-token causal prompt
+PALIGEMMA = "paligemma-3b"
+PALI_HEADS, PALI_KV_HEADS, PALI_HEAD_DIM, PALI_PREFIX = 8, 1, 256, 256
+PALI_MAX_LEN = 512
+PALI_FLASH_SHAPES = ((PALI_PREFIX + PROMPT_LEN, PALI_PREFIX), (512, PALI_PREFIX),
+                     (PROMPT_LEN, 0))
 #: phase 5: BERTScore's default max_len and the hash embedder's width, the
 #: seven metrics (name, type), and the statistics API's sample size; phase
 #: 1 also holds kernel 7 at ``max_len = BERT_LONG``, past its old limit of 512
@@ -392,7 +418,7 @@ def flash_cases(torch, fs):
                            dtype=torch.float32).to(torch.bfloat16)
 
     out = []
-    for (sq, sk, off), heads, kvh, d, dv, causal in (
+    cases = (
             [(shape, HEADS, KV_HEADS, HEAD_DIM, HEAD_DIM, True) for shape in FLASH_SHAPES]
             + [(shape, MOE_HEADS, MOE_KV_HEADS, HEAD_DIM, HEAD_DIM, True)
                for shape in MOE_FLASH_SHAPES]
@@ -403,10 +429,16 @@ def flash_cases(torch, fs):
             + [(shape, MLA_HEADS, MLA_HEADS, MLA_QK_DIM, MLA_V_DIM, True)
                for shape in MLA_FLASH_SHAPES]
             + [((sq, sk, 0), WHISPER_HEADS, WHISPER_HEADS, WHISPER_HEAD_DIM,
-                WHISPER_HEAD_DIM, causal) for sq, sk, causal in WHISPER_FLASH_SHAPES]):
+                WHISPER_HEAD_DIM, causal) for sq, sk, causal in WHISPER_FLASH_SHAPES])
+    # (the rows above without a prefix) and phase 15's under the prefix-LM mask
+    cases = [(*c, 0) for c in cases] + [
+        ((sq, sq, 0), PALI_HEADS, PALI_KV_HEADS, PALI_HEAD_DIM, PALI_HEAD_DIM, True, pre)
+        for sq, pre in PALI_FLASH_SHAPES]
+    for (sq, sk, off), heads, kvh, d, dv, causal, pre in cases:
         q, k, v = rnd(sq, heads, d), rnd(sk, kvh, d), rnd(sk, kvh, dv)
-        got = flash_attention(q, k, v, q_offset=off, causal=causal)
-        ref = flash_attention_ref(q, k, v, q_offset=off, causal=causal)
+        kw = {"q_offset": off, "causal": causal, "prefix_len": pre}
+        got = flash_attention(q, k, v, **kw)
+        ref = flash_attention_ref(q, k, v, **kw)
         torch.cuda.synchronize()
         # P is rounded to bf16 unnormalised in the kernel and normalised in
         # the plain version, and both round the output to bf16: 2^-7 of the
@@ -415,19 +447,23 @@ def flash_cases(torch, fs):
         err, ratio = rowwise(torch, got, ref, 2**-7, 1e-2)
         width = f"d={d}" if d == dv else f"d_qk={d} d_v={dv}"
         shape = (f"B=1 H={heads} K={kvh} {width} Sq={sq} Sk={sk} "
-                 + (f"q_offset={off}" if causal else "not causal"))
+                 + (f"q_offset={off}" if causal else "not causal")
+                 + (f" prefix_len={pre}" if pre else ""))
         require(ratio <= 1.0, f"flash_attention {shape}: error/allowance {ratio:.3g}")
         # 2 d_qk FLOPs a visible (query head, key) pair for Q K^T and 2 d_v
-        # for P V; Q and K read, V read and O written once, bf16
-        pairs = (sum(min(sk, off + i + 1) for i in range(sq)) if causal
+        # for P V (a causal row sees up to max(its position, prefix - 1));
+        # Q and K read, V read and O written once, bf16
+        pairs = (sum(min(sk, max(off + i, pre - 1) + 1) for i in range(sq)) if causal
                  else sq * sk)
         nbytes = 2 * (d * (sq * heads + sk * kvh) + dv * (sk * kvh + sq * heads))
         b_ms, b_by = bound(2 * (d + dv) * pairs * heads, PEAK_BF16, nbytes)
         kx, vx = (t.repeat_interleave(heads // kvh, dim=2) for t in (k, v))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, kx, vx))
-        # no mask tensor where every key is visible
-        mask = (torch.arange(sq, device="cuda")[:, None] + off
-                >= torch.arange(sk, device="cuda")[None, :]) if causal else None
+        # no mask tensor where every key is visible; the prefix-LM mask as
+        # the reference's make_causal_mask builds it
+        q_pos = torch.arange(sq, device="cuda")[:, None] + off
+        k_pos = torch.arange(sk, device="cuda")[None, :]
+        mask = ((q_pos >= k_pos) | ((q_pos < pre) & (k_pos < pre))) if causal else None
         # SDPA takes a V width other than the Q/K width (E != Ev)
         sdpa = torch.nn.functional.scaled_dot_product_attention
         out.append({
@@ -437,19 +473,16 @@ def flash_cases(torch, fs):
             "replaces": "src/repro/kernels/flash_attention/flash_attention.py:93",
             "shape": shape,
             "max_abs_err": err,
-            "ms": time_ms(torch, lambda: flash_attention(q, k, v, q_offset=off,
-                                                         causal=causal)),
-            "device_ms": device_profile(
-                torch, lambda: flash_attention(q, k, v, q_offset=off, causal=causal), 1),
-            "plain_ms": time_ms(
-                torch, lambda: flash_attention_ref(q, k, v, q_offset=off, causal=causal),
-                iters=5),
+            "ms": time_ms(torch, lambda: flash_attention(q, k, v, **kw)),
+            "device_ms": device_profile(torch, lambda: flash_attention(q, k, v, **kw), 1),
+            "plain_ms": time_ms(torch, lambda: flash_attention_ref(q, k, v, **kw),
+                                iters=5),
             "library_ms": time_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask)),
             "bound_ms": b_ms,
             "bound_by": b_by,
         })
         is_causal = ""
-        if sq == sk and causal:
+        if sq == sk and causal and not pre:
             causal_ms = time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True))
             is_causal = f", sdpa is_causal (no mask tensor) {causal_ms:.4g} ms"
         log(f"flash_attention {shape}: err {err:.3g} (ratio {ratio:.3g}) "
@@ -496,7 +529,8 @@ def flash_cases(torch, fs):
                    5: "flash_attention d_qk=96 d_v=64, 1 consumer warpgroup",
                    6: "flash_attention d_qk=96 d_v=64, 2 consumer warpgroups",
                    7: "flash_attention d=64, 1 consumer warpgroup",
-                   8: "flash_attention d=64, 2 consumer warpgroups"})
+                   8: "flash_attention d=64, 2 consumer warpgroups",
+                   9: "flash_attention d=256, 1 consumer warpgroup (every Sq)"})
     return out
 
 
@@ -504,7 +538,9 @@ def decode_cases(torch) -> list[dict]:
     """Kernel 2 over phase 2's cache (16 slots of 1,024 f32 rows) at ragged
     lengths 1..1,024 and at the main path's: a 10-13-token prompt plus up
     to 32 new tokens, 11..45; and at phase 14's head width of 64 over its
-    cross cache (16 slots of 1,500 rows, every length 1,500)."""
+    cross cache (16 slots of 1,500 rows, every length 1,500); and at phase
+    15's width of 256, G = 8, over its cache (16 slots of 512 rows) at its
+    lengths: 256 patch rows, a 12-token prompt and up to 32 new tokens."""
     g = torch.Generator(device="cuda").manual_seed(1)
     ragged = torch.randint(2, MAX_LEN, (N_SLOTS,), generator=g, device="cuda",
                            dtype=torch.int32)
@@ -517,6 +553,10 @@ def decode_cases(torch) -> list[dict]:
     # phase 14's cross decode (every slot over all 1,500 encoder rows) and
     # its self decode (a QA prompt plus up to 32 new tokens)
     frames = torch.full((N_SLOTS,), WHISPER_FRAMES, dtype=torch.int32, device="cuda")
+    # phase 15's decode: 256 patch rows, a 12-token prompt, up to 32 new tokens
+    p_lo, p_hi = PALI_PREFIX + PROMPT_LEN, PALI_PREFIX + PROMPT_LEN + MAX_TOKENS
+    pali = (p_lo + (p_hi - p_lo) * torch.arange(N_SLOTS, device="cuda")
+            // (N_SLOTS - 1)).to(torch.int32)
     out = [decode_case(torch, g, ragged, f"lengths 1..{MAX_LEN}"),
            decode_case(torch, g, main, f"main-path lengths {lo}..{hi} (phase 2)"),
            decode_case(torch, g, main, f"main-path lengths {lo}..{hi} (phase 10)",
@@ -531,7 +571,9 @@ def decode_cases(torch) -> list[dict]:
                        "(phase 14)", WHISPER_HEADS, WHISPER_HEADS, WHISPER_HEAD_DIM,
                        s=WHISPER_FRAMES),
            decode_case(torch, g, main, f"main-path lengths {lo}..{hi} (phase 14)",
-                       WHISPER_HEADS, WHISPER_HEADS, WHISPER_HEAD_DIM)]
+                       WHISPER_HEADS, WHISPER_HEADS, WHISPER_HEAD_DIM),
+           decode_case(torch, g, pali, f"main-path lengths {p_lo}..{p_hi} (phase 15)",
+                       PALI_HEADS, PALI_KV_HEADS, PALI_HEAD_DIM, s=PALI_MAX_LEN)]
     # kernels 2 and 3 are one span-split template, six instantiations
     kernel_limits("repro_decode_kernel_info",
                   {0: "decode_attention split, G <= 4",
@@ -541,7 +583,9 @@ def decode_cases(torch) -> list[dict]:
                    4: "decode_attention split d=112, G <= 4",
                    5: "decode_attention split d=112, G <= 8",
                    6: "decode_attention split d=64, G <= 4",
-                   7: "decode_attention split d=64, G <= 8"})
+                   7: "decode_attention split d=64, G <= 8",
+                   8: "decode_attention split d=256, G <= 4",
+                   9: "decode_attention split d=256, G <= 8"})
     return out
 
 
@@ -1702,9 +1746,10 @@ class Probe:
         self.bad = torch.zeros((), dtype=torch.int64, device="cuda")
         self.prefill_logits: list = []
 
-        def flash(q, k, v, *, q_offset=0, causal=True):
+        def flash(q, k, v, *, q_offset=0, causal=True, prefix_len=0):
             self.suffix_prefills += q_offset > 0
-            return self._flash(q, k, v, q_offset=q_offset, causal=causal)
+            return self._flash(q, k, v, q_offset=q_offset, causal=causal,
+                               prefix_len=prefix_len)
 
         def sample(logits, vocab_size):
             self.bad += (~torch.isfinite(logits)).sum()
@@ -3523,8 +3568,7 @@ def hybrid_layer_gate(torch, params, n_tok: int) -> None:
 
     got = run()
     flash, scan = attn_mod.flash_attention_bshd, ssm_mod.ssd_apply
-    attn_mod.flash_attention_bshd = lambda q, k, v, q_offset=0: flash_attention_ref(
-        q, k, v, q_offset=q_offset)
+    attn_mod.flash_attention_bshd = flash_attention_ref
     ssm_mod.ssd_apply = lambda *a, chunk: ssm_mod.ssd_chunked(*a, chunk)
     try:
         want = run()
@@ -3692,8 +3736,7 @@ def mla_layer_gate(torch, params, n_tok: int) -> None:
               for _ in range(2)]
     got = attn_mod.mla_prefill(p, cfg, x, *caches[0], 0, rope)
     flash = attn_mod.flash_attention_bshd
-    attn_mod.flash_attention_bshd = lambda q, k, v, q_offset=0: flash_attention_ref(
-        q, k, v, q_offset=q_offset)
+    attn_mod.flash_attention_bshd = flash_attention_ref
     try:
         want = attn_mod.mla_prefill(p, cfg, x, *caches[1], 0, rope)
     finally:
@@ -3894,12 +3937,13 @@ def whisper_batcher(cfg, params, eos_id: int):
                              max_len=MAX_LEN, eos_id=eos_id)
 
 
-def whisper_serve(torch, b, reqs, label: str) -> tuple[dict, dict[str, int]]:
+def batcher_serve(torch, b, reqs, label: str, prefill_launches: int = WHISPER_PREFILL_LAUNCHES,
+                  step_launches: int = WHISPER_STEP_LAUNCHES) -> tuple[dict, dict[str, int]]:
     """Submit ``reqs`` to batcher ``b`` and run them to completion with
     every launch count set to 0 just before and read just after: each
     request completes ("length" or "eos"), kernel 1 launches exactly
-    ``WHISPER_PREFILL_LAUNCHES`` a prefill and kernel 2
-    ``WHISPER_STEP_LAUNCHES`` a decode step, no other attention kernel
+    ``prefill_launches`` a prefill and kernel 2 ``step_launches`` a decode
+    step (phase 14's counts by default), no other attention kernel
     launches, no logit is NaN or inf.  Logs the launches and the prefill
     and decode-step ms; returns each request's tokens and the launches."""
     before = dict(b.stats.as_dict())
@@ -3917,8 +3961,8 @@ def whisper_serve(torch, b, reqs, label: str) -> tuple[dict, dict[str, int]]:
     st = b.stats.as_dict()
     run = {k: st[k] - before[k] for k in ("admissions", "steps", "prefill_s",
                                            "decode_s", "tokens_generated")}
-    want = {"flash_attention": WHISPER_PREFILL_LAUNCHES * run["admissions"],
-            "decode_attention": WHISPER_STEP_LAUNCHES * run["steps"],
+    want = {"flash_attention": prefill_launches * run["admissions"],
+            "decode_attention": step_launches * run["steps"],
             "paged_decode_attention": 0, "quant_paged_decode_attention": 0, "ssd": 0}
     got = {k: launches[k] for k in want}
     require(len(done) == len(reqs) and run["admissions"] == len(reqs)
@@ -3929,8 +3973,8 @@ def whisper_serve(torch, b, reqs, label: str) -> tuple[dict, dict[str, int]]:
             f"steps, launches {got}, not {want}")
     require(int(probe.bad) == 0, f"{label}: logits hold NaN or inf")
     log(f"{label}: {len(done)} requests in {wall:.3f} s; launches {launches} = "
-        f"{WHISPER_PREFILL_LAUNCHES} x {run['admissions']} prefills and "
-        f"{WHISPER_STEP_LAUNCHES} x {run['steps']} decode steps; "
+        f"{prefill_launches} x {run['admissions']} prefills and "
+        f"{step_launches} x {run['steps']} decode steps; "
         f"{run['prefill_s'] * 1e3 / run['admissions']:.2f} ms a prefill, "
         f"{run['decode_s'] * 1e3 / max(run['steps'], 1):.2f} ms a decode step "
         f"(batch {N_SLOTS}), {run['tokens_generated']} decoded tokens")
@@ -3998,8 +4042,7 @@ def whisper_layer_gate(torch, params, enc_frames, prompt: list[int]) -> None:
     g.manual_seed(WHISPER_SEED + 1)
     got = run()
     flash, dec_fn = attn_mod.flash_attention_bshd, attn_mod.decode_attention_bshd
-    attn_mod.flash_attention_bshd = lambda q, k, v, q_offset=0, causal=True: (
-        flash_attention_ref(q, k, v, q_offset=q_offset, causal=causal))
+    attn_mod.flash_attention_bshd = flash_attention_ref
     attn_mod.decode_attention_bshd = decode_attention_ref
     try:
         g.manual_seed(WHISPER_SEED + 1)
@@ -4113,18 +4156,18 @@ def whisper_phase(torch) -> dict[str, int]:
     log(f"phase 14 caches: {gib(cache_bytes)} for {N_SLOTS} slots x ({MAX_LEN} self + "
         f"{WHISPER_FRAMES} cross rows); prompts {min(map(len, prompts))}-"
         f"{max(map(len, prompts))} tokens")
-    tokens, launches = whisper_serve(torch, b, requests(range(WHISPER_ROWS)),
+    tokens, launches = batcher_serve(torch, b, requests(range(WHISPER_ROWS)),
                                      "phase 14 (a) enc-dec path")
     log(f"phase 14 (a): {gib(torch.cuda.max_memory_allocated())} peak allocated")
 
     t_b = time.perf_counter()
     probe_id = WHISPER_ROWS - 3
-    alone, _ = whisper_serve(torch, b, requests([probe_id]), "phase 14 (b) alone")
+    alone, _ = batcher_serve(torch, b, requests([probe_id]), "phase 14 (b) alone")
     require(alone[probe_id] == tokens[probe_id],
             f"phase 14 (b): request {probe_id} alone in slot 0 gives other tokens "
             f"than among {WHISPER_ROWS}: {alone[probe_id]} vs {tokens[probe_id]}")
     fresh_b = whisper_batcher(cfg, params, tok.eos_id)
-    fresh, _ = whisper_serve(torch, fresh_b, requests([probe_id]),
+    fresh, _ = batcher_serve(torch, fresh_b, requests([probe_id]),
                              "phase 14 (b) fresh batcher")
     require(fresh[probe_id] == tokens[probe_id],
             f"phase 14 (b): a fresh batcher gives other tokens: {fresh[probe_id]}")
@@ -4173,6 +4216,272 @@ def whisper_phase(torch) -> dict[str, int]:
     else:
         raise CheckFailed("phase 14 (c): the local engine took whisper")
     log(f"phase 14 walls: (a) {t_b - t_a:.1f} s, (b) {t_c - t_b:.1f} s, "
+        f"(c) {time.perf_counter() - t_c:.1f} s; "
+        f"{gib(torch.cuda.max_memory_allocated())} peak allocated")
+    return launches
+
+
+# -- phase 15: the VLM family ------------------------------------------------------
+
+#: phase 15: the seed of the requests' patch embeddings (each (256, 2,048)
+#: bf16, drawn on the card at 0.02 scale, as the reference's tests draw
+#: them) and of the layer gate's inputs; its requests: half a chunk, as
+#: phase 14's
+PALI_SEED = 15
+PALI_ROWS = CHUNK // 2
+
+
+def pali_patches(torch, n: int, d_model: int, seed: int = PALI_SEED) -> list:
+    """``n`` requests' patch embeddings, (256, d_model) bf16 each, made on
+    the card from ``seed``."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [(0.02 * torch.randn((PALI_PREFIX, d_model), generator=g, device="cuda"))
+            .to(torch.bfloat16) for _ in range(n)]
+
+
+def pali_batcher(cfg, params, eos_id: int):
+    """Phase 15's batcher: ``N_SLOTS`` slots of ``PALI_MAX_LEN`` rows."""
+    from repro_torch.models import TransformerLM
+    from repro_torch.serve import ContinuousBatcher
+
+    return ContinuousBatcher(TransformerLM(cfg), cfg, params, n_slots=N_SLOTS,
+                             max_len=PALI_MAX_LEN, eos_id=eos_id)
+
+
+def pali_layer_gate(torch, params, patches, prompt: list[int]) -> None:
+    """Phase 15 (b), a layer: layer 0's prefill over the 256 patches and
+    ``prompt`` (kernel 1 under the prefix-LM mask, then the GeGLU MLP) and
+    one decode step of its attention over 16 slots at phase 15's positions
+    (kernel 2 over random cache rows), through the kernels against the same
+    code through their plain versions on the card, both bf16; the cache
+    rows the two paths write are gated bit-equal."""
+    import repro_torch.models.attention as attn_mod
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import decode_attention_ref
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.models import TransformerLM, layers
+    from repro_torch.models.model import _block
+
+    cfg = get_config(PALIGEMMA)
+    lm = TransformerLM(cfg)
+    p = _block(params["layers"], 0)
+    n = PALI_PREFIX + len(prompt)
+    toks = torch.tensor([prompt], device="cuda")
+    x = torch.cat([patches[None], lm._embed(params, toks, torch.bfloat16)], dim=1)
+    rope = lm._rope(torch.arange(n, device="cuda")[None, :])
+    g = torch.Generator(device="cuda").manual_seed(PALI_SEED)
+    step_x = torch.randn((N_SLOTS, 1, cfg.d_model), generator=g, device="cuda").to(
+        torch.bfloat16)
+    pos = n + 2 * torch.arange(N_SLOTS, device="cuda")
+    lengths = (pos + 1).to(torch.int32)
+    step_rope = lm._rope(pos[:, None])
+
+    def run():
+        kv = torch.zeros((4, N_SLOTS, PALI_MAX_LEN, cfg.n_kv_heads, cfg.head_dim),
+                         device="cuda")
+        h = layers.rms_norm(p["ln1"], x, cfg.norm_eps)
+        a = x + attn_mod.gqa_prefill(p["attn"], cfg, h, kv[0], kv[1], 0, rope,
+                                     prefix_len=PALI_PREFIX)
+        y = a + layers.gated_mlp(p["mlp"], layers.rms_norm(p["ln2"], a, cfg.norm_eps),
+                                 cfg.act)
+        kv[2:].normal_(generator=g)
+        hs = layers.rms_norm(p["ln1"], step_x, cfg.norm_eps)
+        d_out = attn_mod.gqa_decode(p["attn"], cfg, hs, kv[2], kv[3], pos, lengths,
+                                    step_rope)
+        return y, d_out, kv
+
+    g.manual_seed(PALI_SEED + 1)
+    got = run()
+    flash, dec_fn = attn_mod.flash_attention_bshd, attn_mod.decode_attention_bshd
+    attn_mod.flash_attention_bshd = flash_attention_ref
+    attn_mod.decode_attention_bshd = decode_attention_ref
+    try:
+        g.manual_seed(PALI_SEED + 1)
+        want = run()
+    finally:
+        attn_mod.flash_attention_bshd, attn_mod.decode_attention_bshd = flash, dec_fn
+    torch.cuda.synchronize()
+    ratios = []
+    for name, a, b in zip(("prefill layer", "decode attention"), got, want):
+        err, ratio = rowwise(torch, a, b, HYBRID_LAYER_TOL, HYBRID_LAYER_TOL)
+        require(ratio <= 1.0, f"phase 15 (b) {name}: error/allowance {ratio:.3g}")
+        ratios.append(f"{name} err {err:.3g} (ratio {ratio:.3g})")
+    require(bool(torch.equal(got[2], want[2])),
+            "phase 15 (b): the cache rows depend on the attention path")
+    log(f"phase 15 (b): layer 0 over {PALI_PREFIX} patches and {len(prompt)} tokens "
+        f"(kernel 1 at d = 256 with prefix_len {PALI_PREFIX}) and one {N_SLOTS}-slot "
+        f"decode step at lengths {int(lengths[0])}..{int(lengths[-1])} (kernel 2 at "
+        f"d = 256, G = 8) against their plain versions: " + "; ".join(ratios))
+
+
+def pali_consistency_gate(torch, b, prompt: list[int], patches) -> None:
+    """Phase 15 (b), the decode: slot 0 prefilled with ``patches`` and
+    ``prompt``, then ``MLA_DECODE_STEPS`` decode steps of every slot
+    feeding the next tokens at positions after the prefix; each step's
+    logits of slot 0 against a full prefill of the prompt and the tokens so
+    far (into slot 1, the same patches), and against the same step from a
+    zeroed slot 0 (the control)."""
+    n = len(prompt)
+    pt = patches[None]
+    seq = prompt + [int(t) for t in torch.randint(
+        4, b.cfg.vocab_size, (MLA_DECODE_STEPS,),
+        generator=torch.Generator().manual_seed(PALI_SEED))]
+    b.model.prefill(b.params, torch.tensor([prompt], device="cuda"), b.cache, 0,
+                    patches=pt)
+    worst, worst_cold, argmax_equal = 0.0, float("inf"), 0
+    for i in range(MLA_DECODE_STEPS):
+        toks = torch.zeros((N_SLOTS, 1), dtype=torch.int64, device="cuda")
+        toks[0, 0] = seq[n + i]
+        pos = torch.full((N_SLOTS,), PALI_PREFIX + n + i, device="cuda")
+        step = b.model.decode_step(b.params, toks, b.cache, pos)[:1]
+        full = b.model.prefill(b.params, torch.tensor([seq[: n + i + 1]], device="cuda"),
+                               b.cache, 1, patches=pt)
+        require(bool(torch.isfinite(step).all() and torch.isfinite(full).all()),
+                "phase 15 (b): decode-consistency logits hold NaN or inf")
+        scale = float(full.abs().max())
+        diff = float((step - full).abs().max())
+        worst = max(worst, diff / scale)
+        argmax_equal += int(step.argmax()) == int(full.argmax())
+        require(diff <= HANDOFF_TOL * scale,
+                f"phase 15 (b): decode step {i} {diff:.4g} > {HANDOFF_TOL} x {scale:.4g}")
+        if i == MLA_DECODE_STEPS - 1:
+            for t in (b.cache.k, b.cache.v):
+                t[:, 0].zero_()
+            cold = b.model.decode_step(b.params, toks, b.cache, pos)[:1]
+            cold_diff = float((cold - full).abs().max())
+            worst_cold = cold_diff / scale
+            require(cold_diff >= HANDOFF_CONTROL * diff,
+                    f"phase 15 (b): a zeroed slot moves the logits by "
+                    f"{cold_diff:.4g}, under {HANDOFF_CONTROL} x {diff:.4g}")
+    log(f"phase 15 (b): {MLA_DECODE_STEPS} decode steps after a {PALI_PREFIX} + {n}-token "
+        f"prefill against full prefills: worst max |decode - prefill| {worst:.4f} of "
+        f"max |logit| (gate {HANDOFF_TOL}); argmax equal in {argmax_equal} of "
+        f"{MLA_DECODE_STEPS}; from a zeroed slot {worst_cold:.4f}")
+
+
+def paligemma_phase(torch) -> dict[str, int]:
+    """Phase 15, the VLM family, after phase 14 has freed its weights:
+    full-width paligemma-3b (18 layers, 8 heads of 256 over 1 KV head, d_ff
+    16,384, tied vocab 257,216, the SigLIP frontend stubbed) with random
+    bf16 weights (seed 0), served through the port's ``ContinuousBatcher``
+    with each request's (256, 2,048) patch embeddings in
+    ``Request.extras`` (16 slots of 512 rows).  (a) ``PALI_ROWS`` of phase
+    2's QA prompts, 32 new tokens each, greedy: every request completes,
+    kernel 1 launches once a layer a prompt (under the prefix-LM mask) and
+    kernel 2 once a layer a decode step, exactly; (b) a request alone in a
+    reused slot and in a fresh batcher gives its tokens among the rest; 4
+    decode steps after a prefill against full prefills; the breakdowns of
+    a prefill and a decode step; layer 0 through the kernels against their
+    plain versions; (c) a paged batcher and a suffix prefill refused with
+    the reference's words, and the local engine refusing paligemma.
+    Returns (a)'s launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import DataConfig, EngineModelConfig, TorchLocalEngine
+    from repro_torch.data import HashTokenizer, iter_qa_examples, render
+    from repro_torch.models import TransformerLM, init_params
+    from repro_torch.serve import ContinuousBatcher, Request
+
+    cfg = get_config(PALIGEMMA)
+    require((cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.n_vision_tokens)
+            == (PALI_HEADS, PALI_KV_HEADS, PALI_HEAD_DIM, PALI_PREFIX),
+            f"phase 15: {cfg.name}'s geometry is not phase 1's")
+    log(f"phase 15: {gib(torch.cuda.memory_allocated())} allocated before the weights")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"phase 15 weights on the card in {time.perf_counter() - t0:.3f} s: "
+        f"{n_params / 1e9:.3f} B parameters, "
+        f"{gib(sum(t.numel() * t.element_size() for t in _leaves(params)))} of "
+        f"weights, {gib(torch.cuda.max_memory_allocated())} peak while made")
+    tok = HashTokenizer(cfg.vocab_size)
+    rows = list(iter_qa_examples(PALI_ROWS, seed=0))
+    prompts = [tok.encode(render(DataConfig().prompt_template, r)) for r in rows]
+    patches = pali_patches(torch, PALI_ROWS, cfg.d_model)
+
+    def requests(ids):
+        return [Request(i, prompts[i], MAX_TOKENS, {"patches": patches[i]}) for i in ids]
+
+    t_a = time.perf_counter()
+    b = pali_batcher(cfg, params, tok.eos_id)
+    cache_bytes = 4 * sum(t.numel() for t in (b.cache.k, b.cache.v))
+    log(f"phase 15 cache: {gib(cache_bytes)} for {N_SLOTS} slots x {PALI_MAX_LEN} rows; "
+        f"{PALI_PREFIX} patch rows and prompts of {min(map(len, prompts))}-"
+        f"{max(map(len, prompts))} tokens")
+    tokens, launches = batcher_serve(torch, b, requests(range(PALI_ROWS)),
+                                     "phase 15 (a) VLM path", cfg.n_layers, cfg.n_layers)
+    log(f"phase 15 (a): {gib(torch.cuda.max_memory_allocated())} peak allocated")
+
+    t_b = time.perf_counter()
+    probe_id = PALI_ROWS - 3
+    alone, _ = batcher_serve(torch, b, requests([probe_id]), "phase 15 (b) alone",
+                             cfg.n_layers, cfg.n_layers)
+    require(alone[probe_id] == tokens[probe_id],
+            f"phase 15 (b): request {probe_id} alone in slot 0 gives other tokens "
+            f"than among {PALI_ROWS}: {alone[probe_id]} vs {tokens[probe_id]}")
+    fresh_b = pali_batcher(cfg, params, tok.eos_id)
+    fresh, _ = batcher_serve(torch, fresh_b, requests([probe_id]),
+                             "phase 15 (b) fresh batcher", cfg.n_layers, cfg.n_layers)
+    require(fresh[probe_id] == tokens[probe_id],
+            f"phase 15 (b): a fresh batcher gives other tokens: {fresh[probe_id]}")
+    del fresh_b
+    free_cuda(torch)
+    log(f"phase 15 (b) batch invariance and slot reuse: request {probe_id}'s "
+        f"{len(tokens[probe_id])} tokens equal alone in a reused slot (slot 0 held "
+        f"request 0), in a fresh batcher and among {PALI_ROWS}")
+    pali_consistency_gate(torch, b, prompts[0], patches[0])
+    toks = torch.tensor([prompts[0]], device="cuda")
+    step_breakdown(torch, f"phase 15 prefill ({PALI_PREFIX} patches and "
+                   f"{len(prompts[0])} tokens into slot 0)",
+                   lambda: b.model.prefill(b.params, toks, b.cache, 0,
+                                           patches=patches[0][None]),
+                   kernel="flash")
+    nxt = torch.full((N_SLOTS, 1), 7, dtype=torch.int64, device="cuda")
+    pos = torch.full((N_SLOTS,), PALI_PREFIX + PROMPT_LEN, dtype=torch.int64,
+                     device="cuda")
+    step_breakdown(torch, f"phase 15 decode step (batch {N_SLOTS}, positions "
+                   f"{PALI_PREFIX + PROMPT_LEN})",
+                   lambda: b.model.decode_step(b.params, nxt, b.cache, pos),
+                   kernel=DEVICE_KERNEL["decode_attention"])
+    del b
+    free_cuda(torch)
+    pali_layer_gate(torch, params, patches[0], prompts[0])
+
+    t_c = time.perf_counter()
+    try:
+        ContinuousBatcher(TransformerLM(cfg), cfg, params, n_slots=N_SLOTS,
+                          max_len=PALI_MAX_LEN, page_size=PAGE_SIZE)
+    except ValueError as e:
+        require(str(e) == "paged KV cache supports GQA attention families "
+                "('dense', 'moe'), not vlm", f"phase 15 (c): another error: {e}")
+        log(f"phase 15 (c): a paged batcher raises the reference's error: {e}")
+    else:
+        raise CheckFailed("phase 15 (c): a paged VLM batcher was built")
+    lm = TransformerLM(cfg)
+    try:
+        lm.prefill(params, torch.tensor([prompts[0]], device="cuda"),
+                   lm.init_cache(1, PALI_MAX_LEN, "cuda"), 0, start=PAGE_SIZE,
+                   patches=patches[0][None])
+    except ValueError as e:
+        require(str(e) == "suffix prefill is not supported for VLM prompts",
+                f"phase 15 (c): another suffix-prefill error: {e}")
+        log(f"phase 15 (c): a suffix prefill raises the reference's error: {e}")
+    else:
+        raise CheckFailed("phase 15 (c): a VLM suffix prefill ran")
+    engine = TorchLocalEngine(EngineModelConfig(provider="torch_local",
+                                                model_name=PALIGEMMA, reduced=False),
+                              n_slots=N_SLOTS, max_len=PALI_MAX_LEN, device="cuda",
+                              params=params)
+    try:
+        engine.initialize()
+    except ValueError as e:
+        require("cannot carry the patch embeddings" in str(e),
+                f"phase 15 (c): another engine error: {e}")
+        log(f"phase 15 (c): the local engine refuses paligemma: {e}")
+    else:
+        raise CheckFailed("phase 15 (c): the local engine took paligemma")
+    log(f"phase 15 walls: (a) {t_b - t_a:.1f} s, (b) {t_c - t_b:.1f} s, "
         f"(c) {time.perf_counter() - t_c:.1f} s; "
         f"{gib(torch.cuda.max_memory_allocated())} peak allocated")
     return launches
@@ -4238,6 +4547,7 @@ def main() -> int:
         hybrid = timed("phase 12", zamba_phase, torch, fs)
         mla = timed("phase 13", minicpm_phase, torch, fs)
         whisper = timed("phase 14", whisper_phase, torch)
+        pali = timed("phase 15", paligemma_phase, torch)
     except CheckFailed as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -4260,10 +4570,11 @@ def main() -> int:
     for name in ("flash_attention", "decode_attention", "ssd"):
         launches[name] += hybrid[name]
     # and phase 13's on minicpm3-4b for kernel 1 (kernel 2 launches none);
-    # phase 14's on whisper-large-v3 for kernels 1 and 2
+    # phase 14's on whisper-large-v3 and phase 15's on paligemma-3b for
+    # kernels 1 and 2
     launches["flash_attention"] += mla["flash_attention"]
     for name in ("flash_attention", "decode_attention"):
-        launches[name] += whisper[name]
+        launches[name] += whisper[name] + pali[name]
     for e in entries:
         e["launches"] = launches[e["name"]]
     for e in entries:
@@ -4272,7 +4583,7 @@ def main() -> int:
                 print(f"chip_smoke: FAIL: {e['name']} {key} = {e[key]}",
                       file=sys.stderr)
                 return 1
-    log(f"phases 1-14 took {time.perf_counter() - t_start:.1f} s after the build")
+    log(f"phases 1-15 took {time.perf_counter() - t_start:.1f} s after the build")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -6,6 +6,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.deepseek_v2_236b import CONFIG as DEEPSEEK_V2_236B
 from repro_torch.configs.mamba2_27b import CONFIG as MAMBA2_27B
 from repro_torch.configs.minicpm3_4b import CONFIG as MINICPM3_4B
+from repro_torch.configs.paligemma_3b import CONFIG as PALIGEMMA_3B
 from repro_torch.configs.qwen3_4b import CONFIG as QWEN3_4B
 from repro_torch.configs.qwen3_moe_30b_a3b import CONFIG as QWEN3_MOE_30B_A3B
 from repro_torch.configs.qwen15_110b import CONFIG as QWEN15_110B
@@ -23,6 +24,7 @@ ARCHS: dict[str, ModelConfig] = {
     MINICPM3_4B.name: MINICPM3_4B,
     DEEPSEEK_V2_236B.name: DEEPSEEK_V2_236B,
     WHISPER_LARGE_V3.name: WHISPER_LARGE_V3,
+    PALIGEMMA_3B.name: PALIGEMMA_3B,
 }
 
 

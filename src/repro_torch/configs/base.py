@@ -1,6 +1,6 @@
 """Model configuration schema: the port's copy of the dense, MLA, MoE, SSM,
-hybrid and enc-dec parts of ``repro/configs/base.py`` (the JAX package's
-``ModelConfig``)."""
+hybrid, enc-dec and VLM parts of ``repro/configs/base.py`` (the JAX
+package's ``ModelConfig``)."""
 
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ def _round_up(x: int, m: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | moe | ssm | hybrid | encdec
+    family: str  # dense | moe | ssm | hybrid | encdec | vlm
 
     n_layers: int
     d_model: int
@@ -65,6 +65,10 @@ class ModelConfig:
     n_encoder_layers: int = 0
     encoder_seq: int = 0        # frontend-stub frame count
 
+    # --- VLM (paligemma) --------------------------------------------------------
+    n_vision_tokens: int = 0    # the patch embeddings prepended to a prompt
+    embed_scale: bool = False   # gemma: scale embeddings by sqrt(d_model)
+
     def __post_init__(self) -> None:
         if self.head_dim == 0 and self.n_heads:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
@@ -111,4 +115,6 @@ class ModelConfig:
                       qk_rope_head_dim=8, v_head_dim=16)
         if self.family == "encdec":
             kw.update(n_encoder_layers=2, encoder_seq=32)
+        if self.family == "vlm":
+            kw.update(n_vision_tokens=8)
         return self.replace(**kw)

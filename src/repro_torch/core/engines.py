@@ -728,14 +728,18 @@ class TorchLocalEngine(InferenceEngine):
             cfg = get_config(self.model_cfg.model_name)
             if self.model_cfg.reduced:
                 cfg = cfg.reduced()
-            if cfg.family == "encdec":
-                # an InferenceRequest has no channel for encoder frames (nor
-                # has the reference's, whose prefill then fails on the
-                # missing "frames"): serve enc-dec through ContinuousBatcher
+            if cfg.family in ("encdec", "vlm"):
+                # an InferenceRequest has no channel for encoder frames or
+                # patch embeddings (nor has the reference's, whose prefill
+                # then fails on the missing "frames" or "patches"): serve
+                # these families through ContinuousBatcher
+                what, key = (("encoder frames an enc-dec model", "frames")
+                             if cfg.family == "encdec"
+                             else ("patch embeddings a VLM", "patches"))
                 raise ValueError(
-                    f"{cfg.name}: the local engine cannot carry the encoder "
-                    f"frames an enc-dec model needs; submit Request(extras="
-                    f"{{'frames': ...}}) to a ContinuousBatcher instead")
+                    f"{cfg.name}: the local engine cannot carry the {what} "
+                    f"needs; submit Request(extras={{'{key}': ...}}) to a "
+                    f"ContinuousBatcher instead")
             if self._tokenizer is None:
                 self._tokenizer = HashTokenizer(cfg.vocab_size)
             elif self._tokenizer.vocab_size != cfg.vocab_size:

@@ -11,7 +11,10 @@
 // Head widths 128 (qwen3, qwen2.5, the MoE family), 112 (zamba2's shared
 // attention block, which runs G = 1: 32 query heads over 32 KV heads) and
 // 64 (whisper's decoder, G = 1: 20 over 20, over its self cache and over
-// its cross cache of 1,500 encoder rows at lengths = 1,500).  G = 1 takes
+// its cross cache of 1,500 encoder rows at lengths = 1,500) and 256
+// (paligemma, G = 8: 8 query heads over 1 KV head, over the 256 patch rows
+// and the text after them; two float4s of a row a lane and two output
+// columns a thread, split_decode.cuh).  G = 1 takes
 // the GM = 4 instantiation, whose query rows 1-3 are idle: their registers
 // and FMAs are spent for nothing (not tuned yet).  At d = 64 a row is 16
 // float4s, so lanes 16-31 copy no column of a row and threads 64-127 own
@@ -41,7 +44,7 @@ using split_decode::Args;
 
 // q (B, 1, H, d) bf16; k_cache and v_cache (B, S, K, d) f32 with 16-byte
 // aligned rows; lengths (B,) int32 in [1, S]; out (B, 1, H, d) bf16; d =
-// 128, 112 or 64, unit stride on d everywhere.  strides[10] = q (batch, head), k
+// 128, 112, 64 or 256, unit stride on d everywhere.  strides[10] = q (batch, head), k
 // (batch, seq, head), v (batch, seq, head), out (batch, head), in
 // elements.  scratch: at least B * K * ceil(S / span) * G * (d + 2) f32,
 // 16-byte aligned; arrivals: at least B * K uint32, zero (the kernel leaves
@@ -82,6 +85,10 @@ extern "C" int repro_decode_attention_f32cache(
       return split_decode::launch<false, 64>(a, batch, n_heads, head_dim, scratch,
                                              scratch_floats, arrivals, n_arrivals,
                                              stream);
+    case 256:
+      return split_decode::launch<false, 256>(a, batch, n_heads, head_dim, scratch,
+                                              scratch_floats, arrivals, n_arrivals,
+                                              stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -91,7 +98,7 @@ extern "C" int repro_decode_attention_f32cache(
 // resident blocks an SM of the split kernel `which`, as the runtime
 // reports them: 0 and 1 the contiguous kernel for G <= 4 and G <= 8, 2 and
 // 3 the paged kernel's, 4 and 5 the contiguous kernel's at d = 112, 6 and 7
-// at d = 64.
+// at d = 64, 8 and 9 at d = 256.
 extern "C" int repro_decode_kernel_info(int which, int* regs, int* local_bytes,
                                         int* smem_bytes, int* blocks_per_sm) {
   switch (which) {
@@ -117,6 +124,12 @@ extern "C" int repro_decode_kernel_info(int which, int* regs, int* local_bytes,
     case 7:
       return split_decode::kernel_info<false, 8, 64>(regs, local_bytes, smem_bytes,
                                                      blocks_per_sm);
+    case 8:
+      return split_decode::kernel_info<false, 4, 256>(regs, local_bytes, smem_bytes,
+                                                      blocks_per_sm);
+    case 9:
+      return split_decode::kernel_info<false, 8, 256>(regs, local_bytes, smem_bytes,
+                                                      blocks_per_sm);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -41,7 +41,7 @@
 //     exist, one where Sq <= 64.
 //
 // Determinism (batch invariance).  Key tiles always start at key 0, are 128
-// keys wide and are visited in order, with no split of the key axis across
+// keys wide (64 at d = 256) and are visited in order, with no split of the key axis across
 // blocks, and a row's arithmetic involves only its own fragments.  A tile
 // past a row's causal limit leaves its state bit-unchanged (max unchanged,
 // correction exp2(0) = 1, sum + 0, O + 0), so a row's output does not
@@ -78,6 +78,28 @@
 // plays no part.  The causal path is the arithmetic it was: the flag only
 // selects the tile count and the mask's diagonal test.
 //
+// The prefix-LM mask (paligemma's: the reference's make_causal_mask with a
+// prefix_len P).  A causal row at position q sees the keys up to max(q, P -
+// 1): the P prefix positions (the image's patch embeddings) attend to each
+// other both ways, the text after them causally.  That limit replaces the
+// diagonal in the two places it is read: the block's count of key tiles
+// (driven by max(last row, P - 1)) and the element mask of the tiles that
+// cross it.  At P = 0 the limit is the diagonal, so every earlier path
+// visits the same tiles in the same order and computes the same bits.
+//
+// Head width 256 (paligemma: 8 query heads over 1 KV head).  Its layout is
+// 256 shared-memory columns, four 64-column swizzled boxes a row, and
+// 64-key tiles: K and V are 32 KB a tile, the 2-stage ring 128 KB, Q 32
+// KB, where 128-key tiles would need 256 KB for the ring alone.  Q K^T
+// takes 16 k16 steps as wgmma m64n64k16 (S is 32 registers a thread); P V
+// runs as two m64n128k16 products a k16 step, one for each 128-column half
+// of O (the accumulator is 128 f32 registers a thread).  The output is
+// staged through the warpgroup's 32 KB Q tile.  A block has one consumer
+// warpgroup (64 query rows) at every Sq: with two, ptxas holds the 288
+// threads to 168 registers a thread and spills; with one it takes 197 and
+// spills nothing.  The narrower widths keep 128 columns and 128-key tiles,
+// the code they were.
+//
 // Numerics: bf16 operands, f32 accumulation and softmax.  The unnormalised
 // probabilities are rounded to bf16 for P V and the row sum adds those
 // same rounded values, so the final division normalises exactly what was
@@ -91,21 +113,25 @@
 
 namespace {
 
-constexpr int D = 128;             // columns of a shared-memory row (the widest head)
 constexpr int WG_ROWS = 64;        // query rows per consumer warpgroup
-constexpr int BN = 128;            // keys per tile
 constexpr int NSTAGE = 2;          // K/V ring depth
-constexpr int Q_HALF = WG_ROWS * 128;   // bytes of one 64-column half of Q
-constexpr int KV_HALF = BN * 128;       // bytes of one 64-column half of K or V
-constexpr int KV_TILE = 2 * KV_HALF;
+constexpr int Q_BOX = WG_ROWS * 128;    // bytes of one 64-column box of Q
 constexpr float LOG2E = 1.4426950408889634f;
 
-// Shared memory: every tile starts on a 1,024-byte boundary, the period of
-// the 128-byte swizzle that TMA writes and wgmma reads.
-template <int NWG>
+// The layout of an instantiation: the shared-memory row of 128 columns, or
+// 256 for the d = 256 heads, and the keys a tile that fit beside it.  Every
+// tile starts on a 1,024-byte boundary, the period of the 128-byte swizzle
+// that TMA writes and wgmma reads.
+template <int NWG, int DQK>
 struct Smem {
+  static constexpr int DCOL = DQK > 128 ? 256 : 128;  // columns of a row
+  static constexpr int NBOX = DCOL / 64;              // 64-column boxes a row
+  static constexpr int BN = DCOL == 256 ? 64 : 128;   // keys per tile
+  static constexpr int Q_WG = NBOX * Q_BOX;           // one warpgroup's Q
+  static constexpr int KV_BOX = BN * 128;             // one box of K or V
+  static constexpr int KV_TILE = NBOX * KV_BOX;
   static constexpr int q = 0;
-  static constexpr int k = q + NWG * 2 * Q_HALF;
+  static constexpr int k = q + NWG * Q_WG;
   static constexpr int v = k + NSTAGE * KV_TILE;
   static constexpr int bar = v + NSTAGE * KV_TILE;  // q, k[], v[], empty[]
   static constexpr int bytes = bar + 8 * (1 + 3 * NSTAGE) + 1024;  // + align
@@ -228,6 +254,25 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// D (64 x 64, f32) = A (64 x 16) B (16 x 64) (+ D if scale_d); A and B
+// from shared memory, both K-major (S of the 64-key tiles at d = 256).
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // D (64 x 128, f32) += A (64 x 16) B (16 x 128); A from registers (bf16
 // pairs), B from shared memory, MN-major (transposed).
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], uint32_t a0,
@@ -268,8 +313,11 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
                      __nv_bfloat16* __restrict__ o, int sq, int sk,
                      int n_heads, int group, int n_qtiles, int64_t o_sb,
                      int64_t o_ss, int64_t o_sh, int q_offset, int causal,
-                     float scale_log2) {
-  using L = Smem<NWG>;
+                     int prefix_len, float scale_log2) {
+  using L = Smem<NWG, DQK>;
+  constexpr int BN = L::BN;
+  constexpr int NH = L::DCOL / 128;       // 128-column halves of O
+  constexpr int ROW_BYTES = L::DCOL * 2;  // a staged output row
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -283,8 +331,10 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int b = blockIdx.x / n_heads;
   const int q0 = (n_qtiles - 1 - static_cast<int>(blockIdx.y)) * NWG * WG_ROWS;
   const int q_last = min(q0 + NWG * WG_ROWS, sq) - 1;
-  // the keys any row of the block sees: up to the last row's diagonal, or all
-  const int n_tiles = ((causal ? min(sk, q_offset + q_last + 1) : sk) + BN - 1) / BN;
+  // the last key row q sees, causal: its diagonal, or the prefix's end
+  auto limit = [q_offset, prefix_len](int q) { return max(q_offset + q, prefix_len - 1); };
+  // the keys any row of the block sees: up to the last row's limit, or all
+  const int n_tiles = ((causal ? min(sk, limit(q_last) + 1) : sk) + BN - 1) / BN;
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
@@ -305,23 +355,24 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (lane == 0) {
       const int kh = h / group;
       const int q_wgs = (q_last - q0) / WG_ROWS + 1;  // warpgroups with rows
-      constexpr int QK_HALVES = DQK > 64 ? 2 : 1;      // 64-column boxes of Q, K
-      mbar_expect_tx(bar_q, q_wgs * QK_HALVES * Q_HALF);
+      constexpr int QK_BOXES = (DQK + 63) / 64;       // 64-column boxes of Q, K
+      constexpr int V_BOXES = (DV + 63) / 64;
+      mbar_expect_tx(bar_q, q_wgs * QK_BOXES * Q_BOX);
       for (int wg = 0; wg < q_wgs; ++wg)
-        for (int half = 0; half < QK_HALVES; ++half)
-          tma_load(base + L::q + (2 * wg + half) * Q_HALF, &tm_q, bar_q,
-                   64 * half, q0 + wg * WG_ROWS, h, b);
+        for (int box = 0; box < QK_BOXES; ++box)
+          tma_load(base + L::q + wg * L::Q_WG + box * Q_BOX, &tm_q, bar_q,
+                   64 * box, q0 + wg * WG_ROWS, h, b);
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % NSTAGE;
         if (j >= NSTAGE) mbar_wait(bar_free + 8 * s, ((j / NSTAGE) - 1) & 1);
-        const uint32_t kd = base + L::k + s * KV_TILE;
-        const uint32_t vd = base + L::v + s * KV_TILE;
-        mbar_expect_tx(bar_k + 8 * s, QK_HALVES * KV_HALF);
-        tma_load(kd, &tm_k, bar_k + 8 * s, 0, j * BN, kh, b);
-        if (DQK > 64) tma_load(kd + KV_HALF, &tm_k, bar_k + 8 * s, 64, j * BN, kh, b);
-        mbar_expect_tx(bar_v + 8 * s, DV > 64 ? KV_TILE : KV_HALF);
-        tma_load(vd, &tm_v, bar_v + 8 * s, 0, j * BN, kh, b);
-        if (DV > 64) tma_load(vd + KV_HALF, &tm_v, bar_v + 8 * s, 64, j * BN, kh, b);
+        const uint32_t kd = base + L::k + s * L::KV_TILE;
+        const uint32_t vd = base + L::v + s * L::KV_TILE;
+        mbar_expect_tx(bar_k + 8 * s, QK_BOXES * L::KV_BOX);
+        for (int box = 0; box < QK_BOXES; ++box)
+          tma_load(kd + box * L::KV_BOX, &tm_k, bar_k + 8 * s, 64 * box, j * BN, kh, b);
+        mbar_expect_tx(bar_v + 8 * s, V_BOXES * L::KV_BOX);
+        for (int box = 0; box < V_BOXES; ++box)
+          tma_load(vd + box * L::KV_BOX, &tm_v, bar_v + 8 * s, 64 * box, j * BN, kh, b);
       }
     }
     return;
@@ -333,20 +384,22 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int r0 = (warp % 4) * 16 + lane / 4;  // local row of e < 2; + 8 for e >= 2
   const int c0 = 2 * (lane % 4);
   const int row0 = q0 + wg * WG_ROWS;
-  const int qpos0 = q_offset + row0 + r0;
-  const int qpos1 = qpos0 + 8;
+  const int lim0 = limit(row0 + r0);
+  const int lim1 = limit(row0 + r0 + 8);
   const int wg_last = min(row0 + WG_ROWS, sq) - 1;
   const int wg_tiles =
       wg_last < row0
           ? 0
-          : ((causal ? min(sk, q_offset + wg_last + 1) : sk) + BN - 1) / BN;
-  const uint32_t q_sm = base + L::q + wg * 2 * Q_HALF;
+          : ((causal ? min(sk, limit(wg_last) + 1) : sk) + BN - 1) / BN;
+  const uint32_t q_sm = base + L::q + wg * L::Q_WG;
 
-  float oacc[D / 2];
+  float oacc[NH][64];
   float sacc[BN / 2];
   uint32_t p[BN / 4];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+  for (int hh = 0; hh < NH; ++hh)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) oacc[hh][i] = 0.f;
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) sacc[i] = 0.f;
   float m_0 = -INFINITY, m_1 = -INFINITY, l_0 = 0.f, l_1 = 0.f;
@@ -357,27 +410,28 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
     const uint32_t parity = (j / NSTAGE) & 1;
     mbar_wait(bar_k + 8 * s, parity);
     if (j < wg_tiles) {
-      // S = Q K^T: DQK / 16 k16 steps over d, 4 in the first 64-column half
-      const uint32_t k_sm = base + L::k + s * KV_TILE;
+      // S = Q K^T: DQK / 16 k16 steps over d, 4 in each 64-column box
+      const uint32_t k_sm = base + L::k + s * L::KV_TILE;
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < DQK / 16; ++kk) {
         const uint32_t off = (kk % 4) * 32;  // 16 columns = 32 bytes
-        wgmma_ss_n128(sacc,
-                      sw128_desc(q_sm + (kk / 4) * Q_HALF + off, 16, 1024),
-                      sw128_desc(k_sm + (kk / 4) * KV_HALF + off, 16, 1024),
-                      kk > 0);
+        const uint64_t da = sw128_desc(q_sm + (kk / 4) * Q_BOX + off, 16, 1024);
+        const uint64_t db = sw128_desc(k_sm + (kk / 4) * L::KV_BOX + off, 16, 1024);
+        if constexpr (BN == 128) wgmma_ss_n128(sacc, da, db, kk > 0);
+        else wgmma_ss_n64(sacc, da, db, kk > 0);
       }
       wgmma_commit();
       wgmma_wait_all();
       reg_fence(sacc);
 
+      // the tile crosses the limit of the warpgroup's first row, or Sk
       const int k0 = j * BN;
-      if ((causal && k0 + BN - 1 > q_offset + row0) || k0 + BN > sk) {
+      if ((causal && k0 + BN - 1 > limit(row0)) || k0 + BN > sk) {
 #pragma unroll
         for (int i = 0; i < BN / 2; ++i) {
           const int key = k0 + 8 * (i / 4) + c0 + (i & 1);
-          if (key >= sk || (causal && key > ((i & 2) ? qpos1 : qpos0)))
+          if (key >= sk || (causal && key > ((i & 2) ? lim1 : lim0)))
             sacc[i] = -INFINITY;
         }
       }
@@ -416,19 +470,27 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
       l_0 = l_0 * corr0 + ps0;
       l_1 = l_1 * corr1 + ps1;
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) oacc[i] *= (i & 2) ? corr1 : corr0;
+      for (int hh = 0; hh < NH; ++hh)
+#pragma unroll
+        for (int i = 0; i < 64; ++i) oacc[hh][i] *= (i & 2) ? corr1 : corr0;
 
-      // O += P V: 8 k16 steps over the tile's keys, 16 rows (2,048 bytes) each
+      // O += P V: BN / 16 k16 steps over the tile's keys, 16 rows (2,048
+      // bytes) each, one n128 product a 128-column half of O (two boxes)
       mbar_wait(bar_v + 8 * s, parity);
-      const uint32_t v_sm = base + L::v + s * KV_TILE;
+      const uint32_t v_sm = base + L::v + s * L::KV_TILE;
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk)
-        wgmma_rs_n128(oacc, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
-                      p[4 * kk + 3], sw128_desc(v_sm + kk * 2048, KV_HALF, 1024));
+#pragma unroll
+        for (int hh = 0; hh < NH; ++hh)
+          wgmma_rs_n128(oacc[hh], p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+                        p[4 * kk + 3],
+                        sw128_desc(v_sm + 2 * hh * L::KV_BOX + kk * 2048, L::KV_BOX,
+                                   1024));
       wgmma_commit();
       wgmma_wait_all();
-      reg_fence(oacc);
+#pragma unroll
+      for (int hh = 0; hh < NH; ++hh) reg_fence(oacc[hh]);
       reg_fence(p);
     } else {
       mbar_wait(bar_v + 8 * s, parity);
@@ -444,7 +506,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
   l_1 += __shfl_xor_sync(0xffffffffu, l_1, 1);
   l_1 += __shfl_xor_sync(0xffffffffu, l_1, 2);
   const float d0 = fmaxf(l_0, 1e-37f), d1 = fmaxf(l_1, 1e-37f);
-  uint8_t* stage = smem + L::q + wg * 2 * Q_HALF;
+  uint8_t* stage = smem + L::q + wg * L::Q_WG;
   wg_sync(wg);  // every warp of this warpgroup is done reading Q
 #pragma unroll
   for (int jn = 0; jn < DV / 8; ++jn) {
@@ -452,9 +514,10 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int e = 0; e < 2; ++e) {
       const int r = r0 + 8 * e;
       const float dn = e ? d1 : d0;
-      const __nv_bfloat162 v = __floats2bfloat162_rn(oacc[4 * jn + 2 * e] / dn,
-                                                     oacc[4 * jn + 2 * e + 1] / dn);
-      *reinterpret_cast<__nv_bfloat162*>(stage + r * 256 + ((jn ^ (r & 7)) * 16) +
+      const int i = 4 * (jn % 16) + 2 * e;
+      const __nv_bfloat162 v =
+          __floats2bfloat162_rn(oacc[jn / 16][i] / dn, oacc[jn / 16][i + 1] / dn);
+      *reinterpret_cast<__nv_bfloat162*>(stage + r * ROW_BYTES + ((jn ^ (r & 7)) * 16) +
                                          (lane % 4) * 4) = v;
     }
   }
@@ -464,7 +527,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int qrow = row0 + r;
     if (qrow < sq)
       *reinterpret_cast<uint4*>(o + b * o_sb + qrow * o_ss + h * o_sh + c * 8) =
-          *reinterpret_cast<const uint4*>(stage + r * 256 + ((c ^ (r & 7)) * 16));
+          *reinterpret_cast<const uint4*>(stage + r * ROW_BYTES + ((c ^ (r & 7)) * 16));
   }
 }
 
@@ -497,8 +560,9 @@ EncodeTiled encode_tiled() {
 
 // A (batch, seq, heads, d) bf16 view with unit stride on d as a 4-D tensor
 // map (d, seq, heads, batch) whose box is 64 columns by `rows` rows, in the
-// 128-byte swizzle; columns from d to 127 of a box read as zeros.  Strides are in elements; a dimension of size 1 gets a
-// stride that TMA accepts, since it is never stepped.
+// 128-byte swizzle; columns from d to the box's end read as zeros.  Strides are in elements;
+// a dimension of size 1 gets a stride that TMA accepts, since it is never
+// stepped.
 struct MapKey {
   const void* ptr;
   int dim, batch, seq, heads, rows;
@@ -564,89 +628,99 @@ template <int NWG, int DQK, int DV>
 cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
                    const CUtensorMap& tv, void* o, int batch, int sq, int sk,
                    int n_heads, int group, const int64_t* st, int q_offset,
-                   int causal, float scale_log2, cudaStream_t stream) {
+                   int causal, int prefix_len, float scale_log2, cudaStream_t stream) {
+  constexpr int smem = Smem<NWG, DQK>::bytes;
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
         flash_prefill_kernel<NWG, DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        Smem<NWG>::bytes);
+        smem);
     if (err != cudaSuccess) return err;
     configured = true;
   }
   const int n_qtiles = (sq + NWG * WG_ROWS - 1) / (NWG * WG_ROWS);
   const dim3 grid(n_heads * batch, n_qtiles);
-  flash_prefill_kernel<NWG, DQK, DV><<<grid, NWG * 128 + 32, Smem<NWG>::bytes, stream>>>(
+  flash_prefill_kernel<NWG, DQK, DV><<<grid, NWG * 128 + 32, smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), sq, sk, n_heads, group,
-      n_qtiles, st[9], st[10], st[11], q_offset, causal, scale_log2);
+      n_qtiles, st[9], st[10], st[11], q_offset, causal, prefix_len, scale_log2);
   return cudaGetLastError();
+}
+
+struct KernelInfo {
+  const void* fn;
+  int warpgroups, smem;
+};
+
+template <int NWG, int DQK, int DV>
+KernelInfo info() {
+  return {reinterpret_cast<const void*>(flash_prefill_kernel<NWG, DQK, DV>), NWG,
+          Smem<NWG, DQK>::bytes};
 }
 
 }  // namespace
 
 // What limits the kernel with `which` consumer warpgroups at d = 128 (1 or
 // 2), or `which - 2` at d = 112 (3 or 4), or `which - 4` at (d_qk, d_v) =
-// (96, 64) (5 or 6), or `which - 6` at d = 64 (7 or 8): registers a thread, local (stack and spill) bytes a
-// thread, dynamic shared memory a block, and blocks resident on one SM.
+// (96, 64) (5 or 6), or `which - 6` at d = 64 (7 or 8), or with one at d =
+// 256 (9): registers a thread, local (stack and spill) bytes a thread,
+// dynamic shared memory a block, and blocks resident on one SM.
 // Returns the queries' cudaError_t.
 extern "C" int repro_flash_kernel_info(int which, int* regs,
                                        int* local_bytes, int* smem_bytes,
                                        int* blocks_per_sm) {
-  const void* fns[8] = {
-      reinterpret_cast<const void*>(flash_prefill_kernel<1, 128, 128>),
-      reinterpret_cast<const void*>(flash_prefill_kernel<2, 128, 128>),
-      reinterpret_cast<const void*>(flash_prefill_kernel<1, 112, 112>),
-      reinterpret_cast<const void*>(flash_prefill_kernel<2, 112, 112>),
-      reinterpret_cast<const void*>(flash_prefill_kernel<1, 96, 64>),
-      reinterpret_cast<const void*>(flash_prefill_kernel<2, 96, 64>),
-      reinterpret_cast<const void*>(flash_prefill_kernel<1, 64, 64>),
-      reinterpret_cast<const void*>(flash_prefill_kernel<2, 64, 64>)};
-  if (which < 1 || which > 8) return static_cast<int>(cudaErrorInvalidValue);
-  const int warpgroups = (which - 1) % 2 + 1;
-  const void* fn = fns[which - 1];
-  const int smem = warpgroups == 1 ? Smem<1>::bytes : Smem<2>::bytes;
+  const KernelInfo infos[9] = {
+      info<1, 128, 128>(), info<2, 128, 128>(), info<1, 112, 112>(),
+      info<2, 112, 112>(), info<1, 96, 64>(),   info<2, 96, 64>(),
+      info<1, 64, 64>(),   info<2, 64, 64>(),   info<1, 256, 256>()};
+  if (which < 1 || which > 9) return static_cast<int>(cudaErrorInvalidValue);
+  const KernelInfo& k = infos[which - 1];
   cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, k.smem);
   cudaFuncAttributes attr;
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, fn);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, k.fn);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_per_sm, fn, warpgroups * 128 + 32, smem);
+        blocks_per_sm, k.fn, k.warpgroups * 128 + 32, k.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   *regs = attr.numRegs;
   *local_bytes = static_cast<int>(attr.localSizeBytes);
-  *smem_bytes = smem;
+  *smem_bytes = k.smem;
   return static_cast<int>(cudaSuccess);
 }
 
 // q (B, Sq, H, d_qk), k (B, Sk, K, d_qk), v (B, Sk, K, d_v), o (B, Sq, H,
-// d_v): bf16, (d_qk, d_v) = (128, 128), (112, 112), (96, 64) or (64, 64),
-// unit stride on d, 16-byte aligned rows.  strides[12] holds the (batch,
-// seq, head) strides of q, k, v, o in elements.  causal != 0: query i sits
-// at position q_offset + i and sees keys 0 .. q_offset + i; causal == 0:
-// every query sees every key.  Returns the launch's cudaError_t.
+// d_v): bf16, (d_qk, d_v) = (128, 128), (112, 112), (96, 64), (64, 64) or
+// (256, 256), unit stride on d, 16-byte aligned rows.  strides[12] holds the
+// (batch, seq, head) strides of q, k, v, o in elements.  causal != 0: query
+// i sits at position q = q_offset + i and sees keys 0 .. max(q, prefix_len
+// - 1) (prefix_len = 0: the plain causal mask); causal == 0: every query
+// sees every key.  Returns the launch's cudaError_t.
 extern "C" int repro_flash_prefill_bf16(const void* q, const void* k,
                                         const void* v, void* o, int batch,
                                         int sq, int sk, int n_heads,
                                         int n_kv_heads, int d_qk, int d_v,
                                         const int64_t* strides, int q_offset,
-                                        int causal, float scale, void* stream) {
+                                        int causal, int prefix_len, float scale,
+                                        void* stream) {
   const bool widths = (d_qk == 128 && d_v == 128) || (d_qk == 112 && d_v == 112) ||
-                      (d_qk == 96 && d_v == 64) || (d_qk == 64 && d_v == 64);
+                      (d_qk == 96 && d_v == 64) || (d_qk == 64 && d_v == 64) ||
+                      (d_qk == 256 && d_v == 256);
   if (batch <= 0 || sq <= 0 || sk <= 0 || n_kv_heads <= 0 ||
-      n_heads % n_kv_heads != 0 || q_offset < 0 || !widths)
+      n_heads % n_kv_heads != 0 || q_offset < 0 || prefix_len < 0 || !widths)
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t* st = strides;
+  const int bn = d_qk == 256 ? Smem<1, 256>::BN : Smem<1, 128>::BN;  // keys a tile
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, q, d_qk, batch, sq, n_heads, st[0], st[1], st[2], WG_ROWS) ||
-      !make_map(&tk, k, d_qk, batch, sk, n_kv_heads, st[3], st[4], st[5], BN) ||
-      !make_map(&tv, v, d_v, batch, sk, n_kv_heads, st[6], st[7], st[8], BN))
+      !make_map(&tk, k, d_qk, batch, sk, n_kv_heads, st[3], st[4], st[5], bn) ||
+      !make_map(&tv, v, d_v, batch, sk, n_kv_heads, st[6], st[7], st[8], bn))
     return static_cast<int>(cudaErrorInvalidValue);
   const int group = n_heads / n_kv_heads;
   const float scale_log2 = scale * LOG2E;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define REPRO_FLASH_LAUNCH(NWG, DQK, DV)                                            \
   launch<NWG, DQK, DV>(tq, tk, tv, o, batch, sq, sk, n_heads, group, st, q_offset, \
-                       causal != 0, scale_log2, s)
+                       causal != 0, prefix_len, scale_log2, s)
   const bool two = sq > WG_ROWS;
   const cudaError_t err =
       d_qk == 128 ? (two ? REPRO_FLASH_LAUNCH(2, 128, 128) : REPRO_FLASH_LAUNCH(1, 128, 128))
@@ -654,7 +728,9 @@ extern "C" int repro_flash_prefill_bf16(const void* q, const void* k,
           ? (two ? REPRO_FLASH_LAUNCH(2, 112, 112) : REPRO_FLASH_LAUNCH(1, 112, 112))
       : d_qk == 96
           ? (two ? REPRO_FLASH_LAUNCH(2, 96, 64) : REPRO_FLASH_LAUNCH(1, 96, 64))
-          : (two ? REPRO_FLASH_LAUNCH(2, 64, 64) : REPRO_FLASH_LAUNCH(1, 64, 64));
+      : d_qk == 64
+          ? (two ? REPRO_FLASH_LAUNCH(2, 64, 64) : REPRO_FLASH_LAUNCH(1, 64, 64))
+          : REPRO_FLASH_LAUNCH(1, 256, 256);
 #undef REPRO_FLASH_LAUNCH
   return static_cast<int>(err);
 }

@@ -35,13 +35,19 @@
 // and its gap to every decode call, also where each sequence has one span
 // (the contiguous main path's lengths 11..45).
 //
-// Head widths D = 128 and (the contiguous kernel only) 112 and 64.  A row
-// is D / 4 float4s: at D = 112, lanes 28-31 own no column of a row and
+// Head widths D = 128 and (the contiguous kernel only) 112, 64 and 256.  A
+// row is D / 4 float4s: at D = 112, lanes 28-31 own no column of a row and
 // threads 112-127 no output column, so they copy, score, sum and store
 // nothing; at D = 64 the same holds for lanes 16-31 and threads 64-127 (a
 // row is scored by 8 lanes of two float4s for G <= 4, 16 lanes of one for
 // G <= 8).  Every such test is on the template's D and folds away at D =
-// 128, whose instantiations are the code they were.
+// 128, whose instantiations are the code they were.  At D = 256
+// (paligemma, G = 8) a 1 KB row is 64 float4s: a lane copies two of each
+// row (lane l and l + 32), owns two in P V, and every thread two output
+// columns (t and t + 128); a row is scored by all 32 lanes of 8 d for G <=
+// 8 (16 lanes of 16 d for G <= 4), so the query fragment stays at 64
+// registers.  Its span of rows is 128 KB of dynamic shared memory: one
+// block an SM.
 //
 // SPAN is a constant, never derived from S, the batch, the occupancy or
 // the page size, and the tile order and every reduction order depend on
@@ -137,15 +143,18 @@ __device__ __forceinline__ void row_offsets(const Args& a, int b, int kh, int po
 }
 
 // GM: the most query heads per KV head it serves (4 or 8); D: the head
-// width (128, 112 or 64).
+// width (128, 112, 64 or 256).
 template <bool PAGED, int GM, int D>
-__global__ void __launch_bounds__(NTHREADS, 3) split_kernel(const Args a) {
-  static_assert(D <= NTHREADS && D <= 4 * 32 && D % 16 == 0,
-                "a thread's column, a lane's float4 of a row");
-  constexpr bool FULL = D == NTHREADS;   // every thread and lane has columns
+__global__ void __launch_bounds__(NTHREADS, D > NTHREADS ? 1 : 3)
+split_kernel(const Args a) {
+  static_assert((D <= NTHREADS || D == 2 * NTHREADS) && D % 16 == 0,
+                "a thread's columns, a lane's float4s of a row");
+  constexpr bool FULL = D % NTHREADS == 0;  // every thread and lane has columns
+  constexpr int COLS = (D + NTHREADS - 1) / NTHREADS;  // output columns a thread
   constexpr int NCH = D / 4;             // float4s a row
-  constexpr int LPR = GM <= 4 ? 8 : 16;  // lanes a row in the scores
-  constexpr int CPL = 32 / LPR;          // float4s a lane of a full row
+  constexpr int CPR = (NCH + 31) / 32;   // float4s a lane copies of a row
+  constexpr int LPR = (GM <= 4 ? 8 : 16) * CPR;  // lanes a row in the scores
+  constexpr int CPL = 32 * CPR / LPR;    // float4s a lane of a full row
   constexpr int RPI = 32 / LPR;          // rows a warp scores at once
   extern __shared__ __align__(16) float s_kv[];  // [SPAN][D]
   __shared__ __align__(16) float s_p[SPAN][GM];  // scores, then probabilities
@@ -156,8 +165,11 @@ __global__ void __launch_bounds__(NTHREADS, 3) split_kernel(const Args a) {
 
   const int sp = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const bool col = FULL || tid < D;         // this thread's output column
-  const bool lane_col = FULL || lane < NCH;  // this lane's float4 of a row
+  // this thread's output column c (tid + 128 c) and this lane's float4 e of
+  // a row (lane + 32 e)
+  auto col = [tid](int c) { return FULL || tid + NTHREADS * c < D; };
+  auto lane_ch = [lane](int e) { return FULL || lane + 32 * e < NCH; };
+  const bool lane_col = lane_ch(0);
   const int group = a.group;
   const int p0 = sp * SPAN;
   // this warp's i-th row of the span: rows are dealt to the warps in turn,
@@ -166,10 +178,13 @@ __global__ void __launch_bounds__(NTHREADS, 3) split_kernel(const Args a) {
 
   // the query (a column a thread) and row(lane)'s offsets (its page id
   // in the paged kernel) do not depend on the length: in flight before it
-  __nv_bfloat16 qraw[GM];
+  __nv_bfloat16 qraw[GM][COLS];
 #pragma unroll
   for (int g = 0; g < GM; ++g)
-    if (g < group && col) qraw[g] = a.q[b * a.q_sb + (kh * group + g) * a.q_sh + tid];
+#pragma unroll
+    for (int c = 0; c < COLS; ++c)
+      if (g < group && col(c))
+        qraw[g][c] = a.q[b * a.q_sb + (kh * group + g) * a.q_sh + tid + NTHREADS * c];
   int64_t ko, vo;
   row_offsets<PAGED>(a, b, kh, min(p0 + row(lane), a.limit - 1), &ko, &vo);
 
@@ -177,7 +192,9 @@ __global__ void __launch_bounds__(NTHREADS, 3) split_kernel(const Args a) {
   __nv_bfloat16* out = a.out + b * a.o_sb + kh * group * a.o_sh;
   if (p0 >= len) {  // past this sequence: the whole block, no barrier yet
     if (sp == 0)    // no visible position at all
-      for (int g = 0; g < group && col; ++g) out[g * a.o_sh + tid] = __float2bfloat16(0.f);
+      for (int g = 0; g < group; ++g)
+        for (int c = 0; c < COLS; ++c)
+          if (col(c)) out[g * a.o_sh + tid + NTHREADS * c] = __float2bfloat16(0.f);
     return;
   }
   const int nrow = min(SPAN, len - p0);
@@ -192,7 +209,10 @@ __global__ void __launch_bounds__(NTHREADS, 3) split_kernel(const Args a) {
       for (int i = 0; i < GROUP_ROWS; ++i) {
         const int64_t off = __shfl_sync(0xffffffffu, ko, GROUP_ROWS * c + i);
         const int r = row(GROUP_ROWS * c + i);
-        if (r < nrow && lane_col) cp_async16(s_kv + r * D + 4 * lane, a.k + off + 4 * lane);
+#pragma unroll
+        for (int e = 0; e < CPR; ++e)
+          if (r < nrow && lane_ch(e))
+            cp_async16(s_kv + r * D + 4 * (lane + 32 * e), a.k + off + 4 * (lane + 32 * e));
       }
     }
     cp_async_commit();
@@ -202,7 +222,9 @@ __global__ void __launch_bounds__(NTHREADS, 3) split_kernel(const Args a) {
   // (those past the row's NCH are zero and never scored)
 #pragma unroll
   for (int g = 0; g < GM; ++g)
-    if (g < group && col) s_q[g][tid] = __bfloat162float(qraw[g]);
+#pragma unroll
+    for (int c = 0; c < COLS; ++c)
+      if (g < group && col(c)) s_q[g][tid + NTHREADS * c] = __bfloat162float(qraw[g][c]);
   __syncthreads();
   const int sl = lane % LPR;
   auto has_chunk = [sl](int e4) { return FULL || sl + LPR * e4 < NCH; };
@@ -265,7 +287,10 @@ __global__ void __launch_bounds__(NTHREADS, 3) split_kernel(const Args a) {
     for (int i = 0; i < GROUP_ROWS; ++i) {
       const int64_t off = __shfl_sync(0xffffffffu, vo, GROUP_ROWS * c + i);
       const int r = row(GROUP_ROWS * c + i);
-      if (r < nrow && lane_col) cp_async16(s_kv + r * D + 4 * lane, a.v + off + 4 * lane);
+#pragma unroll
+      for (int e = 0; e < CPR; ++e)
+        if (r < nrow && lane_ch(e))
+          cp_async16(s_kv + r * D + 4 * (lane + 32 * e), a.v + off + 4 * (lane + 32 * e));
     }
     cp_async_commit();
   }
@@ -301,11 +326,11 @@ __global__ void __launch_bounds__(NTHREADS, 3) split_kernel(const Args a) {
   __syncthreads();
 
   // P V over the warp's rows, a V group as it lands
-  float acc[GM][4];
+  float acc[GM][4 * CPR];
 #pragma unroll
   for (int g = 0; g < GM; ++g)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[g][e] = 0.f;
+    for (int e = 0; e < 4 * CPR; ++e) acc[g][e] = 0.f;
 #pragma unroll
   for (int c = 0; c < NGROUP; ++c) {
     cp_async_wait_dyn(NGROUP - 1 - c);
@@ -316,7 +341,10 @@ __global__ void __launch_bounds__(NTHREADS, 3) split_kernel(const Args a) {
 #pragma unroll 4
     for (int i = GROUP_ROWS * c; i < iend; ++i) {
       const int r = row(i);
-      const float4 v4 = *reinterpret_cast<const float4*>(s_kv + r * D + 4 * lane);
+      float4 v4[CPR];
+#pragma unroll
+      for (int e = 0; e < CPR; ++e)
+        v4[e] = *reinterpret_cast<const float4*>(s_kv + r * D + 4 * (lane + 32 * e));
       float pr[GM];
 #pragma unroll
       for (int g = 0; g < GM; g += 4) {
@@ -324,12 +352,14 @@ __global__ void __launch_bounds__(NTHREADS, 3) split_kernel(const Args a) {
         pr[g] = p4.x; pr[g + 1] = p4.y; pr[g + 2] = p4.z; pr[g + 3] = p4.w;
       }
 #pragma unroll
-      for (int g = 0; g < GM; ++g) {
-        acc[g][0] = fmaf(pr[g], v4.x, acc[g][0]);
-        acc[g][1] = fmaf(pr[g], v4.y, acc[g][1]);
-        acc[g][2] = fmaf(pr[g], v4.z, acc[g][2]);
-        acc[g][3] = fmaf(pr[g], v4.w, acc[g][3]);
-      }
+      for (int g = 0; g < GM; ++g)
+#pragma unroll
+        for (int e = 0; e < CPR; ++e) {
+          acc[g][4 * e] = fmaf(pr[g], v4[e].x, acc[g][4 * e]);
+          acc[g][4 * e + 1] = fmaf(pr[g], v4[e].y, acc[g][4 * e + 1]);
+          acc[g][4 * e + 2] = fmaf(pr[g], v4[e].z, acc[g][4 * e + 2]);
+          acc[g][4 * e + 3] = fmaf(pr[g], v4[e].w, acc[g][4 * e + 3]);
+        }
     }
   }
   // the warps' sums, kept where the rows were, added in warp order
@@ -338,31 +368,41 @@ __global__ void __launch_bounds__(NTHREADS, 3) split_kernel(const Args a) {
   __syncthreads();  // every warp is done with its V rows
 #pragma unroll
   for (int g = 0; g < GM; ++g)
-    if (lane_col)
-      *reinterpret_cast<float4*>(&s_acc[warp][g][4 * lane]) =
-          make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+#pragma unroll
+    for (int e = 0; e < CPR; ++e)
+      if (lane_ch(e))
+        *reinterpret_cast<float4*>(&s_acc[warp][g][4 * (lane + 32 * e)]) = make_float4(
+            acc[g][4 * e], acc[g][4 * e + 1], acc[g][4 * e + 2], acc[g][4 * e + 3]);
   __syncthreads();
-  float o[GM];
+  float o[GM][COLS];
 #pragma unroll
-  for (int g = 0; g < GM; ++g) {
-    o[g] = col ? s_acc[0][g][tid] : 0.f;
+  for (int g = 0; g < GM; ++g)
 #pragma unroll
-    for (int w = 1; w < NWARPS; ++w) o[g] += col ? s_acc[w][g][tid] : 0.f;
-  }
+    for (int c = 0; c < COLS; ++c) {
+      const int x = tid + NTHREADS * c;
+      o[g][c] = col(c) ? s_acc[0][g][x] : 0.f;
+#pragma unroll
+      for (int w = 1; w < NWARPS; ++w) o[g][c] += col(c) ? s_acc[w][g][x] : 0.f;
+    }
 
   const int ns = (len + SPAN - 1) / SPAN;
   if (ns == 1) {
 #pragma unroll
     for (int g = 0; g < GM; ++g)
-      if (g < group && col)
-        out[g * a.o_sh + tid] = __float2bfloat16(o[g] / fmaxf(s_l[g], 1e-37f));
+#pragma unroll
+      for (int c = 0; c < COLS; ++c)
+        if (g < group && col(c))
+          out[g * a.o_sh + tid + NTHREADS * c] =
+              __float2bfloat16(o[g][c] / fmaxf(s_l[g], 1e-37f));
     return;
   }
   const int64_t seq = static_cast<int64_t>(b) * a.n_kv + kh;
   const int64_t pbase = (seq * a.n_span + sp) * group;  // partial (sp, g) at row pbase + g
 #pragma unroll
   for (int g = 0; g < GM; ++g)
-    if (g < group && col) a.part_acc[(pbase + g) * D + tid] = o[g];
+#pragma unroll
+    for (int c = 0; c < COLS; ++c)
+      if (g < group && col(c)) a.part_acc[(pbase + g) * D + tid + NTHREADS * c] = o[g][c];
   if (tid < group)
     *reinterpret_cast<float2*>(a.part_ml + 2 * (pbase + tid)) = make_float2(s_m[tid], s_l[tid]);
   __threadfence();  // the partial is visible on the card before the arrival
@@ -377,15 +417,23 @@ __global__ void __launch_bounds__(NTHREADS, 3) split_kernel(const Args a) {
   for (int g = 0; g < group; ++g) {
     float m = -INFINITY;
     for (int s = 0; s < ns; ++s) m = fmaxf(m, __ldcg(a.part_ml + 2 * (base + s * group + g)));
-    float l = 0.f, acc_o = 0.f;
+    float l = 0.f, acc_o[COLS];
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) acc_o[c] = 0.f;
     for (int s = 0; s < ns; ++s) {
       const int64_t i = base + s * group + g;
       const float2 ml = __ldcg(reinterpret_cast<const float2*>(a.part_ml + 2 * i));
       const float w = expf(ml.x - m);
       l = fmaf(ml.y, w, l);
-      if (col) acc_o = fmaf(__ldcg(a.part_acc + i * D + tid), w, acc_o);
+#pragma unroll
+      for (int c = 0; c < COLS; ++c)
+        if (col(c))
+          acc_o[c] = fmaf(__ldcg(a.part_acc + i * D + tid + NTHREADS * c), w, acc_o[c]);
     }
-    if (col) out[g * a.o_sh + tid] = __float2bfloat16(acc_o / fmaxf(l, 1e-37f));
+#pragma unroll
+    for (int c = 0; c < COLS; ++c)
+      if (col(c))
+        out[g * a.o_sh + tid + NTHREADS * c] = __float2bfloat16(acc_o[c] / fmaxf(l, 1e-37f));
   }
 }
 

@@ -42,7 +42,7 @@ _IP = ctypes.POINTER(ctypes.c_int)
 #: C entry points and their argument types (every one returns cudaError_t)
 SIGNATURES = {
     "repro_flash_prefill_bf16": (
-        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I64P, _I, _I, _F, _P,
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I64P, _I, _I, _I, _F, _P,
     ),
     "repro_flash_kernel_info": (_I, _IP, _IP, _IP, _IP),
     "repro_decode_attention_f32cache": (

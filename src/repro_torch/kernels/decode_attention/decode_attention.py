@@ -16,9 +16,9 @@ from repro_torch.kernels import _cuda
 SPAN = 128
 
 #: the head widths the contiguous kernel is built for: qwen3's, qwen2.5's and
-#: the MoE family's, zamba2's, whisper's (the paged kernels take 128 only:
-#: only the dense and MoE families page)
-HEAD_DIMS = (128, 112, 64)
+#: the MoE family's, zamba2's, whisper's, paligemma's (the paged kernels
+#: take 128 only: only the dense and MoE families page)
+HEAD_DIMS = (128, 112, 64, 256)
 
 #: (device index, stream) -> (f32 partials scratch, uint32 arrival counters)
 _WORKSPACES: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}

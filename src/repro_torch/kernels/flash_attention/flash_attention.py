@@ -11,8 +11,8 @@ from repro_torch.kernels import _cuda
 
 #: the (Q/K width, V width) pairs the kernel is built for: qwen3's and
 #: qwen2.5's, zamba2's, MLA's decompressed heads (minicpm3: nope 64 + rope
-#: 32 for Q and K, 64 for V) and whisper's
-HEAD_DIMS = ((128, 128), (112, 112), (96, 64), (64, 64))
+#: 32 for Q and K, 64 for V), whisper's and paligemma's
+HEAD_DIMS = ((128, 128), (112, 112), (96, 64), (64, 64), (256, 256))
 
 
 def flash_attention(
@@ -22,11 +22,14 @@ def flash_attention(
     *,
     q_offset: int = 0,
     causal: bool = True,
+    prefix_len: int = 0,
 ) -> torch.Tensor:
     """GQA attention on the card at scale ``d_qk ** -0.5``.  Causal:
-    query ``i`` sits at position ``q_offset + i`` and sees keys ``0 ..
-    q_offset + i``; not causal: every query sees all ``Sk`` keys (the
-    encoder's and the cross-attention's).  Any ``Sq`` and ``Sk``; ``(d_qk, d_v)`` in :data:`HEAD_DIMS`;
+    query ``i`` sits at position ``q = q_offset + i`` and sees keys ``0 ..
+    max(q, prefix_len - 1)``: with ``prefix_len`` P > 0 the first P
+    positions see each other both ways (the prefix-LM mask of a VLM's image
+    prefix); not causal: every query sees all ``Sk`` keys (the encoder's
+    and the cross-attention's).  Any ``Sq`` and ``Sk``; ``(d_qk, d_v)`` in :data:`HEAD_DIMS`;
     strided (B, S, heads, d) views with unit stride on ``d``.  Returns (B,
     Sq, H, d_v) bf16."""
     qs, ks, vs = q.stride(), k.stride(), v.stride()
@@ -42,9 +45,10 @@ def flash_attention(
     sk, kh, dv = k.shape[1], k.shape[2], v.shape[3]
     if k.shape != (b, sk, kh, d) or v.shape != (b, sk, kh, dv):
         raise ValueError(f"shape mismatch: q {q.shape}, k {k.shape}, v {v.shape}")
-    if h % kh or (d, dv) not in HEAD_DIMS or q_offset < 0:
+    if h % kh or (d, dv) not in HEAD_DIMS or q_offset < 0 or prefix_len < 0:
         raise ValueError(
-            f"unsupported: H={h} K={kh} d_qk={d} d_v={dv} q_offset={q_offset}"
+            f"unsupported: H={h} K={kh} d_qk={d} d_v={dv} q_offset={q_offset} "
+            f"prefix_len={prefix_len}"
         )
     out = q.new_empty((b, sq, h, dv))
     strides = _cuda.int64_array(
@@ -52,7 +56,8 @@ def flash_attention(
     )
     err = _cuda.library().repro_flash_prefill_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, sq, sk, h, kh, d, dv, strides, q_offset, int(causal), d**-0.5,
+        b, sq, sk, h, kh, d, dv, strides, q_offset, int(causal), prefix_len,
+        d**-0.5,
         _cuda.stream_of(q),
     )
     _cuda.check(err, "flash_attention")

@@ -17,9 +17,12 @@ def flash_attention_bshd(
     *,
     q_offset: int = 0,
     causal: bool = True,
+    prefix_len: int = 0,
 ) -> torch.Tensor:
     if q.is_cuda:
-        return flash_attention(q, k, v, q_offset=q_offset, causal=causal)
+        return flash_attention(q, k, v, q_offset=q_offset, causal=causal,
+                               prefix_len=prefix_len)
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, q_offset=q_offset, causal=causal)
+        return flash_attention_ref(q, k, v, q_offset=q_offset, causal=causal,
+                                   prefix_len=prefix_len)
     raise ValueError(f"no prefill attention for device {q.device}")

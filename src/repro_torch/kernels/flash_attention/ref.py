@@ -16,9 +16,12 @@ def flash_attention_ref(
     *,
     q_offset: int = 0,
     causal: bool = True,
+    prefix_len: int = 0,
 ) -> torch.Tensor:
     """Exact GQA attention at scale ``d_qk ** -0.5``, causal (query ``i``
-    at position ``q_offset + i``) or over every key: scores and
+    at position ``q_offset + i``; with ``prefix_len`` P > 0 the prefix-LM
+    mask, under which queries and keys below P also see each other, the
+    reference's ``make_causal_mask``) or over every key: scores and
     softmax in f32, probabilities cast to v's dtype before the P V product
     (as the JAX model's ``naive_attention`` does), output (B, Sq, H, d_v)
     in q's dtype."""
@@ -31,6 +34,9 @@ def flash_attention_ref(
         q_pos = torch.arange(sq, device=q.device) + q_offset
         k_pos = torch.arange(sk, device=q.device)
         visible = q_pos[:, None] >= k_pos[None, :]
+        if prefix_len:
+            visible = visible | ((q_pos[:, None] < prefix_len)
+                                 & (k_pos[None, :] < prefix_len))
         scores = torch.where(visible, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype), v)

@@ -78,15 +78,19 @@ def gqa_prefill(
     v_cache: torch.Tensor,
     slot: int,
     rope: Rope,
+    *,
+    prefix_len: int = 0,
 ) -> torch.Tensor:
-    """Causal self-attention over the prompt.  Its K/V rows are written
-    straight into rows ``0 .. S`` of ``slot`` in the f32 cache, in place."""
+    """Causal self-attention over the prompt, under the prefix-LM mask
+    where ``prefix_len`` > 0 (a VLM's patch positions see each other both
+    ways).  Its K/V rows are written straight into rows ``0 .. S`` of
+    ``slot`` in the f32 cache, in place."""
     b, s, _ = x.shape
     q = gqa_project_q(p, cfg, x, rope)
     k, v = gqa_project_kv(p, cfg, x, rope)
     k_cache[slot, :s] = k[0]
     v_cache[slot, :s] = v[0]
-    out = flash_attention_bshd(q, k, v)
+    out = flash_attention_bshd(q, k, v, prefix_len=prefix_len)
     return layers.dense(p["wo"], out.reshape(b, s, -1))
 
 

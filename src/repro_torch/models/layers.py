@@ -1,5 +1,6 @@
 """Layers of the transformer: RMSNorm and LayerNorm, NeoX half-rotation
-RoPE, the SwiGLU MLP and the plain biased two-layer MLP, dense projections
+RoPE, the gated MLP (SwiGLU, or gemma's GeGLU) and the plain biased
+two-layer MLP, dense projections
 (with an optional bias), the embedding and the tied or untied unembedding.
 Each follows the arithmetic of its ``repro/models/layers.py`` counterpart:
 where the reference computes in f32 and rounds to the compute dtype, so
@@ -80,9 +81,10 @@ def mlp(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
     return dense(p["wo"], activation(act, dense(p["wi"], x, p["bi"])), p["bo"])
 
 
-def gated_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU: ``wo(silu(wg x) * wi x)``."""
-    h = torch.nn.functional.silu(dense(p["wg"], x)) * dense(p["wi"], x)
+def gated_mlp(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
+    """``wo(act(wg x) * wi x)``: SwiGLU at ``act="silu"``, gemma's GeGLU
+    (the tanh gelu) at ``"gelu"``."""
+    h = activation(act, dense(p["wg"], x)) * dense(p["wi"], x)
     return dense(p["wo"], h)
 
 

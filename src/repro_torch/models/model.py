@@ -1,5 +1,6 @@
 """The port's model families (``repro/models/model.py``): the
-``TransformerLM`` of the dense and MoE families (GQA or MLA attention), the
+``TransformerLM`` of the dense and MoE families (GQA or MLA attention) and
+of the VLM (gemma's decoder after a prefix of patch embeddings), the
 pure-SSM ``MambaLM``, the zamba2 ``HybridLM`` (Mamba2 layers and one
 shared attention block) and the whisper ``EncDecLM`` (an encoder over
 frame embeddings and a decoder with cross-attention), each with a prefill
@@ -20,6 +21,7 @@ produces into the one it was given.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -107,14 +109,25 @@ def _block(p: dict, i: int) -> dict:
 
 class TransformerLM:
     """Pre-norm blocks, GQA or (``cfg.use_mla``) MLA attention: the dense
-    stack (``params["layers"]``: every layer of the dense family, the
-    ``first_k_dense`` leading layers of the MoE family), then the MoE stack
-    (``params["moe_layers"]``), then the tied or untied
+    stack (``params["layers"]``: every layer of the dense and VLM families,
+    the ``first_k_dense`` leading layers of the MoE family), then the MoE
+    stack (``params["moe_layers"]``), then the tied or untied
     (``params["unembed"]``) unembedding.  The cache's layer axis runs over
     both stacks in that order.  An MLA model keeps an :class:`MLACache`,
-    which neither pages nor takes a suffix prefill, as in the reference."""
+    which neither pages nor takes a suffix prefill, as in the reference.
+
+    The VLM (paligemma): a prefill takes the request's ``patches``, (1,
+    ``n_vision_tokens``, d_model) precomputed patch embeddings, and runs
+    them, cast to the compute dtype and not scaled, before the prompt's
+    token embeddings; its positions and cache rows run over the prefix and
+    the prompt, and its attention is the prefix-LM mask (the patches see
+    each other both ways).  With ``embed_scale`` every token embedding is
+    multiplied by ``sqrt(d_model)`` rounded to the compute dtype first, as
+    the reference does.  A VLM neither pages nor takes a suffix prefill."""
 
     def __init__(self, cfg: ModelConfig):
+        if cfg.family == "vlm" and cfg.n_vision_tokens <= 0:
+            raise ValueError(f"{cfg.name}: the vlm family needs n_vision_tokens > 0")
         self.cfg = cfg
 
     @staticmethod
@@ -130,7 +143,16 @@ class TransformerLM:
     def _mlp(self, p: dict, h: torch.Tensor) -> torch.Tensor:
         if "moe" in p:
             return moe.moe_block(p["moe"], self.cfg, h)
-        return layers.gated_mlp(p["mlp"], h)
+        return layers.gated_mlp(p["mlp"], h, self.cfg.act)
+
+    def _embed(self, params: dict, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """Token embeddings in ``dtype``, times ``sqrt(d_model)`` rounded to
+        ``dtype`` where the config has ``embed_scale`` (bf16: 45.25 at d =
+        2,048, not 45.2548)."""
+        x = layers.embed(params["embed"], tokens, dtype)
+        if self.cfg.embed_scale:
+            x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=dtype)
+        return x
 
     @staticmethod
     def _logits(params: dict, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -199,10 +221,12 @@ class TransformerLM:
         *,
         start: int = 0,
         dtype: torch.dtype = torch.bfloat16,
+        patches: torch.Tensor | None = None,
     ) -> torch.Tensor:
         """Run the prompt and return its last position's logits, (1, Vp)
         f32.  With a :class:`KVCache`, ``target`` is the slot whose rows
-        ``0 .. S`` receive the prompt's K/V.  With a :class:`PagedKVCache`,
+        ``0 .. S`` receive the prompt's K/V (a VLM's ``patches`` first:
+        rows ``0 .. P + S``).  With a :class:`PagedKVCache`,
         ``target`` holds the prompt's page ids: its first ``start //
         page_size`` pages are a shared prefix already in the pool, and
         ``tokens`` is the suffix from position ``start`` on (suffix
@@ -214,7 +238,18 @@ class TransformerLM:
             raise ValueError(f"prefill takes one prompt (1, S), got {tokens.shape}")
         if cfg.use_mla and start:
             raise ValueError("suffix prefill is not supported for MLA caches")
-        s = tokens.shape[1]
+        vlm = cfg.family == "vlm"
+        if vlm and start:
+            raise ValueError("suffix prefill is not supported for VLM prompts")
+        want = (1, cfg.n_vision_tokens, cfg.d_model)
+        if vlm and (patches is None or tuple(patches.shape) != want):
+            raise ValueError(f"{cfg.name}: a prefill needs the request's patches "
+                             f"{want}, got "
+                             f"{None if patches is None else tuple(patches.shape)}")
+        if not vlm and patches is not None:
+            raise ValueError(f"{cfg.name}: only the vlm family takes patches")
+        prefix = cfg.n_vision_tokens if vlm else 0
+        s = prefix + tokens.shape[1]
         paged = isinstance(cache, PagedKVCache)
         if paged:
             if start % cache.page_size or start + s > len(target) * cache.page_size:
@@ -226,7 +261,9 @@ class TransformerLM:
             raise ValueError(f"prompt of {s} tokens exceeds max_len {cache.max_len}")
         positions = torch.arange(start, start + s, device=tokens.device)[None, :]
         rope = self._rope(positions)
-        x = layers.embed(params["embed"], tokens, dtype)
+        x = self._embed(params, tokens, dtype)
+        if vlm:
+            x = torch.cat([patches.to(device=x.device, dtype=dtype), x], dim=1)
         for i, p in self._layers(params):
             h = layers.rms_norm(p["ln1"], x, cfg.norm_eps)
             if cfg.use_mla:
@@ -239,7 +276,8 @@ class TransformerLM:
                 )
             else:
                 a = attn.gqa_prefill(
-                    p["attn"], cfg, h, cache.k[i], cache.v[i], target, rope
+                    p["attn"], cfg, h, cache.k[i], cache.v[i], target, rope,
+                    prefix_len=prefix,
                 )
             x = x + a
             h = layers.rms_norm(p["ln2"], x, cfg.norm_eps)
@@ -271,7 +309,7 @@ class TransformerLM:
         rope = self._rope(positions[:, None])
         lengths = (positions + 1).clamp(max=max_len).to(torch.int32)
         new_pos = positions.to(torch.int32)
-        x = layers.embed(params["embed"], tokens, dtype)
+        x = self._embed(params, tokens, dtype)
         for i, p in self._layers(params):
             h = layers.rms_norm(p["ln1"], x, cfg.norm_eps)
             if cfg.use_mla:
@@ -404,7 +442,7 @@ class HybridLM:
         h = layers.rms_norm(p["ln1"], normed, cfg.norm_eps)
         out = normed + attend(p["attn"], h)
         h = layers.rms_norm(p["ln2"], out, cfg.norm_eps)
-        out = out + layers.gated_mlp(p["mlp"], h)
+        out = out + layers.gated_mlp(p["mlp"], h, cfg.act)
         return x + (out - normed)
 
     def _stack(self, params: dict, x: torch.Tensor, mamba, attend) -> torch.Tensor:
@@ -633,8 +671,8 @@ class EncDecLM:
 def build_model(cfg: ModelConfig) -> TransformerLM | MambaLM | HybridLM | EncDecLM:
     """The model of ``cfg.family``, as the reference's ``build_model``
     picks it, for the families the port serves (dense and MoE with GQA or
-    MLA attention, SSM, hybrid, enc-dec)."""
-    if cfg.family in ("dense", "moe"):
+    MLA attention, SSM, hybrid, enc-dec, VLM)."""
+    if cfg.family in ("dense", "moe", "vlm"):
         return TransformerLM(cfg)
     if cfg.family == "ssm":
         return MambaLM(cfg)

@@ -81,7 +81,7 @@ def moe_block(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     combine = torch.where(slot_oh, weights[..., None], 0.0).view(b, s, e * c)
     out = torch.bmm(combine, expert_out.view(b, e * c, d)).to(x.dtype)
     if "shared" in p:
-        out = out + layers.gated_mlp(p["shared"], x)
+        out = out + layers.gated_mlp(p["shared"], x, cfg.act)
     return out
 
 

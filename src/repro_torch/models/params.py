@@ -1,5 +1,5 @@
-"""Parameters of the port's models (the ``TransformerLM`` of the dense and
-MoE families, with GQA or MLA attention, the Mamba2 ``MambaLM``, the
+"""Parameters of the port's models (the ``TransformerLM`` of the dense,
+MoE and VLM families, with GQA or MLA attention, the Mamba2 ``MambaLM``, the
 zamba2 ``HybridLM`` and the whisper ``EncDecLM``):
 random init on the target device from a seeded ``torch.Generator``, and
 the bridge that takes the JAX package's own parameter tree.
@@ -125,10 +125,10 @@ def param_specs(cfg: ModelConfig) -> dict[str, Any]:
         return _hybrid_specs(cfg)
     if cfg.family == "encdec":
         return _encdec_specs(cfg)
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise ValueError(
             f"{cfg.name}: the port serves dense and MoE (GQA or MLA), Mamba2, "
-            f"hybrid and enc-dec"
+            f"hybrid, enc-dec and VLM"
         )
     n_moe = cfg.n_layers - cfg.first_k_dense if cfg.n_experts else 0
     n_dense = cfg.n_layers - n_moe
@@ -281,7 +281,7 @@ _SSM_KERNELS = ("wz", "wxBC", "wdt", "out_proj")
 
 def _jax_path(path: tuple[str, ...], family: str) -> tuple[str, ...]:
     """A port leaf's path in the JAX model's tree: ``TransformerLM``'s
-    (dense, moe), ``MambaLM``'s (ssm), ``HybridLM``'s (hybrid) or
+    (dense, moe, vlm), ``MambaLM``'s (ssm), ``HybridLM``'s (hybrid) or
     ``EncDecLM``'s (encdec, whose LayerNorm leaves keep their paths)."""
     if path in (("embed",), ("enc_pos",), ("dec_pos",)):
         return (path[0], "table")
@@ -289,7 +289,7 @@ def _jax_path(path: tuple[str, ...], family: str) -> tuple[str, ...]:
         return path
     if path == ("unembed",):
         return ("unembed", "kernel")
-    if path[0] == "layers" and family in ("dense", "moe"):
+    if path[0] == "layers" and family in ("dense", "moe", "vlm"):
         path = ("dense_layers", *path[1:])
     leaf = path[-1]
     if leaf in _BIAS_OF:
@@ -309,7 +309,7 @@ def params_from_jax(
     device: torch.device | str,
     dtype: torch.dtype = torch.bfloat16,
 ) -> dict[str, Any]:
-    """Convert the JAX package's ``TransformerLM``, ``MambaLM``,
+    """Convert the JAX package's ``TransformerLM`` (dense, MoE, VLM), ``MambaLM``,
     ``HybridLM`` or ``EncDecLM`` parameters, given as numpy arrays
     (``jax.tree.map(np.asarray, params)``), into the port's tree: layers
     stay stacked (the hybrid's groups nested ``(G, K, ...)``), kernels stay

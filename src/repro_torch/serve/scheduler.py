@@ -5,7 +5,10 @@ hybrid, the self and cross caches of the enc-dec family (the
 ``ContinuousBatcher`` of ``repro/serve/scheduler.py``).  A request's
 ``extras`` go to the model's prefill as keyword arguments: an enc-dec
 request carries its encoder frames there (``{"frames": (encoder_seq,
-d_model) array}``), as the reference merges them into its prefill batch.
+d_model) array}``), a VLM request its patch embeddings (``{"patches":
+(n_vision_tokens, d_model) array}``), as the reference merges them into
+its prefill batch.  A VLM's first decode position follows its prefix of
+``n_vision_tokens`` rows and its prompt.
 
 A fixed pool of ``n_slots`` decode slots steps in lock-step.  Each step:
 
@@ -74,7 +77,7 @@ class Request:
     request_id: int
     prompt_tokens: list[int]
     max_new_tokens: int = 32
-    extras: dict | None = None  # e.g. {"frames": ...} for enc-dec archs
+    extras: dict | None = None  # {"frames": ...} enc-dec, {"patches": ...} VLM
 
 
 @dataclasses.dataclass
@@ -201,6 +204,8 @@ class ContinuousBatcher:
             )
         self.model, self.cfg, self.params = model, cfg, params
         self.n_slots, self.max_len, self.eos_id = n_slots, max_len, eos_id
+        #: cache rows ahead of a prompt: a VLM's patch embeddings
+        self.prefix = cfg.n_vision_tokens if cfg.family == "vlm" else 0
         #: 0 = unlimited; otherwise at most this many prompts are prefilled
         #: per step(), so a backlog of prompts waits for prefill slots
         #: instead of stalling every decode step behind it
@@ -351,7 +356,7 @@ class ContinuousBatcher:
             self.slot_free[slot] = False
             self.slot_req[slot] = req
             self.slot_tokens[slot] = [first_tok]
-            self.slot_pos[slot] = len(req.prompt_tokens)
+            self.slot_pos[slot] = self.prefix + len(req.prompt_tokens)
             self.slot_started[slot] = time.monotonic()
             self.cur_tokens[slot, 0] = first_tok
 

@@ -36,7 +36,10 @@ tiles; any width) up to the card's shared memory; kernel 1 at whisper's
 (64, 64), causal and not (the encoder's 1,500 frames, the cross prefill's
 12 queries over them), and kernel 2 at head_dim 64 over the cross cache
 (every length 1,500) and at ragged lengths, with a width no kernel is
-built for refused by the wrapper and by the C entry.  Every case carries the ``gpu``
+built for refused by the wrapper and by the C entry; kernel 1 at
+paligemma's d = 256 (G = 8, 64-key tiles) with and without the prefix-LM
+mask, ``prefix_len=0`` bit-equal to the call without it at every width,
+and kernel 2 at d = 256 over phase 15's lengths.  Every case carries the ``gpu``
 marker and skips where there is no CUDA device.  The file imports no JAX,
 so it runs on a machine with the card and no JAX:
 
@@ -860,7 +863,7 @@ def test_flash_kernel_mla_instantiations_do_not_spill(cuda):
         assert lib.repro_flash_kernel_info(w, *(ctypes.byref(v) for v in vals)) == 0
         assert vals[1].value == 0 and vals[3].value >= 1, w
     vals = [ctypes.c_int() for _ in range(4)]
-    assert lib.repro_flash_kernel_info(9, *(ctypes.byref(v) for v in vals)) != 0
+    assert lib.repro_flash_kernel_info(10, *(ctypes.byref(v) for v in vals)) != 0
 
 
 def _long_bert_case(cuda, b, n, d, seed):
@@ -983,4 +986,105 @@ def test_decode_kernel_refuses_unbuilt_widths_at_both_entries(cuda):
             assert getattr(lib, fn)(w, *(ctypes.byref(v) for v in vals)) == 0
             assert vals[1].value == 0 and vals[3].value >= 1, (fn, w)
     vals = [ctypes.c_int() for _ in range(4)]
-    assert lib.repro_decode_kernel_info(8, *(ctypes.byref(v) for v in vals)) != 0
+    assert lib.repro_decode_kernel_info(10, *(ctypes.byref(v) for v in vals)) != 0
+
+
+# -- paligemma's width: kernel 1 at d = 256 with the prefix-LM mask; kernel 2 at 256 -
+
+
+def _prefix_mask_ref(q, k, v, prefix):
+    """The plain version under the prefix-LM mask, or causal at P = 0."""
+    return flash_attention_ref(q, k, v, prefix_len=prefix)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq,prefix", [(12, 0), (12, 256), (268, 0), (268, 256),
+                                       (512, 0), (512, 256), (65, 64), (300, 1)])
+def test_flash_kernel_at_paligemma_width(cuda, sq, prefix):
+    """d = 256 at G = 8 (8 query heads over 1 KV head), 64-key tiles, one
+    consumer warpgroup a block at every Sq: within the gate against the plain version with
+    and without the prefix; a batch row alone gives its bits among others;
+    K and V as views of one fused projection; P = 0 the same bits as the
+    call without it, and the prefix moves only the rows below it."""
+    d, h, kh = 256, 8, 1
+    g = torch.Generator(device=cuda).manual_seed(sq + prefix)
+    q = torch.randn((2, sq, h, d), generator=g, device=cuda).to(torch.bfloat16)
+    kv = torch.randn((2, sq, 2, kh, d), generator=g, device=cuda).to(torch.bfloat16)
+    k, v = kv.unbind(2)
+    got = flash_attention(q, k, v, prefix_len=prefix)
+    assert got.shape == q.shape
+    assert _rowwise_ok(got, _prefix_mask_ref(q, k, v, prefix), 2**-7, 1e-2)
+    alone = flash_attention(q[1:], k[1:].contiguous(), v[1:].contiguous(),
+                            prefix_len=prefix)
+    assert torch.equal(alone, got[1:])
+    plain = flash_attention(q, k, v)
+    if prefix == 0:
+        assert torch.equal(plain, got)
+    else:
+        assert torch.equal(plain[:, prefix:], got[:, prefix:])
+        if min(prefix, sq) > 1:
+            assert not torch.equal(plain[:, : min(prefix, sq) - 1],
+                                   got[:, : min(prefix, sq) - 1])
+    assert torch.equal(flash_attention(q, k, v, prefix_len=prefix), got)
+    full = flash_attention(q, k, v, causal=False)
+    assert _rowwise_ok(full, flash_attention_ref(q, k, v, causal=False), 2**-7, 1e-2)
+    if prefix >= sq:  # a prefix over every row is no mask at all
+        assert torch.equal(full, got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dims", [(128, 128), (112, 112), (96, 64), (64, 64),
+                                  (256, 256)])
+def test_flash_kernel_prefix_zero_is_the_causal_call(cuda, dims):
+    """At every width, ``prefix_len=0`` computes the bits of the call
+    without the argument, at 12 and 200 query rows; a negative prefix is
+    refused."""
+    d, dv = dims
+    g = torch.Generator(device=cuda).manual_seed(d + dv)
+    for sq in (12, 200):
+        q = torch.randn((1, sq, 8, d), generator=g, device=cuda).to(torch.bfloat16)
+        k = torch.randn((1, sq, 2, d), generator=g, device=cuda).to(torch.bfloat16)
+        v = torch.randn((1, sq, 2, dv), generator=g, device=cuda).to(torch.bfloat16)
+        assert torch.equal(flash_attention(q, k, v, prefix_len=0),
+                           flash_attention(q, k, v))
+    with pytest.raises(ValueError):
+        flash_attention(q, k, v, prefix_len=-1)
+
+
+@pytest.mark.gpu
+def test_decode_kernel_at_paligemma_width(cuda):
+    """d = 256 at G = 8 over phase 15's cache (16 slots of 512 rows) at its
+    lengths 268..300 and at the span's edges: within the gate, repeatable,
+    a sequence alone as among the rest; G = 4 (the reduced model's) too;
+    no instantiation of either kernel at d = 256 spills."""
+    import ctypes
+
+    from repro_torch.kernels import _cuda
+
+    d, s = 256, 512
+    gen = torch.Generator(device=cuda).manual_seed(256)
+    main = (268 + 2 * torch.arange(16, device=cuda)).clamp(max=300).to(torch.int32)
+    ragged = torch.tensor([1, s, 11, 45, SPAN - 1, SPAN, SPAN + 1, s - 1, 268, 300,
+                           2 * SPAN, 2 * SPAN + 1, 3, 400, 511, 256],
+                          dtype=torch.int32, device=cuda)
+    for g_heads, kh in ((8, 1), (4, 2)):
+        for lens in (main, ragged):
+            b = lens.numel()
+            q = torch.randn((b, 1, kh * g_heads, d), generator=gen, device=cuda)
+            q = q.to(torch.bfloat16)
+            kc = torch.randn((b, s, kh, d), generator=gen, device=cuda)
+            vc = torch.randn((b, s, kh, d), generator=gen, device=cuda)
+            got = decode_attention(q, kc, vc, lens)
+            assert _rowwise_ok(got, decode_attention_ref(q, kc, vc, lens), 2**-7, 1e-3)
+            assert torch.equal(decode_attention(q, kc, vc, lens), got)
+            for i in (0, 9, b - 1):
+                alone = decode_attention(q[i:i + 1], kc[i:i + 1], vc[i:i + 1],
+                                         lens[i:i + 1])
+                assert torch.equal(alone, got[i:i + 1])
+    lib = _cuda.library()
+    for fn, which in (("repro_decode_kernel_info", (8, 9)),
+                      ("repro_flash_kernel_info", (9,))):
+        for w in which:
+            vals = [ctypes.c_int() for _ in range(4)]
+            assert getattr(lib, fn)(w, *(ctypes.byref(v) for v in vals)) == 0
+            assert vals[1].value == 0 and vals[3].value >= 1, (fn, w)
