@@ -194,6 +194,18 @@ the local engine refusing paligemma.  Phase 1 holds kernel 1 at d = 256,
 8 heads over 1 KV head, with ``prefix_len`` 256 at 268 and 512 tokens and
 causal at 12, and kernel 2 at d = 256, G = 8 at phase 15's lengths; SDPA
 gets K and V expanded to 8 heads and the boolean prefix-LM mask.
+Phase 16, training and checkpoints, runs last and launches no kernel in
+training (the training path reaches none): (a) full-width qwen3-4b with
+f32 master weights made on the card (16 bytes a parameter with the
+gradients and two AdamW moments, ~60 GiB), its training forward in bf16
+over a 16-token prompt against the serving prefill of every prefix on a
+bf16 copy of the weights (kernel 1 exactly 36 times a prefill, the copy
+freed after), then 4 ``make_train_step`` steps of 8 x 64 tokens with
+``remat="full"``: every loss and gradient norm finite, the last loss below
+the first, the step walls, tokens/s, peak memory and the breakdown of a
+further step logged; (b) reduced qwen3-4b in f32 through
+``simulate_training`` with checkpoints in a temporary directory, crashed
+after step 3 and resumed: bit-equal to the uninterrupted run.
 
 Standard output: the card's name and power limit first, then log lines,
 then one ``{"kernels": [...]}`` line, and last the
@@ -3380,7 +3392,7 @@ def moe_layer_gate(torch, params) -> None:
          + 2.0 * torch.randn((cfg.d_model,), generator=g, device="cuda"))
     x = x.to(torch.bfloat16)
     got = moe.moe_block(p, cfg, x)
-    _, mask, keep, _ = moe.route(p, cfg, x)
+    _, _, mask, keep, _ = moe.route(p, cfg, x)
     t0 = time.perf_counter()
     want, nmask, nkeep = moe.moe_block_naive(p, cfg, x)
     torch.cuda.synchronize()
@@ -4487,6 +4499,208 @@ def paligemma_phase(torch) -> dict[str, int]:
     return launches
 
 
+# -- phase 16: training and checkpoints ------------------------------------------
+
+#: phase 16 (a): full-width qwen3-4b trained from f32 master weights made on
+#: the card from ``TRAIN_SEED``: one seeded batch of ``TRAIN_BATCH`` rows x
+#: ``TRAIN_SEQ`` tokens, repeated for ``TRAIN_STEPS`` steps, bf16 compute,
+#: one microbatch (M > 1 would add a 16 GB f32 accumulator), every block
+#: recomputed in the backward pass (``remat="full"``, what the reference
+#: launches at full width), AdamW at a constant ``TRAIN_LR`` without warmup
+TRAIN_SEED = 16
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 64, 4
+TRAIN_REMAT, TRAIN_LR = "full", 1e-4
+#: (a)'s forward check: a prompt of ``TRAIN_PROMPT`` tokens through the
+#: training forward (plain attention, bf16) against the serving prefill of
+#: each of its prefixes (kernel 1) on a bf16 copy of the same weights; every
+#: position's logits within ``TRAIN_FWD_TOL`` of the prompt's largest |logit|
+TRAIN_PROMPT = 16
+TRAIN_FWD_TOL = 2.0**-4
+#: phase 16 (b): reduced qwen3-4b in f32 through ``simulate_training``: the
+#: steps, the step after which the run crashes, the checkpoint period
+CKPT_STEPS, CKPT_CRASH, CKPT_EVERY = 6, 3, 2
+
+
+def _map_tree(fn, tree):
+    return {k: _map_tree(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def train_forward_gate(torch, cfg, masters) -> None:
+    """Phase 16 (a), before training: the training forward over one prompt
+    on the f32 masters (cast to bf16 at each use) against the serving
+    ``prefill`` of every prefix of the prompt on a bf16 copy of them
+    (kernel 1 once a layer a prefill, exactly), the copy freed after."""
+    from repro_torch.models import TransformerLM
+    from repro_torch.models.params import _map_specs, param_specs
+
+    def cast(node, kinds):
+        """Matrices to bf16, as ``init_params`` stores them for serving;
+        the rest (norm scales) shared with the masters."""
+        return {k: cast(v, kinds[k]) if isinstance(v, dict) else
+                (v.to(torch.bfloat16) if kinds[k] == "matrix" else v)
+                for k, v in node.items()}
+
+    serving = cast(masters, _map_specs(lambda path, spec: spec[1], param_specs(cfg)))
+    lm = TransformerLM(cfg, remat="none")
+    g = torch.Generator(device="cuda").manual_seed(TRAIN_SEED)
+    toks = torch.randint(4, cfg.vocab_size, (1, TRAIN_PROMPT), generator=g, device="cuda")
+    zero_counts()
+    with torch.no_grad():
+        train, aux = lm.forward(masters, {"tokens": toks}, dtype=torch.bfloat16)
+        cache = lm.init_cache(1, TRAIN_PROMPT, "cuda")
+        serve = torch.cat([lm.prefill(serving, toks[:, : i + 1], cache, 0)
+                           for i in range(TRAIN_PROMPT)])
+    torch.cuda.synchronize()
+    launches = read_counts()
+    del serving, cache
+    free_cuda(torch)
+    require(launches["flash_attention"] == TRAIN_PROMPT * cfg.n_layers,
+            f"phase 16 (a): {launches['flash_attention']} prefill kernel launches, not "
+            f"{TRAIN_PROMPT} x {cfg.n_layers}")
+    require(bool(torch.isfinite(train).all() and torch.isfinite(serve).all())
+            and float(aux) == 0.0, "phase 16 (a): forward logits hold NaN or inf")
+    require(tuple(train.shape) == (1, TRAIN_PROMPT, cfg.padded_vocab),
+            f"phase 16 (a): forward logits of shape {tuple(train.shape)}")
+    scale = float(serve.abs().max())
+    per_pos = (train[0] - serve).abs().amax(dim=-1) / scale
+    argmax_equal = int((train[0].argmax(-1) == serve.argmax(-1)).sum())
+    require(float(per_pos.max()) <= TRAIN_FWD_TOL,
+            f"phase 16 (a): training forward against the serving prefill "
+            f"{float(per_pos.max()):.4g} of max |logit| > {TRAIN_FWD_TOL}")
+    log(f"phase 16 (a): the training forward (plain attention, bf16 casts of the f32 "
+        f"masters) against {TRAIN_PROMPT} serving prefills (kernel 1, "
+        f"{launches['flash_attention']} launches, stored bf16 weights): worst position "
+        f"{float(per_pos.max()):.4f} of max |logit| {scale:.4g} (gate {TRAIN_FWD_TOL}), "
+        f"mean {float(per_pos.mean()):.4f}; argmax equal at {argmax_equal} of "
+        f"{TRAIN_PROMPT} positions")
+
+
+def train_full_width(torch) -> None:
+    """Phase 16 (a): full-width qwen3-4b (36 layers, d 2,560, tied vocab
+    151,936), f32 masters on the card, the forward gate, then
+    ``TRAIN_STEPS`` steps of ``make_train_step``: every loss and gradient
+    norm finite and the last loss below the first; then the breakdown of
+    a further step (three more steps: a warm-up, one timed, one
+    profiled)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import TransformerLM, init_params
+    from repro_torch.train import OptimizerConfig, TrainConfig, init_opt_state, make_train_step
+
+    cfg = get_config("qwen3-4b")
+    log(f"phase 16: {gib(torch.cuda.memory_allocated())} allocated before the masters")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    masters = init_params(cfg, TRAIN_SEED, device="cuda", dtype=torch.float32)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(masters))
+    log(f"phase 16 (a): f32 masters on the card in {time.perf_counter() - t0:.3f} s: "
+        f"{n_params / 1e9:.4f} B parameters, {gib(4 * n_params)}")
+    train_forward_gate(torch, cfg, masters)
+
+    torch.cuda.reset_peak_memory_stats()
+    opt = init_opt_state(masters)
+    tcfg = TrainConfig(optimizer=OptimizerConfig(learning_rate=TRAIN_LR, warmup_steps=0,
+                                                 schedule="constant"))
+    step = make_train_step(TransformerLM(cfg, remat=TRAIN_REMAT), cfg, tcfg)
+    g = torch.Generator(device="cuda").manual_seed(TRAIN_SEED + 1)
+    toks = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1), generator=g,
+                         device="cuda")
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    losses, norms, walls = [], [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        masters, opt, metrics = step(masters, opt, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated()
+    require(all(math.isfinite(x) for x in losses + norms),
+            f"phase 16 (a): a loss or gradient norm is not finite: {losses}, {norms}")
+    require(int(opt.step) == TRAIN_STEPS, f"phase 16 (a): optimizer step {int(opt.step)}")
+    require(losses[-1] < losses[0],
+            f"phase 16 (a): the loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"phase 16 (a): {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens, remat "
+        f"{TRAIN_REMAT}, bf16 compute, lr {TRAIN_LR}: losses "
+        f"{', '.join(f'{x:.6f}' for x in losses)}; gradient norms "
+        f"{', '.join(f'{x:.4f}' for x in norms)}; step walls "
+        f"{', '.join(f'{1e3 * w:.1f}' for w in walls)} ms ({tokens / walls[-1]:.0f} "
+        f"tokens/s at the last, {tokens * len(walls[1:]) / sum(walls[1:]):.0f} over steps "
+        f"2-{TRAIN_STEPS}); {gib(peak)} peak allocated while training (masters, "
+        f"gradients and two moments: {gib(16 * n_params)})")
+    step_breakdown(torch, f"phase 16 (a) training step ({TRAIN_BATCH} x {TRAIN_SEQ} "
+                   f"tokens, remat {TRAIN_REMAT})", lambda: step(masters, opt, batch),
+                   steps=1)
+    del masters, opt, step, batch, metrics
+
+
+def train_resume(torch) -> None:
+    """Phase 16 (b): reduced qwen3-4b in f32 through ``simulate_training``,
+    checkpoints in a temporary directory: a run crashed after step
+    ``CKPT_CRASH`` and resumed from its latest checkpoint ends bit-equal to
+    the uninterrupted run."""
+    import tempfile
+
+    from repro_torch.ckpt import latest_step
+    from repro_torch.configs import get_config
+    from repro_torch.ft import simulate_training
+    from repro_torch.models import TransformerLM, init_params
+    from repro_torch.train import OptimizerConfig, TrainConfig, init_opt_state, make_train_step
+
+    cfg = get_config("qwen3-4b").reduced()
+    init = init_params(cfg, TRAIN_SEED, device="cuda", dtype=torch.float32)
+    step = make_train_step(TransformerLM(cfg, remat=TRAIN_REMAT), cfg,
+                           TrainConfig(compute_dtype=torch.float32,
+                                       optimizer=OptimizerConfig(warmup_steps=0)))
+    g = torch.Generator(device="cuda").manual_seed(TRAIN_SEED + 2)
+    toks = torch.randint(0, cfg.vocab_size, (CKPT_STEPS, 2, 33), generator=g, device="cuda")
+    batches = [{"tokens": t[:, :-1], "labels": t[:, 1:]} for t in toks]
+
+    def fresh():
+        p = _map_tree(torch.clone, init)
+        return (p, init_opt_state(p))
+
+    def train(state, batch):
+        return step(*state, batch)[:2]
+
+    run = dict(ckpt_every=CKPT_EVERY, family=cfg.family)
+    with tempfile.TemporaryDirectory() as tmp:
+        whole = simulate_training(train, fresh(), batches, ckpt_dir=f"{tmp}/a", **run)
+        crashed = simulate_training(train, fresh(), batches, ckpt_dir=f"{tmp}/b",
+                                    crash_at_step=CKPT_CRASH, **run)
+        resumed_from = latest_step(f"{tmp}/b")
+        resumed = simulate_training(train, fresh(), batches, ckpt_dir=f"{tmp}/b", **run)
+    require(crashed is None and resumed_from == CKPT_CRASH - CKPT_CRASH % CKPT_EVERY,
+            f"phase 16 (b): the crashed run left step {resumed_from}")
+    pairs = list(zip(_leaves(whole[0]), _leaves(resumed[0])))
+    pairs += list(zip(_leaves(whole[1].mu), _leaves(resumed[1].mu)))
+    pairs += list(zip(_leaves(whole[1].nu), _leaves(resumed[1].nu)))
+    differ = sum(not torch.equal(a, b) for a, b in pairs)
+    require(int(resumed[1].step) == int(whole[1].step) == CKPT_STEPS,
+            f"phase 16 (b): steps {int(resumed[1].step)}, {int(whole[1].step)}")
+    require(differ == 0, f"phase 16 (b): {differ} of {len(pairs)} leaves of the resumed "
+            f"run differ from the uninterrupted run's")
+    log(f"phase 16 (b): reduced qwen3-4b, {CKPT_STEPS} f32 steps, a checkpoint every "
+        f"{CKPT_EVERY}: crashed after step {CKPT_CRASH}, resumed from step "
+        f"{resumed_from}; all {len(pairs)} leaves (parameters, moments) bit-equal to "
+        f"the uninterrupted run's (deterministic algorithms "
+        f"{'on' if torch.are_deterministic_algorithms_enabled() else 'off'})")
+
+
+def training_phase(torch) -> None:
+    """Phase 16, the training slice, last (after phase 15 has freed its
+    weights): (a) full-width qwen3-4b trained on the card; (b) a crash and
+    a resume through ``simulate_training``."""
+    t0 = time.perf_counter()
+    train_full_width(torch)
+    free_cuda(torch)
+    t1 = time.perf_counter()
+    train_resume(torch)
+    log(f"phase 16 walls: (a) {t1 - t0:.1f} s, (b) {time.perf_counter() - t1:.1f} s")
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -4548,6 +4762,7 @@ def main() -> int:
         mla = timed("phase 13", minicpm_phase, torch, fs)
         whisper = timed("phase 14", whisper_phase, torch)
         pali = timed("phase 15", paligemma_phase, torch)
+        timed("phase 16", training_phase, torch)
     except CheckFailed as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -4583,7 +4798,7 @@ def main() -> int:
                 print(f"chip_smoke: FAIL: {e['name']} {key} = {e[key]}",
                       file=sys.stderr)
                 return 1
-    log(f"phases 1-15 took {time.perf_counter() - t_start:.1f} s after the build")
+    log(f"phases 1-16 took {time.perf_counter() - t_start:.1f} s after the build")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -48,6 +48,7 @@ class ModelConfig:
     moe_d_ff: int = 0           # per-expert hidden
     first_k_dense: int = 0      # leading dense layers (deepseek-v2)
     dense_d_ff: int = 0         # hidden of those dense layers
+    router_aux_weight: float = 0.001  # the Switch aux loss's weight in training
     capacity_factor: float = 1.25
 
     # --- SSM (Mamba2 SSD) ----------------------------------------------------

@@ -1,5 +1,5 @@
-"""Fault-tolerant shard execution and failure injection (the ported part of
-``repro/ft/``; ``simulate_training`` waits for the training slice)."""
+"""Fault-tolerant shard execution and failure injection (the port of
+``repro/ft/``)."""
 
 from repro_torch.ft.failure_sim import (
     SERVING_FAULT_KINDS,
@@ -9,6 +9,7 @@ from repro_torch.ft.failure_sim import (
     ServingFault,
     ServingFaultSchedule,
     SimulatedCrash,
+    simulate_training,
 )
 from repro_torch.ft.workers import PoolStats, ShardResult, WorkerPool
 
@@ -23,4 +24,5 @@ __all__ = [
     "ShardResult",
     "SimulatedCrash",
     "WorkerPool",
+    "simulate_training",
 ]

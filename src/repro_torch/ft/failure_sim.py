@@ -1,5 +1,4 @@
-"""Deterministic failure injection (the port of ``repro/ft/failure_sim.py``
-but for ``simulate_training``, which waits for the training slice):
+"""Deterministic failure injection (the port of ``repro/ft/failure_sim.py``):
 
 * :class:`FlakyFn` wraps a shard function with faults scheduled by (shard
   index, attempt);
@@ -9,7 +8,10 @@ but for ``simulate_training``, which waits for the training slice):
 * :class:`ServingFaultSchedule` plans serving faults by (replica, engine
   step): a replica crash, a hang, page pressure or a slow step, polled by
   the simulated slot engine every pump and by the continuous batcher every
-  step (``as_hook``).
+  step (``as_hook``);
+* :func:`simulate_training` runs a training loop with checkpoints and can
+  stop it at a step, as a crashed process would, to be resumed from the
+  latest checkpoint.
 """
 
 from __future__ import annotations
@@ -207,3 +209,48 @@ class ServingFaultSchedule:
             return fault.kind
 
         return hook
+
+
+def simulate_training(
+    train_step: Callable,
+    init_state: Any,
+    batches: list[Any],
+    *,
+    ckpt_dir: str,
+    crash_at_step: int | None = None,
+    ckpt_every: int = 2,
+    family: str | None = None,
+) -> Any:
+    """Run ``state = train_step(state, batch)`` over ``batches``, saving a
+    checkpoint after every ``ckpt_every``-th step; with ``crash_at_step``
+    return None once that many steps are done (a simulated node death,
+    leaving the checkpoints as committed).  A call over a ``ckpt_dir``
+    that holds checkpoints resumes from the latest, restored into
+    ``init_state``'s structure, dtypes and devices.  ``family`` (the model
+    config's) names a model's ``(params, AdamWState)`` state as the
+    reference does (see :mod:`repro_torch.ckpt.checkpoint`), so either
+    side resumes from the other's checkpoints.
+
+    The port's ``train_step`` updates its state in place, so the state
+    passed in is the run's working state: give each run a fresh one."""
+    from repro_torch.ckpt.checkpoint import (
+        latest_step,
+        restore_checkpoint,
+        save_checkpoint,
+    )
+
+    start = 0
+    state = init_state
+    last = latest_step(ckpt_dir)
+    if last is not None:
+        state, _ = restore_checkpoint(ckpt_dir, last, template=init_state, family=family)
+        start = last
+    for step in range(start, len(batches)):
+        state = train_step(state, batches[step])
+        done = step + 1
+        if done % ckpt_every == 0:
+            if latest_step(ckpt_dir) != done:
+                save_checkpoint(ckpt_dir, done, state, family=family)
+        if crash_at_step is not None and done >= crash_at_step:
+            return None  # simulated node death
+    return state

@@ -26,6 +26,14 @@ writes only the fresh pages; paged decode stores each slot's new f32 row
 and attends through the page tables.  On the int8 pool the token attends
 to its own K/V at full precision, and only then is its write page
 requantized, from its valid rows, as the reference does.
+
+Training runs none of the kernels (they have no backward): its
+differentiable full-sequence attention is :func:`naive_attention`, the
+reference's ``naive_attention`` in plain torch under
+:func:`make_causal_mask`, at every length (where the reference's training
+takes its chunked path from 512 tokens on), through :func:`gqa_full`
+(self-attention, causal or not, the prefix-LM mask, cross-attention over
+given K/V) and :func:`mla_full` (MLA decompressed).
 """
 
 from __future__ import annotations
@@ -49,6 +57,42 @@ from repro_torch.models import layers
 
 #: RoPE's (cos, sin) tables, or None where the model has no rotary positions
 Rope = tuple[torch.Tensor, torch.Tensor] | None
+
+
+def make_causal_mask(sq: int, sk: int, prefix_len: int = 0, q_offset: int = 0,
+                     device: torch.device | str | None = None) -> torch.Tensor:
+    """(Sq, Sk) bool: query ``i`` at position ``q_offset + i`` sees key ``j``
+    where ``j <= q_offset + i``, or where both lie in the first
+    ``prefix_len`` positions (the prefix-LM mask)."""
+    q_pos = torch.arange(sq, device=device)[:, None] + q_offset
+    k_pos = torch.arange(sk, device=device)[None, :]
+    visible = q_pos >= k_pos
+    if prefix_len:
+        visible = visible | ((q_pos < prefix_len) & (k_pos < prefix_len))
+    return visible
+
+
+def naive_attention(
+    q: torch.Tensor,            # (B, Sq, H, dh)
+    k: torch.Tensor,            # (B, Sk, K, dh)
+    v: torch.Tensor,            # (B, Sk, K, dv)
+    mask: torch.Tensor | None,  # broadcastable to (B, K, G, Sq, Sk)
+    scale: float,
+) -> torch.Tensor:
+    """Grouped attention over the whole score matrix, differentiable: the
+    scores in f32, masked to ``NEG_INF``, softmaxed, the probabilities cast
+    to v's dtype for the product with v, the output in q's dtype, as the
+    reference's ``naive_attention``.  Query head ``h`` reads KV head ``h //
+    G``."""
+    b, sq, h, dh = q.shape
+    kheads = k.shape[2]
+    qg = q.reshape(b, sq, kheads, h // kheads, dh)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * scale
+    if mask is not None:
+        scores = scores.masked_fill(~mask, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype), v)
+    return out.reshape(b, sq, h, -1).to(q.dtype)
 
 
 def gqa_project_q(p: dict, cfg: ModelConfig, x: torch.Tensor, rope: Rope) -> torch.Tensor:
@@ -91,6 +135,28 @@ def gqa_prefill(
     k_cache[slot, :s] = k[0]
     v_cache[slot, :s] = v[0]
     out = flash_attention_bshd(q, k, v, prefix_len=prefix_len)
+    return layers.dense(p["wo"], out.reshape(b, s, -1))
+
+
+def gqa_full(
+    p: dict,
+    cfg: ModelConfig,
+    x: torch.Tensor,   # (B, S, D)
+    rope: Rope,
+    *,
+    causal: bool = True,
+    prefix_len: int = 0,
+    kv: tuple[torch.Tensor, torch.Tensor] | None = None,
+) -> torch.Tensor:
+    """Full-sequence attention for training (the reference's ``gqa_full``
+    with ``impl="naive"``): self-attention over ``x``, causal (under the
+    prefix-LM mask where ``prefix_len`` > 0) or not, or cross-attention
+    over the given ``kv``; differentiable, no kernel."""
+    b, s, _ = x.shape
+    q = gqa_project_q(p, cfg, x, rope)
+    k, v = gqa_project_kv(p, cfg, x, rope) if kv is None else kv
+    mask = make_causal_mask(s, k.shape[1], prefix_len, device=x.device) if causal else None
+    out = naive_attention(q, k, v, mask, cfg.head_dim**-0.5)
     return layers.dense(p["wo"], out.reshape(b, s, -1))
 
 
@@ -331,6 +397,22 @@ def _mla_q_parts(p: dict, cfg: ModelConfig, x: torch.Tensor,
     return q_nope, layers.apply_rope(q_rope, *rope)
 
 
+def _mla_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor,
+             rope: tuple[torch.Tensor, torch.Tensor]):
+    """MLA's decompressed Q (B, S, H, nope + rope), K (each head's
+    ``k_nope`` with the shared rope key after it) and V (B, S, H, dv), and
+    the latent and rope key they came from."""
+    b, s, _ = x.shape
+    h, nope, dv = cfg.n_heads, cfg.qk_nope_head_dim, cfg.v_head_dim
+    q_nope, q_rope = _mla_q_parts(p, cfg, x, rope)
+    c_kv, k_rope = mla_ckv(p, cfg, x, rope)
+    k_nope, v = layers.dense(p["wkv_b"], c_kv).view(b, s, h, nope + dv).split(
+        [nope, dv], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, -1)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    return q, k, v, c_kv, k_rope
+
+
 def mla_prefill(
     p: dict,
     cfg: ModelConfig,
@@ -347,16 +429,29 @@ def mla_prefill(
     of width ``v_head_dim``, at scale ``(nope + rope) ** -0.5``.  The
     latent and the rope key go to rows ``0 .. S`` of ``slot``, in place."""
     b, s, _ = x.shape
-    h, nope, dv = cfg.n_heads, cfg.qk_nope_head_dim, cfg.v_head_dim
-    q_nope, q_rope = _mla_q_parts(p, cfg, x, rope)
-    c_kv, k_rope = mla_ckv(p, cfg, x, rope)
+    q, k, v, c_kv, k_rope = _mla_qkv(p, cfg, x, rope)
     c_cache[slot, :s] = c_kv[0]
     r_cache[slot, :s] = k_rope[0]
-    k_nope, v = layers.dense(p["wkv_b"], c_kv).view(b, s, h, nope + dv).split(
-        [nope, dv], dim=-1)
-    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, -1)], dim=-1)
-    q = torch.cat([q_nope, q_rope], dim=-1)
     out = flash_attention_bshd(q, k, v)
+    return layers.dense(p["wo"], out.reshape(b, s, -1))
+
+
+def mla_full(
+    p: dict,
+    cfg: ModelConfig,
+    x: torch.Tensor,  # (B, S, D)
+    rope: tuple[torch.Tensor, torch.Tensor],
+    *,
+    causal: bool = True,
+) -> torch.Tensor:
+    """MLA over the whole sequence for training, decompressed as in
+    :func:`mla_prefill` (the reference's ``mla_full`` with
+    ``impl="naive"``), through :func:`naive_attention`: differentiable, no
+    kernel."""
+    b, s, _ = x.shape
+    q, k, v, _, _ = _mla_qkv(p, cfg, x, rope)
+    mask = make_causal_mask(s, s, device=x.device) if causal else None
+    out = naive_attention(q, k, v, mask, (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5)
     return layers.dense(p["wo"], out.reshape(b, s, -1))
 
 

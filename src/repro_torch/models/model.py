@@ -16,11 +16,22 @@ the reference); the enc-dec's :class:`EncDecCache` pairs a self
 serving caches are.  Caches are updated in place: the
 reference returns a new cache from each call, the port writes the rows it
 produces into the one it was given.
+
+Every family also has the training path of the reference, ``forward(params,
+batch, *, dtype)`` -> ``(logits_f32, aux)`` over the whole sequence:
+differentiable plain torch (:func:`attention.naive_attention`,
+:func:`ssm.mamba2_full`), no kernel, each block under the model's remat
+policy (the constructor's ``remat``, as in the reference; see
+:func:`remat_block`).  It casts the parameters to the compute dtype at each
+use, so the f32 masters of training and the stored bf16 serving weights
+give the same products.  A stacked leaf may also be given as the list of
+its per-layer slices (what ``train.step`` differentiates).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -103,8 +114,54 @@ class PageTables:
 
 
 def _block(p: dict, i: int) -> dict:
-    """Layer ``i``'s slice of the stacked parameter tree."""
+    """Layer ``i``'s slice of the stacked parameter tree (a stacked tensor,
+    or the list of its per-layer slices)."""
     return {k: _block(v, i) if isinstance(v, dict) else v[i] for k, v in p.items()}
+
+
+#: the remat policies of the reference's ``_remat``
+REMAT_POLICIES = ("none", "full", "dots")
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``dots``: keep the outputs of plain matrix products (every dense
+    projection, the router, the unbatched SSD products) and recompute the
+    rest, batched products included (attention's and the experts'), as
+    ``dots_with_no_batch_dims_saveable`` keeps them."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _check_remat(policy: str) -> None:
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {policy!r}")
+
+
+def remat_block(fn, policy: str):
+    """``fn`` under the reference's remat ``policy``: ``none`` keeps every
+    activation, ``full`` recomputes the whole block in the backward pass
+    (``torch.utils.checkpoint``, not reentrant), ``dots`` recomputes all
+    but the plain matrix products (a selective checkpoint).  No policy
+    changes a value."""
+    _check_remat(policy)
+    if policy == "none":
+        return fn
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                             _dots_policy)
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False,
+                                    preserve_rng_state=False, **kw)
+
+
+def _zero(x: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 class TransformerLM:
@@ -125,10 +182,12 @@ class TransformerLM:
     multiplied by ``sqrt(d_model)`` rounded to the compute dtype first, as
     the reference does.  A VLM neither pages nor takes a suffix prefill."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, *, remat: str = "dots"):
         if cfg.family == "vlm" and cfg.n_vision_tokens <= 0:
             raise ValueError(f"{cfg.name}: the vlm family needs n_vision_tokens > 0")
+        _check_remat(remat)
         self.cfg = cfg
+        self.remat = remat
 
     @staticmethod
     def _layers(params: dict):
@@ -136,9 +195,56 @@ class TransformerLM:
         i = 0
         for key in ("layers", "moe_layers"):
             stack = params.get(key)
-            for j in range(0 if stack is None else stack["ln1"].shape[0]):
+            for j in range(0 if stack is None else len(stack["ln1"])):
                 yield i, _block(stack, j)
                 i += 1
+
+    def _train_block(self, p: dict, x: torch.Tensor, rope, prefix_len: int):
+        """One block over the whole sequence: (x, its MoE aux loss, 0 for
+        a dense block)."""
+        cfg = self.cfg
+        h = layers.rms_norm(p["ln1"], x, cfg.norm_eps)
+        if cfg.use_mla:
+            a = attn.mla_full(p["attn"], cfg, h, rope)
+        else:
+            a = attn.gqa_full(p["attn"], cfg, h, rope, prefix_len=prefix_len)
+        x = x + a
+        h = layers.rms_norm(p["ln2"], x, cfg.norm_eps)
+        if "moe" in p:
+            y, aux = moe.moe_block(p["moe"], cfg, h, return_aux=True)
+        else:
+            y, aux = layers.gated_mlp(p["mlp"], h, cfg.act), _zero(x)
+        return x + y, aux
+
+    def forward(
+        self,
+        params: dict,
+        batch: dict,
+        *,
+        dtype: torch.dtype = torch.bfloat16,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The training forward (the reference's ``TransformerLM.forward``)
+        over ``batch["tokens"]`` (B, S), after a VLM's ``batch["patches"]``
+        (B, n_vision_tokens, d_model) under the prefix-LM mask: returns the
+        f32 logits over every position, (B, P + S, Vp), and the sum of the
+        MoE layers' Switch aux losses (0 without experts)."""
+        cfg = self.cfg
+        x = self._embed(params, batch["tokens"], dtype)
+        prefix = 0
+        if cfg.family == "vlm":
+            patches = batch["patches"]
+            x = torch.cat([patches.to(device=x.device, dtype=dtype), x], dim=1)
+            prefix = patches.shape[1]
+        rope = self._rope(torch.arange(x.shape[1], device=x.device)[None, :])
+        body = remat_block(functools.partial(self._train_block, rope=rope,
+                                             prefix_len=prefix),
+                           self.remat)
+        aux = _zero(x)
+        for _, p in self._layers(params):
+            x, a = body(p, x)
+            aux = aux + a
+        x = layers.rms_norm(params["final_norm"], x, cfg.norm_eps)
+        return self._logits(params, x, dtype), aux
 
     def _mlp(self, p: dict, h: torch.Tensor) -> torch.Tensor:
         if "moe" in p:
@@ -338,8 +444,31 @@ class MambaLM:
     per layer and the tied unembedding.  Its cache is an :class:`SSMCache`,
     O(1) in the sequence length, so ``max_len`` sizes nothing."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, *, remat: str = "dots"):
+        _check_remat(remat)
         self.cfg = cfg
+        self.remat = remat
+
+    def forward(
+        self,
+        params: dict,
+        batch: dict,
+        *,
+        dtype: torch.dtype = torch.bfloat16,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The training forward (the reference's ``MambaLM.forward``): f32
+        logits over every position of ``batch["tokens"]`` and an aux loss
+        of 0."""
+        cfg = self.cfg
+        x = layers.embed(params["embed"], batch["tokens"], dtype)
+        body = remat_block(
+            lambda p, h: h + ssm.mamba2_full(p["mixer"], cfg,
+                                             layers.rms_norm(p["ln"], h, cfg.norm_eps)),
+            self.remat)
+        for i in range(cfg.n_layers):
+            x = body(_block(params["layers"], i), x)
+        x = layers.rms_norm(params["final_norm"], x, cfg.norm_eps)
+        return layers.unembed(params["embed"], x, dtype), _zero(x)
 
     def init_cache(
         self, n_slots: int, max_len: int, device: torch.device | str
@@ -414,11 +543,13 @@ class HybridLM:
     unembeds.  Its cache is a :class:`HybridCache`: a KV cache per
     application and the Mamba2 state of every layer."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, *, remat: str = "dots"):
         if cfg.shared_attn_every <= 0 or cfg.n_heads <= 0:
             raise ValueError(f"{cfg.name}: the hybrid family needs attention heads "
                              f"and shared_attn_every > 0")
+        _check_remat(remat)
         self.cfg = cfg
+        self.remat = remat
         self.k = cfg.shared_attn_every
         self.g = cfg.n_layers // self.k
 
@@ -462,9 +593,44 @@ class HybridLM:
             x = self.shared_block(params, gi, x,
                                   lambda p, h, gi=gi: attend(gi, p, h))
         tail = params.get("tail")
-        for ti in range(0 if tail is None else tail["ln"].shape[0]):
+        for ti in range(0 if tail is None else len(tail["ln"])):
             x = block(self.g * self.k + ti, _block(tail, ti), x)
         return x
+
+    def forward(
+        self,
+        params: dict,
+        batch: dict,
+        *,
+        dtype: torch.dtype = torch.bfloat16,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The training forward (the reference's ``HybridLM.forward``): the
+        Mamba2 blocks and the shared block's applications in serving's
+        order, each under the remat policy; f32 logits over every position
+        and an aux loss of 0."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        rope = layers.rope_cos_sin(torch.arange(tokens.shape[1], device=tokens.device)[None, :],
+                                   cfg.head_dim, cfg.rope_theta)
+        mamba = remat_block(
+            lambda p, h: h + ssm.mamba2_full(p["mixer"], cfg,
+                                             layers.rms_norm(p["ln"], h, cfg.norm_eps)),
+            self.remat)
+        shared = remat_block(
+            lambda g, h: self.shared_block(
+                params, g, h, lambda p, hh: attn.gqa_full(p, cfg, hh, rope)),
+            self.remat)
+        x = layers.embed(params["embed"], tokens, dtype)
+        for gi in range(self.g):
+            group = _block(params["groups"], gi)
+            for ki in range(self.k):
+                x = mamba(_block(group, ki), x)
+            x = shared(gi, x)
+        tail = params.get("tail")
+        for ti in range(0 if tail is None else len(tail["ln"])):
+            x = mamba(_block(tail, ti), x)
+        x = layers.rms_norm(params["final_norm"], x, cfg.norm_eps)
+        return layers.unembed(params["embed"], x, dtype), _zero(x)
 
     def prefill(
         self,
@@ -561,10 +727,12 @@ class EncDecLM:
     rows ``0 .. S``; its decode step attends over the self rows up to each
     slot's position and over every cross row."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, *, remat: str = "dots"):
         if cfg.pos_emb != "learned":
             raise ValueError(f"{cfg.name}: the enc-dec family has learned positions")
+        _check_remat(remat)
         self.cfg = cfg
+        self.remat = remat
 
     def init_cache(
         self, n_slots: int, max_len: int, device: torch.device | str
@@ -599,6 +767,51 @@ class EncDecLM:
             h = layers.layer_norm(p["ln2"], x, cfg.norm_eps)
             x = x + layers.mlp(p["mlp"], h, cfg.act)
         return layers.layer_norm(params["enc_norm"], x, cfg.norm_eps)
+
+    def forward(
+        self,
+        params: dict,
+        batch: dict,
+        *,
+        dtype: torch.dtype = torch.bfloat16,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The training forward (the reference's ``EncDecLM.forward``): the
+        encoder over ``batch["frames"]`` (B, T, d_model) plus the learned
+        positions, then the decoder over ``batch["tokens"]`` (B, S) with
+        cross-attention over the encoder's output; every block under the
+        remat policy.  f32 logits over every position and an aux loss of
+        0."""
+        cfg = self.cfg
+        frames, tokens = batch["frames"], batch["tokens"]
+
+        def enc_block(p, h):
+            h = h + attn.gqa_full(p["attn"], cfg, layers.layer_norm(p["ln1"], h, cfg.norm_eps),
+                                  None, causal=False)
+            return h + layers.mlp(p["mlp"], layers.layer_norm(p["ln2"], h, cfg.norm_eps),
+                                  cfg.act)
+
+        def dec_block(p, h, enc_out):
+            h = h + attn.gqa_full(p["attn"], cfg, layers.layer_norm(p["ln1"], h, cfg.norm_eps),
+                                  None)
+            kv = attn.gqa_project_kv(p["cross"], cfg, enc_out, None)
+            h = h + attn.gqa_full(p["cross"], cfg,
+                                  layers.layer_norm(p["ln_cross"], h, cfg.norm_eps), None,
+                                  causal=False, kv=kv)
+            return h + layers.mlp(p["mlp"], layers.layer_norm(p["ln2"], h, cfg.norm_eps),
+                                  cfg.act)
+
+        x = frames.to(dtype) + params["enc_pos"][: frames.shape[1]].to(dtype)
+        body = remat_block(enc_block, self.remat)
+        for i in range(cfg.n_encoder_layers):
+            x = body(_block(params["encoder"], i), x)
+        enc_out = layers.layer_norm(params["enc_norm"], x, cfg.norm_eps)
+        x = (layers.embed(params["embed"], tokens, dtype)
+             + params["dec_pos"][: tokens.shape[1]].to(dtype))
+        body = remat_block(dec_block, self.remat)
+        for i in range(cfg.n_layers):
+            x = body(_block(params["decoder"], i), x, enc_out)
+        x = layers.layer_norm(params["final_norm"], x, cfg.norm_eps)
+        return layers.unembed(params["embed"], x, dtype), _zero(x)
 
     def prefill(
         self,
@@ -668,16 +881,19 @@ class EncDecLM:
         return layers.unembed(params["embed"], x, dtype)[:, 0]
 
 
-def build_model(cfg: ModelConfig) -> TransformerLM | MambaLM | HybridLM | EncDecLM:
+def build_model(
+    cfg: ModelConfig, *, remat: str = "dots"
+) -> TransformerLM | MambaLM | HybridLM | EncDecLM:
     """The model of ``cfg.family``, as the reference's ``build_model``
     picks it, for the families the port serves (dense and MoE with GQA or
-    MLA attention, SSM, hybrid, enc-dec, VLM)."""
+    MLA attention, SSM, hybrid, enc-dec, VLM); ``remat`` is its training
+    forward's policy."""
     if cfg.family in ("dense", "moe", "vlm"):
-        return TransformerLM(cfg)
+        return TransformerLM(cfg, remat=remat)
     if cfg.family == "ssm":
-        return MambaLM(cfg)
+        return MambaLM(cfg, remat=remat)
     if cfg.family == "hybrid":
-        return HybridLM(cfg)
+        return HybridLM(cfg, remat=remat)
     if cfg.family == "encdec":
-        return EncDecLM(cfg)
+        return EncDecLM(cfg, remat=remat)
     raise ValueError(f"the port does not serve the {cfg.family!r} family yet")

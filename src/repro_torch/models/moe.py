@@ -1,6 +1,8 @@
-"""Mixture-of-Experts layer, the serving half of ``repro/models/moe.py``:
-token-choice top-k routing with capacity dropping (GShard), and shared
-experts.  The Switch aux loss serves training only and is not ported yet.
+"""Mixture-of-Experts layer (``repro/models/moe.py``): token-choice top-k
+routing with capacity dropping (GShard), shared experts, and the Switch
+load-balancing loss, which :func:`moe_block` computes only when the
+training forward asks for it (``return_aux=True``): serving never pays for
+it.
 
 Dispatch and combine go through fixed-shape buffers, as in the reference:
 one-hot ``(B, S, E, C)`` tensors contracted with the tokens, experts as
@@ -39,20 +41,25 @@ def top_k_mask(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]
     return weights, mask
 
 
+def router_probs(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """Router logits and softmax in f32 from the f32 router, (B, S, E)."""
+    return torch.softmax(x.float() @ p["router"].float(), dim=-1)
+
+
 def route(
     p: dict, cfg: ModelConfig, x: torch.Tensor
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Router logits and softmax in f32 from the f32 router, the top-k
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The router's probabilities (:func:`router_probs`), the top-k
     threshold, and each token's place in its experts' queues (a cumsum over
-    the sequence, per batch row).  Returns (weights, mask, keep, slot),
-    each (B, S, E): ``keep`` is the mask less the tokens past the capacity,
-    ``slot`` a kept token's place in its expert's queue counted from 1, and
-    0 where the token is not kept."""
-    probs = torch.softmax(x.float() @ p["router"].float(), dim=-1)
+    the sequence, per batch row).  Returns (probs, weights, mask, keep,
+    slot), each (B, S, E): ``keep`` is the mask less the tokens past the
+    capacity, ``slot`` a kept token's place in its expert's queue counted
+    from 1, and 0 where the token is not kept."""
+    probs = router_probs(p, x)
     weights, mask = top_k_mask(probs, cfg.n_experts_per_token)
     place = torch.cumsum(mask, dim=1, dtype=torch.int32)
     keep = mask & (place <= expert_capacity(cfg, x.shape[1]))
-    return weights, mask, keep, torch.where(keep, place, 0)
+    return probs, weights, mask, keep, torch.where(keep, place, 0)
 
 
 def experts(p: dict, xin: torch.Tensor) -> torch.Tensor:
@@ -63,13 +70,26 @@ def experts(p: dict, xin: torch.Tensor) -> torch.Tensor:
     return torch.bmm(h, p["wo"].to(xin.dtype))
 
 
-def moe_block(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def switch_aux(probs: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The Switch load-balancing loss in f32: ``E * sum_e frac_tokens[e] *
+    frac_probs[e]``, each fraction a mean over the batch and the sequence
+    (``repro/models/moe.py:94-98``)."""
+    frac_tokens = mask.float().mean(dim=(0, 1))
+    frac_probs = probs.mean(dim=(0, 1))
+    return probs.shape[-1] * (frac_tokens * frac_probs).sum()
+
+
+def moe_block(
+    p: dict, cfg: ModelConfig, x: torch.Tensor, *, return_aux: bool = False
+) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
     """Routed experts (plus the shared experts) over ``x`` (B, S, D), in x's
-    dtype; dropped tokens get 0 here and fall through on the residual."""
+    dtype; dropped tokens get 0 here and fall through on the residual.
+    With ``return_aux`` returns (out, the Switch aux loss), as the
+    reference's ``moe_block`` does."""
     b, s, d = x.shape
     e = cfg.n_experts
     c = min(expert_capacity(cfg, s), s)
-    weights, _, _, slot = route(p, cfg, x)
+    probs, weights, mask, _, slot = route(p, cfg, x)
     slot_oh = slot[..., None] == torch.arange(1, c + 1, device=x.device)  # (B,S,E,C)
     # dispatch: one nonzero term a slot, so exact in any dtype
     expert_in = torch.bmm(slot_oh.to(x.dtype).view(b, s, e * c).transpose(1, 2), x)
@@ -82,7 +102,7 @@ def moe_block(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     out = torch.bmm(combine, expert_out.view(b, e * c, d)).to(x.dtype)
     if "shared" in p:
         out = out + layers.gated_mlp(p["shared"], x, cfg.act)
-    return out
+    return (out, switch_aux(probs, mask)) if return_aux else out
 
 
 def moe_block_naive(
@@ -97,7 +117,7 @@ def moe_block_naive(
     f32, mask, keep)."""
     b, s, d = x.shape
     k, cap = cfg.n_experts_per_token, expert_capacity(cfg, s)
-    probs = torch.softmax(x.float() @ p["router"].float(), dim=-1).cpu()
+    probs = router_probs(p, x).cpu()
     mask = torch.zeros(probs.shape, dtype=torch.bool)
     keep = torch.zeros(probs.shape, dtype=torch.bool)
     out = torch.zeros((b, s, d), dtype=torch.float32, device=x.device)

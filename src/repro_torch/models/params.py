@@ -44,6 +44,14 @@ Spec = tuple[tuple[int, ...], str]
 #: GiB); a larger one draws a slice of its leading axis at a time
 WHOLE_DRAW = 2**31
 
+#: the top-level keys whose leaves carry a layer axis first, as the specs
+#: below lay them out: the transformer's ``layers`` and ``moe_layers``,
+#: Mamba2's ``layers``, the hybrid's ``groups``, ``tail`` and per-group
+#: ``app_norms``, the enc-dec's ``encoder`` and ``decoder``; every other
+#: top-level key holds one unstacked leaf or block
+STACKED = frozenset({"layers", "moe_layers", "groups", "tail", "app_norms",
+                     "encoder", "decoder"})
+
 
 def _mlp_specs(lead: tuple[int, ...], d: int, f: int) -> dict[str, Spec]:
     return {"wi": ((*lead, d, f), "matrix"), "wg": ((*lead, d, f), "matrix"),

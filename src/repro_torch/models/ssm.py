@@ -2,7 +2,8 @@
 ``repro/models/ssm.py``.
 
 Prefill runs the chunked SSD scan (the hand-written kernel on the card,
-:func:`ssd_chunked` on the CPU); decode is the O(1) recurrent step on a
+:func:`ssd_chunked` on the CPU); training's :func:`mamba2_full` runs
+:func:`ssd_chunked` everywhere, since the kernel has no backward; decode is the O(1) recurrent step on a
 (B, H, P, N) state, in plain PyTorch.  B and C stay per group, (B, L, G,
 N), all the way into the scan: head ``h`` reads group ``h // (H / G)``,
 which is what the reference's ``jnp.repeat`` over heads computes without
@@ -181,15 +182,9 @@ def _dt_a(p: dict, dt_raw: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return dt, -torch.exp(p["A_log"].float())
 
 
-def mamba2_prefill(
-    p: dict,
-    cfg: ModelConfig,
-    x: torch.Tensor,      # (1, L, D) one prompt
-    conv: torch.Tensor,   # (K-1, C) the slot's conv window, written in place
-    state: torch.Tensor,  # (H, P, N) the slot's SSD state, written in place
-) -> torch.Tensor:
-    """Full-sequence block of one prompt; leaves the trailing conv window
-    and the final SSD state in the slot so decoding continues from L."""
+def _mixer(p: dict, cfg: ModelConfig, x: torch.Tensor, scan):
+    """The block's arithmetic around the SSD scan ``scan(x, dt, a, B, C)``:
+    returns (out, xBC before the conv, the final state)."""
     bsz, slen, _ = x.shape
     z = layers.dense(p["wz"], x)
     xbc_raw = layers.dense(p["wxBC"], x)
@@ -199,11 +194,35 @@ def mamba2_prefill(
     x_h, b_g, c_g = _to_heads(cfg, *_split_xbc(cfg, xbc))
     dt, a = _dt_a(p, dt_raw)
 
-    y, final_state = ssd_apply(x_h, dt, a, b_g, c_g, chunk=cfg.ssm_chunk)
+    y, final_state = scan(x_h, dt, a, b_g, c_g)
     y = y + p["D"].to(y.dtype)[None, None, :, None] * x_h
     y = y.reshape(bsz, slen, cfg.d_inner)
     y = layers.rms_norm(p["norm"], y * F.silu(z), cfg.norm_eps)
-    out = layers.dense(p["out_proj"], y)
+    return layers.dense(p["out_proj"], y), xbc_raw, final_state
+
+
+def mamba2_full(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Full-sequence block for training (the reference's ``mamba2_full``),
+    (B, L, D) -> (B, L, D): differentiable, through the plain
+    :func:`ssd_chunked` at ``cfg.ssm_chunk`` (a ragged last chunk padded
+    with ``dt = 0``, where the reference refuses the length), never the
+    kernel."""
+    out, _, _ = _mixer(p, cfg, x, lambda *a: ssd_chunked(*a, chunk=cfg.ssm_chunk))
+    return out
+
+
+def mamba2_prefill(
+    p: dict,
+    cfg: ModelConfig,
+    x: torch.Tensor,      # (1, L, D) one prompt
+    conv: torch.Tensor,   # (K-1, C) the slot's conv window, written in place
+    state: torch.Tensor,  # (H, P, N) the slot's SSD state, written in place
+) -> torch.Tensor:
+    """Full-sequence block of one prompt; leaves the trailing conv window
+    and the final SSD state in the slot so decoding continues from L."""
+    slen = x.shape[1]
+    out, xbc_raw, final_state = _mixer(
+        p, cfg, x, lambda *a: ssd_apply(*a, chunk=cfg.ssm_chunk))
 
     # overwrite, never update: a short prompt's window is zero-padded on the
     # left, as the reference's fresh row cache is

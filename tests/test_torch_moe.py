@@ -103,7 +103,7 @@ def test_moe_block_f32_matches_jax(models, s):
     want, _ = jax_moe.moe_block(jp, cfg, jnp.asarray(x))
     got = moe.moe_block(tp, pcfg, torch.from_numpy(x))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
-    _, mask, keep, _ = moe.route(tp, pcfg, torch.from_numpy(x))
+    _, _, mask, keep, _ = moe.route(tp, pcfg, torch.from_numpy(x))
     assert int((mask & ~keep).sum()) > 0  # the drops were exercised
 
 
@@ -117,7 +117,7 @@ def test_routing_mask_and_kept_set_equal_jax(models, s):
     jp, tp = _layer(tree)
     x = _hidden(100 + s, 4, s, cfg.d_model)
     probs, jmask, jkeep = _jax_routing(jp, cfg, x)
-    _, mask, keep, _ = moe.route(tp, pcfg, torch.from_numpy(x))
+    _, _, mask, keep, _ = moe.route(tp, pcfg, torch.from_numpy(x))
     ties = _near_ties(probs, cfg.n_experts_per_token)
     print(f"near-tie rows: {int(ties.sum())} of {ties.size}")
     np.testing.assert_array_equal(mask.numpy()[~ties], jmask[~ties])
@@ -138,7 +138,7 @@ def test_zero_router_admits_every_expert_as_jax(models):
     want, _ = jax_moe.moe_block(jp, cfg, jnp.asarray(x))
     got = moe.moe_block(tp, pcfg, torch.from_numpy(x))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
-    weights, mask, keep, _ = moe.route(tp, pcfg, torch.from_numpy(x))
+    _, weights, mask, keep, _ = moe.route(tp, pcfg, torch.from_numpy(x))
     assert bool(mask.all())
     torch.testing.assert_close(weights, torch.full_like(weights, 1 / cfg.n_experts))
     # capacity 4 of 12 tokens: each expert keeps the first 4 of each row
@@ -154,7 +154,7 @@ def test_moe_block_equals_the_naive_version(models, s):
     x = torch.from_numpy(_hidden(200 + s, 2, s, cfg.d_model))
     got = moe.moe_block(tp, pcfg, x)
     want, nmask, nkeep = moe.moe_block_naive(tp, pcfg, x)
-    _, mask, keep, _ = moe.route(tp, pcfg, x)
+    _, _, mask, keep, _ = moe.route(tp, pcfg, x)
     assert torch.equal(mask, nmask) and torch.equal(keep, nkeep)
     assert bool((nmask & ~nkeep).any())
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
@@ -176,7 +176,7 @@ def test_bf16_block_within_the_chip_gate_tolerance_of_naive():
     x = torch.from_numpy(_hidden(3, 1, 96, d)).bfloat16()
     got = moe.moe_block(p, cfg, x).float()
     want, nmask, nkeep = moe.moe_block_naive(p, cfg, x)
-    _, mask, keep, _ = moe.route(p, cfg, x)
+    _, _, mask, keep, _ = moe.route(p, cfg, x)
     assert torch.equal(mask, nmask) and torch.equal(keep, nkeep)
     assert bool((nmask & ~nkeep).any())
     allow = NAIVE_RTOL * want.abs() + NAIVE_ROW * want.abs().amax(-1, keepdim=True)
@@ -295,12 +295,11 @@ def test_bf16_differences_sit_on_thin_logit_or_routing_gaps(models, monkeypatch)
         return weights, mask
 
     def recording_route(p, cfg, x):
-        weights, mask, keep, pos = route(p, cfg, x)
-        probs = torch.softmax(x.float() @ p["router"].float(), -1)
+        probs, weights, mask, keep, pos = route(p, cfg, x)
         top = torch.sort(probs, dim=-1, descending=True).values
         tmasks.append(mask.numpy().copy())
         gaps.append((top[..., k - 1] - top[..., k]).numpy())
-        return weights, mask, keep, pos
+        return probs, weights, mask, keep, pos
 
     monkeypatch.setattr(jax_moe, "_top_k_mask", recording_top_k_mask)
     monkeypatch.setattr(moe, "route", recording_route)
